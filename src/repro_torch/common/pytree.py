@@ -1,0 +1,147 @@
+"""Flat parameter planes — the port's counterpart of
+``repro.common.pytree``.
+
+The reference keeps parameters and gradients as pytrees and maps every
+helper leaf by leaf. The port stores each agent's whole parameter set
+as one contiguous fp32 row, so a stack of agents is an (n, P) tensor
+and the eq. 4 share step is one kernel launch over every agent's
+store. A :class:`PlaneLayout` is the leaf table that maps between the
+two: leaf paths, shapes and offsets, in ``jax.tree_util.tree_flatten``
+order (dict keys sorted, lists in index order), so a test can flatten
+a reference pytree and a port tree the same way.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, List, Sequence, Tuple
+
+import torch
+
+Path = Tuple[Any, ...]
+
+
+def tree_leaves_with_paths(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
+    """(path, leaf) pairs of a nest of dicts / lists / tuples in
+    ``jax.tree_util`` order: dict keys sorted, sequences by index."""
+    if isinstance(tree, dict):
+        out = []
+        for key in sorted(tree):
+            out += tree_leaves_with_paths(tree[key], prefix + (key,))
+        return out
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        out = []
+        for i, sub in enumerate(tree):
+            out += tree_leaves_with_paths(sub, prefix + (i,))
+        return out
+    return [(prefix, tree)]
+
+
+def _build(skeleton, leaves_by_path: dict, prefix: Path = ()):
+    if isinstance(skeleton, dict):
+        return {k: _build(skeleton[k], leaves_by_path, prefix + (k,))
+                for k in skeleton}
+    if isinstance(skeleton, (list, tuple)):
+        return type(skeleton)(
+            _build(s, leaves_by_path, prefix + (i,))
+            for i, s in enumerate(skeleton))
+    return leaves_by_path[prefix]
+
+
+def _skeleton(tree):
+    if isinstance(tree, dict):
+        return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(_skeleton(v) for v in tree)
+    return None
+
+
+class PlaneLayout:
+    """Leaf table of one agent's parameter tree over a flat row.
+
+    ``paths[i]`` names leaf i, ``shapes[i]`` its per-agent shape and
+    ``offsets[i]`` where it starts in the row; ``size`` is P, the row
+    length. Leaves are laid out back to back with no padding.
+    """
+
+    def __init__(self, skeleton, paths: Sequence[Path],
+                 shapes: Sequence[Tuple[int, ...]]):
+        self.skeleton = skeleton
+        self.paths = tuple(paths)
+        self.shapes = tuple(tuple(s) for s in shapes)
+        sizes = [math.prod(s) for s in self.shapes]
+        self.offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+        self.sizes = tuple(sizes)
+        self.size = sum(sizes)
+
+    @classmethod
+    def from_tree(cls, tree, lead: int = 0) -> "PlaneLayout":
+        """Layout of ``tree``, whose leaves carry ``lead`` leading
+        (agent / slot) axes that are not part of the parameter."""
+        pairs = tree_leaves_with_paths(tree)
+        return cls(_skeleton(tree), [p for p, _ in pairs],
+                   [tuple(x.shape[lead:]) for _, x in pairs])
+
+    def flatten(self, tree) -> torch.Tensor:
+        """Concatenate a tree of this layout into flat rows. Each leaf
+        may carry the same leading axes (agents, ring slots, delay
+        planes); the result is (*lead, P)."""
+        pairs = tree_leaves_with_paths(tree)
+        if [p for p, _ in pairs] != list(self.paths):
+            raise ValueError(
+                f"tree leaves {[p for p, _ in pairs]} do not match the "
+                f"layout {list(self.paths)}")
+        parts = []
+        for (path, x), shape in zip(pairs, self.shapes):
+            x = torch.as_tensor(x)
+            lead = x.ndim - len(shape)
+            if lead < 0 or tuple(x.shape[lead:]) != shape:
+                raise ValueError(
+                    f"leaf {path} has shape {tuple(x.shape)}, expected "
+                    f"(..., {', '.join(map(str, shape))})")
+            parts.append(x.reshape(x.shape[:lead] + (-1,)))
+        return torch.cat(parts, dim=-1)
+
+    def unflatten(self, flat: torch.Tensor):
+        """The tree of views into ``flat`` (*lead, P): each leaf is
+        (*lead, *shape) and shares storage with the row, so gradients
+        through the views land in the flat tensor."""
+        if flat.shape[-1] != self.size:
+            raise ValueError(
+                f"flat rows have {flat.shape[-1]} elements, layout "
+                f"needs {self.size}")
+        leaves = {}
+        for path, off, size, shape in zip(self.paths, self.offsets,
+                                          self.sizes, self.shapes):
+            seg = flat[..., off:off + size]
+            leaves[path] = seg.unflatten(-1, shape) if shape else seg[..., 0]
+        return _build(self.skeleton, leaves)
+
+
+def global_norm_clip(grads: torch.Tensor, max_norm: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global-norm clipping of every agent row on its own; returns
+    (clipped, norm). The reference clips per agent because its
+    optimizer update is vmapped over agents, so the norm is taken over
+    the last axis, never over the whole (n, P) stack."""
+    norm = torch.sqrt(torch.sum(grads * grads, dim=-1))
+    # a true division: Python's ``float / tensor`` is evaluated as
+    # reciprocal-then-multiply, one rounding more than the reference
+    limit = torch.as_tensor(max_norm, dtype=norm.dtype, device=norm.device)
+    scale = torch.clamp_max(limit / (norm + 1e-6), 1.0)
+    return grads * scale.unsqueeze(-1), norm
+
+
+def tree_select(pred: torch.Tensor, a, b):
+    """Leafwise ``where(pred, a, b)`` over matching nests of tensors,
+    dicts, lists and NamedTuples; ``pred`` (n,) broadcasts over each
+    leaf's trailing axes."""
+    if isinstance(a, torch.Tensor):
+        p = pred.reshape(pred.shape + (1,) * (a.ndim - pred.ndim))
+        return torch.where(p, a, b)
+    if isinstance(a, dict):
+        return {k: tree_select(pred, a[k], b[k]) for k in a}
+    if hasattr(a, "_fields"):
+        return type(a)(*(tree_select(pred, x, y) for x, y in zip(a, b)))
+    if isinstance(a, (list, tuple)):
+        return type(a)(tree_select(pred, x, y) for x, y in zip(a, b))
+    raise TypeError(f"tree_select: unsupported node {type(a).__name__}")

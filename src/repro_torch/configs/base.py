@@ -1,0 +1,268 @@
+"""DDAL group configuration (paper §5) — the port's copy of
+``repro.configs.base.GroupSpec``.
+
+The fields, defaults and validation are the reference's, so a spec
+that the reference rejects is rejected here with the same
+``ValueError``. On top of that, a field whose behaviour the port does
+not implement yet is refused at construction with a
+:class:`NotPortedError` naming the field, so an unported option is
+never silently ignored. ``ArchConfig`` (the LLM model zoo) is not
+copied: no port slice uses it yet.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+TOPOLOGIES = ("full", "ring", "torus2d", "star", "random_k",
+              "hierarchical")
+RELEVANCE_MODES = ("uniform", "grad_cos")
+
+# Every strategy key the reference's registries know. A key outside
+# these is a configuration error (ValueError); a key inside them that
+# the port's registries lack is a NotPortedError.
+REFERENCE_STRATEGIES = {
+    "schedule": ("dynamic", "relevance_topk", "static"),
+    "estimator": ("grad_cos", "grad_cos+sketch", "obs_stats", "uniform"),
+    "delay": ("hops", "none", "uniform"),
+    "combiner": ("flat", "pod", "store"),
+    "transport": ("faulty", "none"),
+}
+
+
+class NotPortedError(NotImplementedError):
+    """A ``GroupSpec`` field asks for reference behaviour that the
+    PyTorch port does not implement yet."""
+
+
+def validate_choice(family: str, name: str) -> None:
+    """``"auto"`` or a strategy key the reference registers; anything
+    else raises naming the valid choices."""
+    if name == "auto":
+        return
+    choices = REFERENCE_STRATEGIES[family]
+    if name not in choices:
+        raise ValueError(
+            f"unknown {family} strategy {name!r}; expected 'auto' or "
+            f"one of {choices}")
+
+
+@dataclass(frozen=True)
+class GroupSpec:
+    """DDAL group-agent training configuration (paper §5).
+
+    Invalid combinations raise ``ValueError`` at construction, exactly
+    as the reference does; valid fields that select behaviour the port
+    lacks raise :class:`NotPortedError`.
+    """
+    n_agents: int = 1
+    threshold: int = 1_000       # warm-up epochs of independent learning
+    minibatch: int = 100         # share/update cadence (paper's name)
+    m_pieces: int = 8            # pieces retrieved from K_i ∪ K_-i
+    knowledge_mode: str = "buffer"   # buffer | streaming (LLM-scale)
+    knowledge_dtype: str = "float32"
+    topology: str = "full"       # full | ring | torus2d | star |
+                                 # random_k | hierarchical
+    degree: int = 4              # k for random_k; pod size for hierarchical
+    pods: int = 0
+    pod_axis: str = "pod"
+    topology_seed: int = 0       # seed for random_k gossip sampling
+    resample_every: int = 0
+    max_delay: int = 0           # async staleness simulation (epochs)
+    t_weighting: str = "epochs"  # T_j source
+    r_weighting: str = "uniform" # R_j source (paper §6 uses uniform)
+    relevance_mode: str = "uniform"
+    relevance_ema: float = 0.9
+    relevance_sketch_dim: int = 0
+    exchange_schedule: str = "auto"
+    exchange_estimator: str = "auto"
+    exchange_delay: str = "auto"
+    exchange_combiner: str = "auto"
+    explore_eps: float = 0.1
+    elastic: bool = False
+    knowledge_quant_block: int = 0
+    transport_loss: float = 0.0
+    transport_dup: float = 0.0
+    transport_corrupt: float = 0.0
+    transport_jitter: int = 0
+    transport_retransmit: int = 0
+    transport_seed: int = 0
+    transport_horizon: int = 256
+    transport_decay: float = 1.0
+    max_staleness: Optional[int] = None
+    exchange_transport: str = "auto"
+
+    def __post_init__(self):
+        self._validate_as_reference()
+        self._reject_unported()
+
+    def _validate_as_reference(self):
+        if self.topology not in TOPOLOGIES:
+            raise ValueError(
+                f"unknown topology {self.topology!r}; expected one of "
+                f"{TOPOLOGIES}")
+        if self.relevance_mode not in RELEVANCE_MODES:
+            raise ValueError(
+                f"unknown relevance_mode {self.relevance_mode!r}; "
+                f"expected one of {RELEVANCE_MODES}")
+        if self.resample_every < 0:
+            raise ValueError(
+                f"resample_every must be >= 0, got {self.resample_every}")
+        if self.resample_every > 0 and self.topology != "random_k":
+            raise ValueError(
+                f"resample_every > 0 needs topology='random_k', got "
+                f"{self.topology!r}")
+        validate_choice("schedule", self.exchange_schedule)
+        validate_choice("estimator", self.exchange_estimator)
+        validate_choice("delay", self.exchange_delay)
+        validate_choice("combiner", self.exchange_combiner)
+        if self.exchange_schedule == "relevance_topk":
+            if self.topology != "random_k" or self.resample_every < 1:
+                raise ValueError(
+                    "exchange_schedule='relevance_topk' resamples a "
+                    "gossip graph and needs topology='random_k' with "
+                    "resample_every >= 1, got "
+                    f"topology={self.topology!r}, "
+                    f"resample_every={self.resample_every}")
+        if self.exchange_schedule == "static" and self.resample_every:
+            raise ValueError(
+                "exchange_schedule='static' pins a fixed graph but "
+                f"resample_every={self.resample_every} requests "
+                "resampling — drop one of them")
+        if not 0.0 <= self.explore_eps <= 1.0:
+            raise ValueError(
+                f"explore_eps must be in [0, 1], got {self.explore_eps}")
+        if self.topology == "random_k":
+            if not 1 <= self.degree < max(self.n_agents, 2):
+                raise ValueError(
+                    f"random_k degree must satisfy 1 <= degree < "
+                    f"n_agents (self-loop included; use topology="
+                    f"'full' for k = n), got degree={self.degree} "
+                    f"with n_agents={self.n_agents}")
+        if not 0.0 <= self.relevance_ema < 1.0:
+            raise ValueError(
+                f"relevance_ema must be in [0, 1), got "
+                f"{self.relevance_ema}")
+        if self.relevance_sketch_dim < 0:
+            raise ValueError(
+                f"relevance_sketch_dim must be >= 0 (0 = exact "
+                f"pairwise cosines), got {self.relevance_sketch_dim}")
+        if (self.exchange_estimator not in ("auto", "grad_cos+sketch")
+                and self.relevance_sketch_dim > 0):
+            raise ValueError(
+                f"exchange_estimator={self.exchange_estimator!r} "
+                "does not sketch and would silently ignore "
+                f"relevance_sketch_dim={self.relevance_sketch_dim} — "
+                "use 'grad_cos+sketch' (or drop the dim)")
+        if (self.relevance_sketch_dim > 0
+                and self.relevance_mode != "grad_cos"
+                and self.exchange_estimator != "grad_cos+sketch"):
+            raise ValueError(
+                f"relevance_sketch_dim > 0 sketches the grad_cos "
+                f"estimator and needs relevance_mode='grad_cos' (or "
+                f"exchange_estimator='grad_cos+sketch'), got "
+                f"{self.relevance_mode!r}")
+        if self.pods < 0:
+            raise ValueError(f"pods must be >= 0, got {self.pods}")
+        if self.pods > 0:
+            if self.topology != "hierarchical":
+                raise ValueError(
+                    f"pods > 0 maps hierarchical pods onto a two-level "
+                    f"mesh and needs topology='hierarchical', got "
+                    f"{self.topology!r}")
+            if self.n_agents != self.pods * self.degree:
+                raise ValueError(
+                    f"pod dispatch needs n_agents == pods * degree "
+                    f"(uniform pods of `degree` agents), got "
+                    f"n_agents={self.n_agents}, pods={self.pods}, "
+                    f"degree={self.degree}")
+            if (not self.pod_axis
+                    or not isinstance(self.pod_axis, str)
+                    or self.pod_axis == "agent"):
+                raise ValueError(
+                    f"pod_axis must be a non-empty mesh axis name "
+                    f"distinct from the intra-pod 'agent' axis, got "
+                    f"{self.pod_axis!r}")
+        qb = self.knowledge_quant_block
+        if qb < 0:
+            raise ValueError(
+                f"knowledge_quant_block must be >= 0, got {qb}")
+        if qb > 0 and (qb % 128 != 0 or 8192 % qb != 0):
+            raise ValueError(
+                f"knowledge_quant_block must be a multiple of 128 "
+                f"dividing 8192 (one scale per whole sublane row group "
+                f"of the wavg kernel tile), got {qb}")
+        for name in ("transport_loss", "transport_dup",
+                     "transport_corrupt"):
+            p = getattr(self, name)
+            if not 0.0 <= p <= 1.0:
+                raise ValueError(
+                    f"{name} is a per-message probability and must be "
+                    f"in [0, 1], got {p}")
+        if self.transport_jitter < 0:
+            raise ValueError(
+                f"transport_jitter must be >= 0 (max extra delivery "
+                f"delay in epochs), got {self.transport_jitter}")
+        if not 0 <= self.transport_retransmit <= 8:
+            raise ValueError(
+                f"transport_retransmit must be in [0, 8] (the delay "
+                f"line grows by the 2^budget - 1 worst-case backoff), "
+                f"got {self.transport_retransmit}")
+        if self.transport_horizon < 1:
+            raise ValueError(
+                f"transport_horizon must be >= 1 (planned epochs "
+                f"before the fault history replays), got "
+                f"{self.transport_horizon}")
+        if not 0.0 < self.transport_decay <= 1.0:
+            raise ValueError(
+                f"transport_decay must be in (0, 1] (per-epoch "
+                f"staleness discount; 1.0 = none), got "
+                f"{self.transport_decay}")
+        if self.max_staleness is not None and self.max_staleness < 1:
+            raise ValueError(
+                f"max_staleness must be >= 1 (epochs; None disables "
+                f"the cutoff), got {self.max_staleness}")
+        validate_choice("transport", self.exchange_transport)
+        if self.exchange_transport == "none" and (
+                self.transport_loss > 0 or self.transport_dup > 0
+                or self.transport_corrupt > 0
+                or self.transport_jitter > 0):
+            raise ValueError(
+                "exchange_transport='none' would silently ignore the "
+                "nonzero transport fault knobs (loss="
+                f"{self.transport_loss}, dup={self.transport_dup}, "
+                f"corrupt={self.transport_corrupt}, jitter="
+                f"{self.transport_jitter}) — use 'faulty' (or 'auto') "
+                "or zero the rates")
+
+    def _reject_unported(self):
+        # deferred: the exchange registries import this module
+        from repro_torch.core.exchange.registry import REGISTRIES
+        for family in ("schedule", "estimator", "delay", "combiner",
+                       "transport"):
+            key = getattr(self, f"exchange_{family}")
+            if key != "auto" and key not in REGISTRIES[family]:
+                raise NotPortedError(
+                    f"exchange_{family}={key!r} is not ported yet; the "
+                    f"port has {REGISTRIES[family].choices}")
+        unported = [
+            ("knowledge_mode", self.knowledge_mode != "buffer"),
+            ("resample_every", self.resample_every > 0),
+            ("relevance_mode", self.relevance_mode != "uniform"),
+            ("relevance_sketch_dim", self.relevance_sketch_dim > 0),
+            ("pods", self.pods > 0),
+            ("elastic", self.elastic),
+            ("knowledge_quant_block", self.knowledge_quant_block > 0),
+            ("transport_loss", self.transport_loss > 0),
+            ("transport_dup", self.transport_dup > 0),
+            ("transport_corrupt", self.transport_corrupt > 0),
+            ("transport_jitter", self.transport_jitter > 0),
+            ("transport_retransmit", self.transport_retransmit > 0),
+            ("transport_decay", self.transport_decay < 1.0),
+            ("max_staleness", self.max_staleness is not None),
+        ]
+        for field, asked in unported:
+            if asked:
+                raise NotPortedError(
+                    f"GroupSpec.{field}={getattr(self, field)!r} is not "
+                    f"ported to repro_torch yet")

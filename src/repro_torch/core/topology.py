@@ -1,0 +1,251 @@
+"""Static communication topologies for DDAL — the port of the static
+part of ``repro.core.topology``.
+
+A ``Topology`` is a neighbor index table: for every destination agent
+``i``, ``nbr[i, j]`` names the source feeding its ``j``-th incoming
+edge slot, with a validity ``mask`` for non-uniform in-degrees and
+per-edge ``delay`` / ``relevance`` annotations. The reference builds
+these tables on the host with numpy, and so does the port, with the
+same code: the tables are bitwise-equal and stay numpy arrays, which
+the delay-line code reads on the host. Every constructor includes the
+self-loop edge.
+
+Time-varying gossip (``DynamicTopology``, ``sample_gossip``) and the
+pod placement helpers wait for later slices.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+
+
+class Topology(NamedTuple):
+    """Sparse communication graph over ``n`` agents.
+
+    nbr:       (n, k) int32 — ``nbr[i, j]`` = source agent of dst i's
+               j-th incoming edge (arbitrary value where masked out).
+    mask:      (n, k) bool — which edge slots are real edges.
+    delay:     (n, k) int32 — per-edge delivery delay in epochs.
+    relevance: (n, k) float32 — per-edge relevance R[src→dst].
+    """
+    nbr: np.ndarray
+    mask: np.ndarray
+    delay: np.ndarray
+    relevance: np.ndarray
+
+    @property
+    def n_agents(self) -> int:
+        return self.nbr.shape[0]
+
+    @property
+    def degree(self) -> int:
+        """Max in-degree k (the padded edge-slot count)."""
+        return self.nbr.shape[1]
+
+    @property
+    def n_edges(self) -> int:
+        return int(self.mask.sum())
+
+    @property
+    def max_delay(self) -> int:
+        return int(np.max(self.delay * self.mask))
+
+    def with_delay(self, delay, per_edge: bool = False) -> "Topology":
+        """Attach delays: a scalar, an (n, n) src→dst matrix (gathered
+        onto the edge table), or an (n, k) per-edge array; with k == n
+        the dense reading wins unless ``per_edge=True``."""
+        n, k = self.nbr.shape
+        d = np.asarray(delay).astype(np.int32)
+        if d.ndim == 0:
+            d = np.full((n, k), d, np.int32)
+        elif d.shape == (n, n) and not per_edge:
+            d = d[self.nbr, np.arange(n)[:, None]]
+        elif d.shape != (n, k):
+            raise ValueError(f"delay shape {d.shape} != (), ({n},{n}) "
+                             f"or ({n},{k})")
+        return self._replace(delay=np.where(self.mask, d, 0)
+                             .astype(np.int32))
+
+    def with_relevance(self, relevance,
+                       per_edge: bool = False) -> "Topology":
+        """Attach relevance: an (n, n) matrix R[src, dst] (gathered
+        onto the edge table) or an (n, k) per-edge array."""
+        n, k = self.nbr.shape
+        r = np.asarray(relevance).astype(np.float32)
+        if r.shape == (n, n) and not per_edge:
+            r = r[self.nbr, np.arange(n)[:, None]]
+        elif r.shape != (n, k):
+            raise ValueError(f"relevance shape {r.shape} != ({n},{n}) "
+                             f"or ({n},{k})")
+        return self._replace(relevance=np.where(self.mask, r, 0.0)
+                             .astype(np.float32))
+
+
+def _from_neighbor_lists(nbrs: Sequence[Sequence[int]]) -> Topology:
+    """A padded (n, k) table from per-dst in-neighbor lists. A repeated
+    source would double-count its plane in every eq. 4 sum, so it is a
+    construction error."""
+    n = len(nbrs)
+    k = max(1, max(len(v) for v in nbrs))
+    nbr = np.zeros((n, k), np.int32)
+    mask = np.zeros((n, k), bool)
+    for i, v in enumerate(nbrs):
+        if len(set(v)) != len(v):
+            raise ValueError(
+                f"duplicate in-neighbor for destination {i}: {v} — "
+                f"a repeated source double-counts its plane in eq. 4")
+        nbr[i, :len(v)] = v
+        mask[i, :len(v)] = True
+    return Topology(nbr=nbr, mask=mask,
+                    delay=np.zeros((n, k), np.int32),
+                    relevance=mask.astype(np.float32))
+
+
+def full(n: int) -> Topology:
+    """All-to-all: k = n, ``nbr[i, j] = j``."""
+    return _from_neighbor_lists([list(range(n)) for _ in range(n)])
+
+
+def ring(n: int) -> Topology:
+    """Bidirectional ring: each agent hears itself and its two ring
+    neighbours."""
+    return _from_neighbor_lists(
+        [sorted({(i - 1) % n, i, (i + 1) % n}) for i in range(n)])
+
+
+def torus2d(rows: int, cols: int) -> Topology:
+    """2-D torus (rows × cols, wrap-around): self + the 4-mesh
+    neighbourhood."""
+    n = rows * cols
+    nbrs = []
+    for i in range(n):
+        r, c = divmod(i, cols)
+        nbrs.append(sorted({
+            i,
+            ((r - 1) % rows) * cols + c,
+            ((r + 1) % rows) * cols + c,
+            r * cols + (c - 1) % cols,
+            r * cols + (c + 1) % cols,
+        }))
+    return _from_neighbor_lists(nbrs)
+
+
+def star(n: int, hub: int = 0) -> Topology:
+    """Hub-and-spoke: every leaf exchanges with the hub only."""
+    nbrs = []
+    for i in range(n):
+        if i == hub:
+            nbrs.append(list(range(n)))
+        else:
+            nbrs.append(sorted({i, hub}))
+    return _from_neighbor_lists(nbrs)
+
+
+def random_k(n: int, k: int, seed: int = 0) -> Topology:
+    """Seeded gossip graph: each destination hears itself plus k−1
+    distinct uniformly drawn other agents (numpy's generator, so the
+    table is the reference's bit for bit)."""
+    if k < 1:
+        raise ValueError("random_k needs k >= 1 (the self-loop)")
+    k = min(k, n)
+    rng = np.random.default_rng(seed)
+    nbrs = []
+    for i in range(n):
+        others = np.delete(np.arange(n), i)
+        pick = rng.choice(others, size=k - 1, replace=False)
+        nbrs.append(sorted({i, *pick.tolist()}))
+    return _from_neighbor_lists(nbrs)
+
+
+def hierarchical(n: int, pod_size: int = 4) -> Topology:
+    """Pods-of-pods: all-to-all inside each pod; the first agent of each
+    pod is a leader, also wired all-to-all with the other leaders."""
+    pod_size = max(1, min(pod_size, n))
+    leaders = list(range(0, n, pod_size))
+    nbrs = []
+    for i in range(n):
+        pod = i // pod_size
+        members = list(range(pod * pod_size, min((pod + 1) * pod_size, n)))
+        s = set(members) | {i}
+        if i in leaders:
+            s |= set(leaders)
+        nbrs.append(sorted(s))
+    return _from_neighbor_lists(nbrs)
+
+
+def hop_distances(topo: Topology) -> np.ndarray:
+    """All-pairs directed hop count (``dist[src, dst]``) by BFS over the
+    table; raises on a disconnected pair."""
+    n = topo.n_agents
+    out = [[] for _ in range(n)]
+    for dst in range(n):
+        for j in range(topo.degree):
+            if topo.mask[dst, j]:
+                out[int(topo.nbr[dst, j])].append(dst)
+    dist = np.full((n, n), -1, np.int64)
+    for s in range(n):
+        dist[s, s] = 0
+        frontier = [s]
+        d = 0
+        while frontier:
+            d += 1
+            nxt = []
+            for u in frontier:
+                for v in out[u]:
+                    if dist[s, v] < 0:
+                        dist[s, v] = d
+                        nxt.append(v)
+            frontier = nxt
+    if (dist < 0).any():
+        bad = np.argwhere(dist < 0)[0]
+        raise ValueError(
+            f"graph is not strongly connected: no path "
+            f"{int(bad[0])}→{int(bad[1])}; hop delays are undefined")
+    return dist
+
+
+def delay_from_hops(topo: Topology, latency: int = 1,
+                    graph: Optional[Topology] = None) -> Topology:
+    """Each edge of ``topo`` gets delay ``hops(src→dst) · latency``,
+    measured on ``graph`` (default: ``topo`` itself)."""
+    if latency < 0:
+        raise ValueError(f"latency must be >= 0, got {latency}")
+    hops = hop_distances(topo if graph is None else graph)
+    return topo.with_delay((hops * latency).astype(np.int32))
+
+
+def _torus_dims(n: int):
+    """Most-square rows × cols factorisation of n."""
+    r = int(math.isqrt(n))
+    while n % r:
+        r -= 1
+    return r, n // r
+
+
+def make_topology(spec, delay=None, relevance=None) -> Topology:
+    """The static topology named by a ``GroupSpec`` (``topology``,
+    ``degree``, ``topology_seed``), with optional dense or per-edge
+    ``delay`` / ``relevance`` overrides attached."""
+    n = spec.n_agents
+    name = spec.topology
+    if name == "full":
+        topo = full(n)
+    elif name == "ring":
+        topo = ring(n)
+    elif name == "torus2d":
+        topo = torus2d(*_torus_dims(n))
+    elif name == "star":
+        topo = star(n)
+    elif name == "random_k":
+        topo = random_k(n, spec.degree, spec.topology_seed)
+    elif name == "hierarchical":
+        topo = hierarchical(n, pod_size=spec.degree)
+    else:
+        raise ValueError(f"unknown topology {name!r}")
+    if relevance is not None:
+        topo = topo.with_relevance(relevance)
+    if delay is not None:
+        topo = topo.with_delay(delay)
+    return topo

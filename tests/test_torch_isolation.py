@@ -1,0 +1,56 @@
+"""The port stands alone: importing every ``repro_torch`` module and
+``chip_smoke`` brings in neither JAX nor the reference package, and
+builds or loads no CUDA code."""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+CHECK = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke                      # guarded by __main__: does not run
+leaked = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                or m == "repro" or m.startswith("repro."))
+assert not leaked, leaked
+assert "torch.utils.cpp_extension" not in sys.modules
+from repro_torch.kernels import cuda_build
+assert not cuda_build._loaded
+print(len(names))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    res = subprocess.run([sys.executable, "-c", CHECK], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_no_jax_or_reference_import_lines_in_the_port():
+    """The acceptance grep: no line of the port or of chip_smoke.py
+    imports jax or the reference package."""
+    import re
+    pat = re.compile(r"^\s*(import jax|from jax|import repro\b|"
+                     r"from repro\.|from repro import)")
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pat.match(line)]
+    assert not hits, hits

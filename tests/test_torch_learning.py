@@ -1,0 +1,220 @@
+"""Port parity for the whole DDA3C loop at the paper's width (A2C,
+hidden 64) with real gradients, and the two trainers' return curves.
+
+The test runs the reference's DDAL with the reference's own episode,
+loss and gradients, and records each epoch's initial states and action
+draws. The port's DDAL replays them through its ``reset`` and action
+sampler, so both trainers see the same episodes: the returns, the
+parameters and the AdamW state are held after every epoch, through
+warm-up, share and hold epochs.
+
+Run as a script, it trains both trainers on the CPU with their own
+random draws and prints their return curves side by side:
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_learning.py \\
+        --epochs 300 --threshold 100 --minibatch 50
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro import optim as ref_optim  # noqa: E402
+from repro.configs.base import GroupSpec as RefSpec  # noqa: E402
+from repro.core import DDAL as RefDDAL  # noqa: E402
+from repro.rl import a2c as ref_a2c  # noqa: E402
+from repro.rl import envs as ref_envs  # noqa: E402
+from repro.rl import networks as ref_nets  # noqa: E402
+from repro.rl import rollout as ref_rollout  # noqa: E402
+from repro_torch import interop, optim  # noqa: E402
+from repro_torch.configs.base import GroupSpec  # noqa: E402
+from repro_torch.core.ddal import DDAL  # noqa: E402
+from repro_torch.rl import a2c, envs  # noqa: E402
+
+GAMMA, ENTROPY, LR = 0.99, 0.01, 3e-3
+
+
+def _recording_gen_grads(env):
+    """The reference's A2C ``gen_grads``, also returning the episode's
+    initial state and actions in its metrics."""
+
+    def gen_grads(state, key):
+        def select(obs, k):
+            return jax.random.categorical(
+                k, ref_nets.policy_logits(state.params, obs))
+
+        traj = ref_rollout.run_episode(env, select, key)
+        loss, grads = jax.value_and_grad(ref_a2c.a2c_loss)(
+            state.params, traj, GAMMA, entropy_coef=ENTROPY)
+        return grads, {"loss": loss,
+                       "return": ref_rollout.episode_return(traj),
+                       "s0": traj.obs[0], "actions": traj.actions}, state
+
+    return gen_grads
+
+
+class _Replay:
+    """One epoch's reference draws, fed to the port's hooks."""
+
+    def __init__(self):
+        self.s0 = self.actions = None
+        self.t = 0
+
+    def load(self, metrics):
+        self.s0 = np.array(metrics["s0"])                  # (n, 4)
+        self.actions = np.array(metrics["actions"]).astype(np.int64)
+        self.t = 0
+
+    def reset_state(self):
+        n = self.s0.shape[0]
+        return envs.CartPoleState(
+            *(torch.from_numpy(np.ascontiguousarray(self.s0[:, i]))
+              for i in range(4)),
+            torch.zeros(n, dtype=torch.int32),
+            torch.zeros(n, dtype=torch.bool))
+
+    def sample(self, logits, gen):
+        a = torch.from_numpy(self.actions[:, self.t])
+        self.t += 1
+        return a
+
+
+@pytest.mark.parametrize("n,kw,updates", [
+    (2, dict(topology="full"), 5),
+    (4, dict(topology="ring", exchange_delay="uniform", max_delay=1), 4),
+], ids=["n2-full", "n4-ring-delay1"])
+def test_full_loop_with_real_gradients_matches_reference(n, kw, updates,
+                                                         monkeypatch):
+    """Seven epochs at hidden 64 (warm-up, share and hold epochs) on the
+    reference's episodes: identical returns; losses, parameters and
+    AdamW moments within rtol 1e-5.
+
+    Tolerance: the observations agree to rel 1e-6 only (the two
+    libraries' fp32 sin/cos differ by 1 ulp), and the loss sums 100
+    masked steps in another order, so a gradient element that cancels
+    to near zero carries an error on the scale of its largest
+    elements; the moments get an absolute floor of 1e-6 of their
+    largest element, as the a2c gradient test has. Where such an
+    element is ~1e-9 (a nearly dead ReLU unit), AdamW's step
+    lr·m̂/(√v̂ + 1e-8) is at its steepest in the gradient, so a rounding
+    difference there moves the parameter by up to ~5e-4·lr (seen:
+    1.5e-6 on 4 of 36,620 elements); the parameters get an absolute
+    floor of 1e-3·lr."""
+    spec_kw = dict(n_agents=n, threshold=2, minibatch=2, m_pieces=4, **kw)
+    ref_env = ref_envs.CartPole()
+    ref_opt = ref_optim.adamw(LR)
+    states = jax.vmap(lambda k: ref_a2c.init_a2c(k, ref_env, ref_opt))(
+        jax.random.split(jax.random.PRNGKey(0), n))
+    _, app, pof = ref_a2c.make_a2c_callbacks(ref_env, ref_opt)
+    ref_ddal = RefDDAL(RefSpec(**spec_kw), _recording_gen_grads(ref_env),
+                       app, pof)
+    ref_gs = ref_ddal.init(states)
+    ref_step = jax.jit(ref_ddal.epoch_step)
+
+    replay = _Replay()
+
+    class ReplayCartPole(envs.CartPole):
+        def reset(self, gen, n):
+            return replay.reset_state()
+
+    monkeypatch.setattr(a2c, "sample_categorical", replay.sample)
+    np_states = jax.tree.map(np.asarray, states)
+    _, layout = interop.flat_params(np_states.params)
+    assert layout.size == 9155
+    opt = optim.adamw(LR)
+    cbs = a2c.make_a2c_callbacks(ReplayCartPole(), opt, layout,
+                                 gamma=GAMMA, entropy_coef=ENTROPY)
+    ddal = DDAL(GroupSpec(**spec_kw), *cbs, device="cpu")
+    gs = ddal.init(interop.a2c_state(np_states, layout))
+
+    for epoch in range(7):
+        ref_gs, ref_m = ref_step(ref_gs, jax.random.split(
+            jax.random.PRNGKey(100 + epoch), n))
+        replay.load(ref_m)
+        gs, m = ddal.epoch_step(gs, None)
+        assert replay.t == ref_env.max_steps
+        np.testing.assert_array_equal(m["return"].numpy(),
+                                      np.asarray(ref_m["return"]))
+        np.testing.assert_allclose(m["loss"].numpy(),
+                                   np.asarray(ref_m["loss"]), rtol=1e-5,
+                                   atol=1e-6, err_msg=f"loss {epoch}")
+        want = interop.a2c_state(jax.tree.map(np.asarray,
+                                              ref_gs.agent_states), layout)
+        got = gs.agent_states
+        np.testing.assert_allclose(got.params.numpy(), want.params.numpy(),
+                                   rtol=1e-5, atol=1e-3 * LR,
+                                   err_msg=f"params {epoch}")
+        for key in ("m", "v"):
+            w = want.opt_state[key].numpy()
+            np.testing.assert_allclose(
+                got.opt_state[key].numpy(), w, rtol=1e-5,
+                atol=1e-6 * float(np.abs(w).max()),
+                err_msg=f"{key} {epoch}")
+        np.testing.assert_array_equal(got.step.numpy(), want.step.numpy())
+    # epochs 0, 1 independent; 2, 4, 6 share; 3, 5 hold. Pieces are
+    # sent from epoch 2 on; with a delay of 1 the first arrive in epoch
+    # 3, so the share step of epoch 2 finds Σw = 0 and skips the update
+    assert gs.agent_states.step.tolist() == [updates] * n
+
+
+def _ref_curve(spec_kw, epochs, seed):
+    from repro.rl import make_a2c_group
+    key = jax.random.PRNGKey(seed)
+    ddal, gs = make_a2c_group(ref_envs.CartPole(), ref_optim.adamw(LR),
+                              RefSpec(**spec_kw), key)
+    _, metrics = jax.jit(lambda g, k: ddal.run(g, k, epochs))(
+        gs, jax.random.fold_in(key, 1))
+    return np.asarray(metrics["return"])
+
+
+def _port_curve(spec_kw, epochs, seed):
+    gen = torch.Generator().manual_seed(seed)
+    ddal, gs = a2c.make_a2c_group(envs.CartPole(), optim.adamw(LR),
+                                  GroupSpec(**spec_kw), gen, device="cpu")
+    _, metrics = ddal.run(gs, gen, epochs)
+    return metrics["return"].numpy()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--agents", type=int, default=2)
+    ap.add_argument("--epochs", type=int, default=300)
+    ap.add_argument("--threshold", type=int, default=100)
+    ap.add_argument("--minibatch", type=int, default=50)
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
+    args = ap.parse_args()
+    spec_kw = dict(n_agents=args.agents, threshold=args.threshold,
+                   minibatch=args.minibatch, m_pieces=32, topology="full")
+    print(f"config: {spec_kw}, {args.epochs} epochs, A2C hidden 64, "
+          f"adamw(3e-3), CartPole-v0 (100 steps); both on the CPU")
+    for seed in args.seeds:
+        for name, fn in (("reference", _ref_curve), ("port", _port_curve)):
+            t0 = time.perf_counter()
+            r = fn(spec_kw, args.epochs, seed)
+            secs = time.perf_counter() - t0
+            blocks = r.reshape(10, -1, r.shape[1]).mean(axis=1)
+            print(f"seed {seed} {name} ({secs:.1f} s)")
+            print(f"  first 10 epochs, per agent: "
+                  f"{r[:10].T.astype(int).tolist()}")
+            print(f"  mean per {args.epochs // 10} epochs, "
+                  f"agents averaged: {np.round(blocks.mean(1), 2).tolist()}")
+            after = (f"{r[args.threshold:].mean():.2f}"
+                     if args.threshold < args.epochs else "-")
+            print(f"  mean before sharing {r[:args.threshold].mean():.2f}, "
+                  f"after {after}, last 100 "
+                  f"{r[-100:].mean():.2f} (per agent "
+                  f"{np.round(r[-100:].mean(0), 2).tolist()}; below 12, "
+                  f"i.e. stuck on one action: "
+                  f"{int((r[-100:].mean(0) < 12).sum())}), epochs at "
+                  f"100: {int((r >= 100).sum())} of {r.size}")
+
+
+if __name__ == "__main__":
+    main()
