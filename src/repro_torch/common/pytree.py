@@ -101,6 +101,13 @@ class PlaneLayout:
             parts.append(x.reshape(x.shape[:lead] + (-1,)))
         return torch.cat(parts, dim=-1)
 
+    def blocks(self, q_block: int) -> "BlockLayout":
+        """The int8 block layout of a row of this layout: ``q_block``
+        consecutive elements of each leaf share one fp32 scale, and
+        the blocks restart at every leaf, as the reference's
+        ``quantize_tree`` blocks each leaf on its own."""
+        return BlockLayout(self.offsets, self.sizes, q_block)
+
     def unflatten(self, flat: torch.Tensor):
         """The tree of views into ``flat`` (*lead, P): each leaf is
         (*lead, *shape) and shares storage with the row, so gradients
@@ -115,6 +122,61 @@ class PlaneLayout:
             seg = flat[..., off:off + size]
             leaves[path] = seg.unflatten(-1, shape) if shape else seg[..., 0]
         return _build(self.skeleton, leaves)
+
+
+class BlockLayout:
+    """Where the int8 scale of every element of a flat row lives.
+
+    Leaf i of the row (elements ``offsets[i]`` to ``offsets[i] +
+    sizes[i]``) is cut into ⌈size / q_block⌉ blocks whose scales are
+    the columns from ``scale_offsets[i]`` on; ``n_blocks`` is the
+    number of scale columns of a row (76 for the paper's A2C at
+    ``q_block=128``). A leaf's last block may be short, so the scale
+    column of element p is ``scale_offsets[leaf] + (p - offsets[leaf])
+    // q_block``, not ``p // q_block``.
+
+    The maps behind that, as index arrays: ``columns`` (P,) — each
+    element's scale column; ``padded`` (n_blocks · q_block,) — the row
+    element in each slot of the zero-padded block grid, ``P`` for a
+    pad slot; ``unpadded`` (P,) — each element's slot in that grid.
+    """
+
+    def __init__(self, offsets: Sequence[int], sizes: Sequence[int],
+                 q_block: int):
+        if q_block <= 0:
+            raise ValueError(f"q_block must be > 0, got {q_block}")
+        self.q_block = int(q_block)
+        self.offsets = tuple(offsets)
+        self.sizes = tuple(sizes)
+        self.size = sum(self.sizes)
+        nbs = [-(-s // self.q_block) for s in self.sizes]
+        self.scale_offsets = tuple(sum(nbs[:i]) for i in range(len(nbs)))
+        self.n_blocks = sum(nbs)
+        cols, padded, unpadded = [], [], []
+        for off, size, nb, soff in zip(self.offsets, self.sizes, nbs,
+                                       self.scale_offsets):
+            local = torch.arange(size, dtype=torch.int64)
+            cols.append(soff + local // self.q_block)
+            unpadded.append(soff * self.q_block + local)
+            slot = torch.full((nb * self.q_block,), self.size,
+                              dtype=torch.int64)
+            slot[:size] = off + local
+            padded.append(slot)
+        cat = (lambda xs: torch.cat(xs) if xs
+               else torch.zeros((0,), dtype=torch.int64))
+        self.columns = cat(cols).to(torch.int32)
+        self.padded = cat(padded)
+        self.unpadded = cat(unpadded)
+        self._on: dict = {}
+
+    def on(self, device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(columns, padded, unpadded) on ``device``, copied there once
+        so that a share step or a send uploads nothing."""
+        key = str(torch.device(device))
+        if key not in self._on:
+            self._on[key] = tuple(x.to(device) for x in (
+                self.columns, self.padded, self.unpadded))
+        return self._on[key]
 
 
 def global_norm_clip(grads: torch.Tensor, max_norm: float

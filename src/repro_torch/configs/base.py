@@ -248,11 +248,8 @@ class GroupSpec:
         unported = [
             ("knowledge_mode", self.knowledge_mode != "buffer"),
             ("resample_every", self.resample_every > 0),
-            ("relevance_mode", self.relevance_mode != "uniform"),
-            ("relevance_sketch_dim", self.relevance_sketch_dim > 0),
             ("pods", self.pods > 0),
             ("elastic", self.elastic),
-            ("knowledge_quant_block", self.knowledge_quant_block > 0),
             ("transport_loss", self.transport_loss > 0),
             ("transport_dup", self.transport_dup > 0),
             ("transport_corrupt", self.transport_corrupt > 0),

@@ -18,6 +18,12 @@ Per epoch (Algorithm 1):
 The epoch is a host integer here, so the reference's ``lax.switch``
 over hold / independent / group update is a Python branch; the
 per-agent "store has a valid piece" select stays on the device.
+
+With ``knowledge_quant_block > 0`` the stores and the delay line hold
+int8 planes; their blocks follow the leaves of the agents' parameter
+tree (``layout``), as the reference blocks each leaf on its own. With
+a learning estimator (``relevance_mode="grad_cos"``) the (n, n)
+relevance state lives on the device and rides on every sent piece's R.
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_select
+from repro_torch.common.pytree import PlaneLayout, tree_select
 from repro_torch.core import knowledge as K
 from repro_torch.core.exchange import ExchangeProtocol, build_exchange
 from repro_torch.core.weighting import training_experience
@@ -45,14 +51,20 @@ class GroupState(NamedTuple):
 class DDAL:
     """Group-agent learning loop. Construct once, then call
     ``epoch_step`` in your own loop or ``run`` for N epochs. Runs on
-    the CUDA card unless ``device="cpu"``."""
+    the CUDA card unless ``device="cpu"``. ``layout`` is the agents'
+    parameter leaf table over a flat row; int8 stores
+    (``knowledge_quant_block > 0``) need it, to block each leaf on its
+    own."""
 
     def __init__(self, spec, gen_grads: Callable, apply_grads: Callable,
                  params_of: Callable, *, relevance=None, delay=None,
                  topology=None, use_wavg_kernel: bool = False,
-                 exchange: ExchangeProtocol = None, device=None):
+                 exchange: ExchangeProtocol = None, device=None,
+                 layout: PlaneLayout = None):
         self.device = resolve_device(device)
         self.spec = spec
+        self.layout = layout
+        self.quant_block = spec.knowledge_quant_block
         self.gen_grads = gen_grads
         self.apply_grads = apply_grads
         self.params_of = params_of
@@ -87,11 +99,22 @@ class DDAL:
                 f"{self.device}")
         p = params.shape[1]
         k = self.static_topology.degree
+        blocks = None
+        if self.quant_block:
+            if self.layout is None or self.layout.size != p:
+                raise ValueError(
+                    f"int8 knowledge planes block each parameter leaf on "
+                    f"its own, as the reference does: DDAL needs the "
+                    f"agents' layout (layout=...) of their {p}-element "
+                    f"rows, got "
+                    f"{None if self.layout is None else self.layout.size}")
+            blocks = self.layout.blocks(self.quant_block)
         return GroupState(
             agent_states=agent_states,
-            stores=K.make_store(n, self.spec.m_pieces, p, params.device),
+            stores=K.make_store(n, self.spec.m_pieces, p, params.device,
+                                blocks),
             flight=K.make_sparse_inflight(n, k, self.max_delay, p,
-                                          params.device),
+                                          params.device, blocks),
             epoch=0,
             relevance=self.exchange.init_relevance(params.device),
             nbr=self.exchange.init_table())
@@ -110,7 +133,10 @@ class DDAL:
         sharing = not warmup
 
         topo, nbr = ex.topology_at(epoch, gs.nbr, gs.relevance)
-        learned = ex.observe(gs.relevance, grads=grads, enabled=sharing)
+        # the estimator's round is the epoch (it seeds the sketch); on
+        # warm-up epochs it holds the state without computing anything
+        learned = ex.observe(gs.relevance, grads=grads, rnd=epoch,
+                             enabled=sharing)
         topo = ex.apply_relevance(topo, learned)
 
         # lines 8–10: append + async exchange over the graph

@@ -3,14 +3,17 @@ port of ``repro.core.exchange.build`` for the buffer trainer.
 
 Each strategy family is resolved against the port's registries exactly
 as the reference resolves ``"auto"`` for the buffer trainer: the
-``static`` schedule over the spec's topology, the ``uniform``
-estimator, the spec's delay model (``none`` by default) and the
-``store`` combiner. ``GroupSpec`` has already refused every key the
-port lacks.
+``static`` schedule over the spec's topology, the estimator that
+``relevance_mode`` / ``relevance_sketch_dim`` name (``uniform``,
+``grad_cos`` or ``grad_cos+sketch``), the spec's delay model (``none``
+by default) and the ``store`` combiner. ``GroupSpec`` has already
+refused every key the port lacks.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
+
+import torch
 
 # importing the strategy modules registers them
 from repro_torch.core.exchange import combiners, delays, estimators  # noqa: F401
@@ -21,6 +24,7 @@ from repro_torch.core.exchange.registry import (
     SCHEDULES,
     TRANSPORTS,
 )
+from repro_torch.core.exchange.combiners import edge_effective
 from repro_torch.core.exchange.schedules import StaticSchedule
 from repro_torch.core.topology import Topology, make_topology
 
@@ -41,6 +45,7 @@ class ExchangeProtocol:
         self.combiner = combiner
         self.static_topology = schedule.base
         self.max_delay = max(schedule.max_delay, spec.max_delay)
+        self._edge_tables: Dict[str, Tuple[torch.Tensor, ...]] = {}
 
     def init_table(self):
         return self.schedule.init_table()
@@ -53,15 +58,52 @@ class ExchangeProtocol:
         nbr = self.schedule.refresh(step, nbr, None)
         return self.schedule.materialize(step, nbr, None), nbr
 
-    def observe(self, rel_state, **kw):
-        return self.estimator.observe(rel_state, **kw)
+    def observe(self, rel_state, *, grads, rnd=0, enabled=True):
+        """One estimator update (the identity for ``uniform``)."""
+        return self.estimator.observe(rel_state, grads=grads, rnd=rnd,
+                                      enabled=enabled)
+
+    def edge_tables(self, device) -> Tuple[torch.Tensor, ...]:
+        """(nbr, mask, prior relevance) of the static graph on
+        ``device``, copied there once: the learned R is gathered onto
+        the edges on the card every epoch without a host round trip."""
+        key = str(torch.device(device))
+        if key not in self._edge_tables:
+            topo = self.static_topology
+            self._edge_tables[key] = (
+                torch.as_tensor(topo.nbr, dtype=torch.int64, device=device),
+                torch.as_tensor(topo.mask, device=device),
+                torch.as_tensor(topo.relevance, device=device))
+        return self._edge_tables[key]
 
     def apply_relevance(self, topo: Topology, rel_state) -> Topology:
-        # the uniform estimator learns nothing: the static prior stands
-        return topo
+        """Effective per-edge R = static prior × learned estimate, as a
+        device tensor on ``topo``'s edge table; ``topo`` untouched when
+        nothing is learned (the uniform fixed point)."""
+        if not self.estimator.learns:
+            return topo
+        rel = self.estimator.matrix(rel_state)
+        return edge_effective(topo, rel, *self.edge_tables(rel.device))
 
     def combine(self, stores, rel_state, step):
+        # the store combiner, the port's only one, reads relevance from
+        # each piece's R (set at delivery), never an (n, n) matrix
+        del rel_state
         return self.combiner(stores, None, step)
+
+
+def _estimator_key(spec) -> str:
+    key = spec.exchange_estimator
+    if key != "auto":
+        return key
+    if spec.relevance_mode == "uniform":
+        return "uniform"
+    return ("grad_cos+sketch" if spec.relevance_sketch_dim > 0
+            else "grad_cos")
+
+
+def _make_estimator(spec):
+    return ESTIMATORS.get(_estimator_key(spec)).from_spec(spec)
 
 
 def _delay_key(spec) -> str:
@@ -99,5 +141,5 @@ def build_exchange(spec, *, topology: Optional[Topology] = None,
     return ExchangeProtocol(
         spec=spec,
         schedule=SCHEDULES.get("static")(delay_model.attach(topology)),
-        estimator=ESTIMATORS.get("uniform")(),
+        estimator=_make_estimator(spec),
         combiner=COMBINERS.get("store")(use_wavg_kernel=use_wavg_kernel))

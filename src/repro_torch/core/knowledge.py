@@ -1,5 +1,5 @@
 """Knowledge stores (K_i ∪ K_-i) and delay lines for DDAL over flat
-gradient planes — the port of the fp32 part of
+gradient planes — the port of the fp32 and int8 parts of
 ``repro.core.knowledge``.
 
 A ``KnowledgeStore`` holds every agent's ring buffer of the last ``m``
@@ -17,8 +17,26 @@ unique indices (no write order to depend on). The delay line is
 updated in place, since it is the largest buffer of the loop; the
 stores are returned as new tensors.
 
-The int8 planes (``scale``), the transport checksums (``chk``) and the
-send epochs (``born``) of the reference wait for later slices.
+**Int8 planes** (``blocks`` given, ``GroupSpec.knowledge_quant_block
+> 0``): pieces travel and rest as int8 with fp32 per-block scales,
+``scale`` (n, m, nb) in a store and (n, k, D+2, nb) in a delay line,
+in the wire format of ``repro_torch.kernels.ddal_wavg.ref``. The
+structure carries its ``BlockLayout`` (which scale column each
+position of a row reads; blocks restart at every leaf, as the
+reference's per-leaf quantization has them). ``sparse_send`` quantizes
+each source's piece once, before the gather; the scales then move
+with the planes through every write and delivery, exactly like T and
+R, and ``weighted_average`` takes the int8 share step. A ``scale`` of
+``None`` is an fp32 structure.
+
+The relevance that rides with each piece is the topology's per-edge
+R: a host table for a static prior, a device tensor when an estimator
+learns it (gathered on the card with the send's edge indices, never
+copied to the host).
+
+The transport checksums (``chk``), the send epochs (``born``) and
+elastic membership (``alive``) of the reference wait for a later
+slice.
 """
 from __future__ import annotations
 
@@ -27,39 +45,73 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.pytree import BlockLayout
 from repro_torch.core.topology import Topology
 
 
 class KnowledgeStore(NamedTuple):
-    grads: torch.Tensor      # (n, m, P) fp32 pieces
+    grads: torch.Tensor      # (n, m, P) fp32 pieces, or int8
     T: torch.Tensor          # (n, m) training-experience weights
     R: torch.Tensor          # (n, m) relevance weights
     valid: torch.Tensor      # (n, m) bool
     ptr: torch.Tensor        # (n,) int32 — next write slot
+    scale: Optional[torch.Tensor] = None     # int8: (n, m, nb) fp32
+    blocks: Optional[BlockLayout] = None     # int8: the row's blocks
 
 
 class SparseInFlight(NamedTuple):
-    grads: torch.Tensor      # (n, k, D+2, P) fp32
+    grads: torch.Tensor      # (n, k, D+2, P) fp32, or int8
     T: torch.Tensor          # (n, k, D+2)
     R: torch.Tensor
     valid: torch.Tensor      # bool
+    scale: Optional[torch.Tensor] = None     # int8: (n, k, D+2, nb) fp32
+    blocks: Optional[BlockLayout] = None
 
 
-def make_store(n: int, m: int, p: int, device) -> KnowledgeStore:
-    """n empty rings of m pieces of P elements."""
+def _planes(lead, p: int, blocks: Optional[BlockLayout], device):
+    """Zeroed (grads, scale) planes: fp32 and no scale, or int8 and
+    fp32 per-block scales."""
+    if blocks is None:
+        return torch.zeros(lead + (p,), dtype=torch.float32,
+                           device=device), None
+    if blocks.size != p:
+        raise ValueError(f"rows have {p} elements, the block layout "
+                         f"{blocks.size}")
+    return (torch.zeros(lead + (p,), dtype=torch.int8, device=device),
+            torch.zeros(lead + (blocks.n_blocks,), dtype=torch.float32,
+                        device=device))
+
+
+def make_store(n: int, m: int, p: int, device,
+               blocks: Optional[BlockLayout] = None) -> KnowledgeStore:
+    """n empty rings of m pieces of P elements; int8 pieces with
+    per-block scales when ``blocks`` (the port's ``quant_block``: the
+    int8 block layout of a row, ``PlaneLayout.blocks``) is given."""
+    grads, scale = _planes((n, m), p, blocks, device)
     return KnowledgeStore(
-        grads=torch.zeros((n, m, p), dtype=torch.float32, device=device),
+        grads=grads,
         T=torch.zeros((n, m), dtype=torch.float32, device=device),
         R=torch.zeros((n, m), dtype=torch.float32, device=device),
         valid=torch.zeros((n, m), dtype=torch.bool, device=device),
-        ptr=torch.zeros((n,), dtype=torch.int32, device=device))
+        ptr=torch.zeros((n,), dtype=torch.int32, device=device),
+        scale=scale, blocks=blocks)
 
 
-def append(store: KnowledgeStore, piece, T, R, enabled=True
+def _need_scale(store, scale, what: str):
+    if (store.scale is None) != (scale is None):
+        raise ValueError(
+            f"{what}: " + ("an int8 store needs the pieces' scales"
+                           if scale is None else
+                           "an fp32 store takes no scales"))
+
+
+def append(store: KnowledgeStore, piece, T, R, enabled=True, scale=None
            ) -> KnowledgeStore:
     """Every agent appends one piece (overwriting its oldest when full).
     piece: (n, P); T, R: (n,); enabled: bool or (n,) bool — a disabled
-    agent's ring is unchanged."""
+    agent's ring is unchanged. An int8 store takes the pieces' scales
+    (n, nb) alongside."""
+    _need_scale(store, scale, "append")
     n, m = store.T.shape
     dev = store.T.device
     en = torch.as_tensor(enabled, device=dev).expand(n)
@@ -76,21 +128,25 @@ def append(store: KnowledgeStore, piece, T, R, enabled=True
         T=write(store.T, torch.as_tensor(T).expand(n)),
         R=write(store.R, torch.as_tensor(R).expand(n)),
         valid=write(store.valid, torch.ones((n,), dtype=torch.bool)),
-        ptr=store.ptr + en.to(torch.int32))
+        ptr=store.ptr + en.to(torch.int32),
+        scale=None if scale is None else write(store.scale, scale),
+        blocks=store.blocks)
 
 
-def append_many(store: KnowledgeStore, pieces, T, R, deliver
+def append_many(store: KnowledgeStore, pieces, T, R, deliver, scales=None
                 ) -> KnowledgeStore:
     """Every agent appends up to c pieces at once. Ring semantics are
     exactly those of c sequential ``append`` calls: delivered pieces
     take consecutive slots from ``ptr`` and, when more pieces than
     slots arrive, the later piece wins. pieces: (n, c, P); T, R,
-    deliver: (n, c).
+    deliver: (n, c); an int8 store takes the pieces' scales
+    (n, c, nb) alongside.
 
     The winner of each slot is chosen as the reference chooses it (the
     largest piece index landing there), and the write is a gather by
     that index, never a scatter with repeated indices, whose winner
     CUDA leaves undefined."""
+    _need_scale(store, scales, "append_many")
     n, m = store.T.shape
     c = T.shape[-1]
     dev = store.T.device
@@ -115,7 +171,9 @@ def append_many(store: KnowledgeStore, pieces, T, R, deliver
         T=write(store.T, T),
         R=write(store.R, R),
         valid=torch.where(has, True, store.valid),
-        ptr=store.ptr + torch.sum(v, dim=-1, dtype=torch.int32))
+        ptr=store.ptr + torch.sum(v, dim=-1, dtype=torch.int32),
+        scale=None if scales is None else write(store.scale, scales),
+        blocks=store.blocks)
 
 
 def weighted_average(store: KnowledgeStore, use_kernel: bool = False
@@ -124,10 +182,14 @@ def weighted_average(store: KnowledgeStore, use_kernel: bool = False
 
     The default is the fused share step: one launch of the CUDA kernel
     over the whole (n, m, P) stack, weights rebuilt from (T, R, valid)
-    inside it. ``use_kernel=True`` is the reference's legacy path:
-    eq. 4 weights computed outside, then the plain contraction
-    kernel."""
+    inside it. An int8 store (``store.scale`` set) always takes the
+    int8 fused step, which dequantises in the loop. ``use_kernel=True``
+    is the reference's legacy path for fp32 stores: eq. 4 weights
+    computed outside, then the plain contraction kernel."""
     from repro_torch.kernels.ddal_wavg import ops as wavg_ops
+    if store.scale is not None:
+        return wavg_ops.fused_wavg_q(store.grads, store.scale, store.T,
+                                     store.R, store.valid, store.blocks)
     if use_kernel:
         from repro_torch.core.weighting import eq4_weights
         w = eq4_weights(store.T, store.R, store.valid)
@@ -136,13 +198,18 @@ def weighted_average(store: KnowledgeStore, use_kernel: bool = False
 
 
 def make_sparse_inflight(n: int, k: int, max_delay: int, p: int,
-                         device) -> SparseInFlight:
+                         device, blocks: Optional[BlockLayout] = None
+                         ) -> SparseInFlight:
+    """An empty delay line of n destinations × k edge slots × (D+2)
+    planes; int8 planes with per-block scales when ``blocks`` is
+    given."""
     planes = max_delay + 2            # D+1 delivery slots + scratch
+    grads, scale = _planes((n, k, planes), p, blocks, device)
     z = torch.zeros((n, k, planes), dtype=torch.float32, device=device)
     return SparseInFlight(
-        grads=torch.zeros((n, k, planes, p), dtype=torch.float32,
-                          device=device),
-        T=z, R=z.clone(), valid=torch.zeros_like(z, dtype=torch.bool))
+        grads=grads, T=z, R=z.clone(),
+        valid=torch.zeros_like(z, dtype=torch.bool), scale=scale,
+        blocks=blocks)
 
 
 def _send_plan(topo: Topology, planes: int, epoch: int, enabled: bool):
@@ -180,7 +247,10 @@ def sparse_send(flight: SparseInFlight, topo: Topology, pieces, T,
     """Every agent publishes its piece; each destination gathers it
     from its in-neighbors only, into the edge's arrival plane
     (epoch + delay) % (D+1). pieces: (n, P); T: (n,) training
-    experience of the sources. Updates ``flight`` in place."""
+    experience of the sources; ``topo.relevance`` a host table or a
+    device tensor (learned R). On an int8 line each source's piece is
+    quantized once, here, and its scales ride with it. Updates
+    ``flight`` in place."""
     planes = flight.T.shape[2]
     ii, jj, pp = _send_plan(topo, planes, epoch, enabled)
     if ii.size == 0:
@@ -188,9 +258,17 @@ def sparse_send(flight: SparseInFlight, topo: Topology, pieces, T,
     dev = flight.T.device
     src = torch.as_tensor(np.asarray(topo.nbr)[ii, jj], dtype=torch.int64,
                           device=dev)
-    rel = torch.as_tensor(np.asarray(topo.relevance)[ii, jj], device=dev)
     i, j, p = (torch.as_tensor(a, dtype=torch.int64, device=dev)
                for a in (ii, jj, pp))
+    if isinstance(topo.relevance, torch.Tensor):
+        rel = topo.relevance[i, j]
+    else:
+        rel = torch.as_tensor(np.asarray(topo.relevance)[ii, jj],
+                              device=dev)
+    if flight.scale is not None:
+        from repro_torch.kernels.ddal_wavg.ref import quantize_flat
+        pieces, scales = quantize_flat(pieces, flight.blocks)
+        flight.scale[i, j, p] = scales[src]
     flight.grads[i, j, p] = pieces[src].to(flight.grads.dtype)
     flight.T[i, j, p] = torch.as_tensor(T, device=dev)[src]
     flight.R[i, j, p] = rel
@@ -225,19 +303,24 @@ def sparse_deliver(flight: SparseInFlight, stores: KnowledgeStore,
     Tm = flight.T[:, :, slot]
     Rm = flight.R[:, :, slot]
     Vm = flight.valid[:, :, slot]
+    Sm = None if flight.scale is None else flight.scale[:, :, slot]
     m = stores.T.shape[1]
     if _regular_exchange(topo, m, k):
         dev = stores.T.device
         # ptr stays k-aligned and m % k == 0, so the block never wraps
         cols = (stores.ptr[0].to(torch.int64) % m
                 + torch.arange(k, device=dev))
+        _need_scale(stores, Sm, "sparse_deliver")
         new_stores = KnowledgeStore(
             grads=stores.grads.index_copy(1, cols, pieces),
             T=stores.T.index_copy(1, cols, Tm),
             R=stores.R.index_copy(1, cols, Rm),
             valid=stores.valid.index_copy(1, cols, Vm),
-            ptr=stores.ptr + k * Vm[0, 0].to(torch.int32))
+            ptr=stores.ptr + k * Vm[0, 0].to(torch.int32),
+            scale=None if Sm is None else stores.scale.index_copy(
+                1, cols, Sm),
+            blocks=stores.blocks)
     else:
-        new_stores = append_many(stores, pieces, Tm, Rm, Vm)
+        new_stores = append_many(stores, pieces, Tm, Rm, Vm, scales=Sm)
     flight.valid[:, :, slot] = False
     return flight, new_stores

@@ -1,0 +1,115 @@
+"""Learned per-edge relevance R for DDAL's eq. 4 weighting — the port of
+``repro.core.relevance`` for what the buffer trainer needs.
+
+``grad_cosine`` is the instantaneous src→dst relevance from the cosine
+of two agents' gradients; ``sketch_cosine`` is the same estimate on
+(n, d) sign-JL sketches of the gradients, projected through the seeded
+±1 matrix of ``repro_torch.kernels.grad_sketch``. Either is mapped to
+[min_rel, 1] by ``to_relevance`` and smoothed by ``ema_update`` into
+the dense (n, n) ``R[src, dst]`` that the estimators carry;
+``gather_edges`` projects it onto an (n, k) edge table.
+
+Gradients are flat (n, P) rows in the port, so the cosines reduce over
+one row where the reference reduces per leaf and then over leaves; the
+two agree to a few ulps, not to the bit. ``fold_seed`` is host integer
+math (the epoch and the base seed are host values here) and is bitwise
+the reference's, int32 reinterpretation included.
+
+``obs_overlap`` and the observation-statistics estimator wait for a
+later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import RELEVANCE_MODES
+from repro_torch.kernels.grad_sketch.ref import MASK32, MIX_CONSTANTS
+
+
+def cosine_rows(g: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Pairwise cosine of the rows of g (n, p): ones on the diagonal,
+    an all-zero row has cosine 0 against every other row."""
+    norm = torch.sqrt(torch.sum(g * g, dim=1))
+    gn = g / torch.clamp_min(norm, eps)[:, None]
+    c = torch.clamp(gn @ gn.T, -1.0, 1.0)
+    n = c.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=g.device)
+    return torch.where(eye, torch.ones_like(c), c)
+
+
+def grad_cosine(grads: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Exact pairwise cosine of the agents' gradient rows (n, P) →
+    symmetric (n, n) ``C[src, dst]`` in [-1, 1], unit diagonal."""
+    return cosine_rows(grads.to(torch.float32), eps)
+
+
+def sketch_cosine(grads: torch.Tensor, dim: int, seed: int,
+                  eps: float = 1e-8) -> torch.Tensor:
+    """Cosines of the (n, dim) sketches of the gradient rows, projected
+    at offset 0 by the sketch kernel (its plain version on the CPU);
+    ``seed`` is the round's folded seed (``fold_seed``)."""
+    from repro_torch.kernels.grad_sketch import ops as sketch_ops
+    return cosine_rows(sketch_ops.sketch_flat(grads, seed, dim), eps)
+
+
+def fold_seed(seed: int, rnd: int) -> int:
+    """Mix a base seed with a round index into the seed of that round's
+    projection, as the reference does in uint32 arithmetic, returned
+    as the int32 the reference's final cast gives."""
+    p1, p2, p3 = MIX_CONSTANTS
+    x = ((int(seed) & MASK32) * p1 + (int(rnd) & MASK32) * p2) & MASK32
+    x = ((x ^ (x >> 16)) * p3) & MASK32
+    x = x ^ (x >> 13)
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def to_relevance(cos: torch.Tensor, min_rel: float = 1e-3) -> torch.Tensor:
+    """Cosine [-1, 1] → relevance weight [min_rel, 1]:
+    R = (1 + cos) / 2, floored so that no delivered piece is discarded
+    outright."""
+    return torch.clamp(0.5 * (1.0 + cos), min_rel, 1.0)
+
+
+def ema_update(prev: torch.Tensor, obs: torch.Tensor, decay: float,
+               enabled: bool = True) -> torch.Tensor:
+    """``decay·prev + (1 − decay)·obs`` where ``enabled``, ``prev``
+    otherwise (warm-up holds the estimate at its prior). ``enabled`` is
+    a host bool in the port."""
+    new = decay * prev + (1.0 - decay) * obs
+    return new if enabled else prev
+
+
+def gather_edges(dense: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """Project a dense (n, n) ``X[src, dst]`` onto an (n, k) edge table:
+    ``out[i, j] = X[nbr[i, j], i]``."""
+    n = dense.shape[0]
+    dst = torch.arange(n, device=dense.device)[:, None]
+    return dense[nbr, dst]
+
+
+def init_relevance(n: int, device=None) -> torch.Tensor:
+    """The uniform prior every estimator starts from."""
+    return torch.ones((n, n), dtype=torch.float32, device=device)
+
+
+def update_relevance(rel: torch.Tensor, grads: torch.Tensor, mode: str,
+                     decay: float, enabled: bool = True, *,
+                     sketch_dim: int = 0, seed: int = 0,
+                     rnd: int = 0) -> torch.Tensor:
+    """One online step of the (n, n) estimate by the legacy flags: a
+    no-op for ``"uniform"``; for ``"grad_cos"`` an EMA toward the
+    gradient-cosine relevance, exact when ``sketch_dim == 0`` and
+    sketched (projection seeded by ``(seed, rnd)``) otherwise. The
+    estimators (``repro_torch.core.exchange.estimators``) run the same
+    ops; this is the reference they are held against."""
+    if mode == "uniform":
+        return rel
+    if mode == "grad_cos":
+        if sketch_dim > 0:
+            cos = sketch_cosine(grads, sketch_dim, fold_seed(seed, rnd))
+        else:
+            cos = grad_cosine(grads)
+        return ema_update(rel, to_relevance(cos), decay, enabled)
+    raise ValueError(
+        f"unknown relevance mode {mode!r}; expected one of "
+        f"{RELEVANCE_MODES}")

@@ -52,3 +52,35 @@ def training_experience(epoch: int, mode: str = "epochs") -> float:
         return 1.0
     raise ValueError(f"unknown T mode {mode!r}")
 
+
+
+def combine_relevance(prior: torch.Tensor, learned: torch.Tensor
+                      ) -> torch.Tensor:
+    """Effective relevance = static prior × learned online estimate,
+    elementwise. The ``uniform`` estimator skips the product entirely
+    (``ExchangeProtocol.apply_relevance`` leaves the topology as it
+    is), so the static eq. 4 weights stay exactly as they were."""
+    return prior * learned
+
+
+def relevance_matrix(n: int, mode: str = "uniform", adjacency=None,
+                     device=None) -> torch.Tensor:
+    """R[j, i] = relevance of agent j's knowledge to agent i; a zero
+    entry means j's knowledge never reaches i. ``"ring"`` keeps the
+    entries within one step around the ring, ``"custom"`` takes an
+    (n, n) ``adjacency``."""
+    R = torch.ones((n, n), dtype=torch.float32, device=device)
+    if mode == "uniform":
+        pass
+    elif mode == "ring":
+        idx = torch.arange(n, device=device)
+        ring = torch.minimum((idx[:, None] - idx[None, :]) % n,
+                             (idx[None, :] - idx[:, None]) % n) <= 1
+        R = R * ring.to(torch.float32)
+    elif mode == "custom":
+        if adjacency is None:
+            raise ValueError("custom relevance needs an adjacency matrix")
+        R = torch.as_tensor(adjacency, dtype=torch.float32, device=device)
+    else:
+        raise ValueError(f"unknown relevance mode {mode!r}")
+    return R

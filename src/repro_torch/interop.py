@@ -5,7 +5,10 @@ Every function takes the reference's structures with numpy leaves
 (``jax.tree.map(np.asarray, x)`` on the reference side) and returns the
 port's tensors. Parameter-shaped pytrees become flat rows through a
 :class:`~repro_torch.common.pytree.PlaneLayout`, in the reference's
-leaf order, so both sides then compute the same thing.
+leaf order, so both sides then compute the same thing. Int8 stores and
+delay lines keep their int8 planes, and their per-leaf scale leaves
+(…, ⌈size / q_block⌉) are laid side by side in leaf order into the
+port's scale columns (``BlockLayout``).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import PlaneLayout
+from repro_torch.common.pytree import PlaneLayout, tree_leaves_with_paths
 from repro_torch.core.knowledge import KnowledgeStore, SparseInFlight
 from repro_torch.rl.a2c import A2CState
 
@@ -42,6 +45,31 @@ def flat_params(tree, lead: int = 1, layout: Optional[PlaneLayout] = None,
     return layout.flatten(torch_tree).to(torch.float32), layout
 
 
+def _planes(grads, scale, layout: PlaneLayout, q_block: int, device):
+    """(grads rows, scale columns, block layout) of a reference store or
+    delay line: fp32 rows and no scales, or int8 rows and the per-leaf
+    scale leaves concatenated in leaf order."""
+    if scale is None:
+        rows = flat_params(grads, layout=layout, device=device)[0]
+        return rows, None, None
+    if q_block <= 0:
+        raise ValueError("an int8 store or delay line needs its q_block")
+    blocks = layout.blocks(q_block)
+    rows = layout.flatten(_tree_to_torch(grads, device))
+    leaves = tree_leaves_with_paths(scale)
+    if [path for path, _ in leaves] != list(layout.paths):
+        raise ValueError("scale leaves do not match the layout")
+    cols = []
+    for (path, x), size in zip(leaves, layout.sizes):
+        if np.shape(x)[-1] != -(-size // q_block):
+            raise ValueError(
+                f"scale leaf {path} has {np.shape(x)[-1]} blocks, "
+                f"{size} elements at q_block {q_block} make "
+                f"{-(-size // q_block)}")
+        cols.append(_t(x, device, torch.float32))
+    return rows, torch.cat(cols, dim=-1), blocks
+
+
 def adamw_state(state, layout: PlaneLayout, device="cpu") -> dict:
     """The reference's AdamW state ``{"m", "v", "count"}`` stacked over
     agents → flat moments and an (n,) int32 step count."""
@@ -58,24 +86,38 @@ def a2c_state(state, layout: PlaneLayout, device="cpu") -> A2CState:
         step=_t(state.step, device, torch.int32))
 
 
-def knowledge_store(store, layout: PlaneLayout, device="cpu"
-                    ) -> KnowledgeStore:
-    """A reference fp32 ``KnowledgeStore`` stacked over agents (leaves
-    (n, m, *param)) → flat (n, m, P) planes."""
+def knowledge_store(store, layout: PlaneLayout, device="cpu",
+                    q_block: int = 0) -> KnowledgeStore:
+    """A reference ``KnowledgeStore`` stacked over agents (leaves
+    (n, m, *param), and for an int8 store scale leaves (n, m, nb_leaf)
+    built with ``q_block``) → flat (n, m, P) planes."""
+    grads, scale, blocks = _planes(store.grads, store.scale, layout,
+                                   q_block, device)
     return KnowledgeStore(
-        grads=flat_params(store.grads, layout=layout, device=device)[0],
+        grads=grads,
         T=_t(store.T, device, torch.float32),
         R=_t(store.R, device, torch.float32),
         valid=_t(store.valid, device, torch.bool),
-        ptr=_t(store.ptr, device, torch.int32))
+        ptr=_t(store.ptr, device, torch.int32),
+        scale=scale, blocks=blocks)
 
 
-def sparse_inflight(flight, layout: PlaneLayout, device="cpu"
-                    ) -> SparseInFlight:
-    """A reference fp32 ``SparseInFlight`` (leaves (n, k, D+2, *param))
-    → flat (n, k, D+2, P) planes."""
+def sparse_inflight(flight, layout: PlaneLayout, device="cpu",
+                    q_block: int = 0) -> SparseInFlight:
+    """A reference ``SparseInFlight`` (leaves (n, k, D+2, *param), and
+    for an int8 line scale leaves (n, k, D+2, nb_leaf)) → flat
+    (n, k, D+2, P) planes."""
+    grads, scale, blocks = _planes(flight.grads, flight.scale, layout,
+                                   q_block, device)
     return SparseInFlight(
-        grads=flat_params(flight.grads, layout=layout, device=device)[0],
+        grads=grads,
         T=_t(flight.T, device, torch.float32),
         R=_t(flight.R, device, torch.float32),
-        valid=_t(flight.valid, device, torch.bool))
+        valid=_t(flight.valid, device, torch.bool),
+        scale=scale, blocks=blocks)
+
+
+def relevance(state, device="cpu") -> torch.Tensor:
+    """The reference's (n, n) learned relevance state
+    (``GroupState.relevance`` of the gradient estimators)."""
+    return _t(state, device, torch.float32)

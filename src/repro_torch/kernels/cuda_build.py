@@ -25,7 +25,8 @@ KERNELS_DIR = Path(__file__).resolve().parent
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _loaded: Dict[str, Tuple[ctypes.CDLL, str]] = {}
-_lock = threading.Lock()
+_lock = threading.Lock()            # guards _locks
+_locks: Dict[str, threading.Lock] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -76,8 +77,11 @@ def build(name: str) -> Tuple[Path, str]:
 def load(name: str) -> Tuple[ctypes.CDLL, str]:
     """The kernel library ``name`` and its compiler output, built and
     loaded once per process (a library left by another process may be
-    stale, so it is never reused)."""
+    stale, so it is never reused). Each source has its own lock, so
+    threads loading different sources run their ``nvcc`` together."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _loaded:
             path, log = build(name)
             _loaded[name] = (ctypes.CDLL(str(path)), log)

@@ -5,28 +5,38 @@
 //     rebuilds w = ½(T̂ + R̂) from the raw (T, R, valid) metadata inside the
 //     kernel and writes (ḡ, Σw);
 //   * wavg_flat (:58, body _wavg_kernel :48) — ddal_wavg: the same
-//     contraction with the weights computed outside.
+//     contraction with the weights computed outside;
+//   * fused_wavg_q_flat (:185, body _fused_wavg_q_kernel :123) —
+//     ddal_fused_wavg_q: the fused step over int8 planes with fp32 per-block
+//     scales, dequantised inside the loop as acc + w_j·(q·s).
 //
-// Shapes: G (n, m, P) fp32 contiguous — n agents' stores of m flat pieces;
-// T, R (n, m) fp32, valid (n, m) bool (one byte each), or w (n, m) fp32;
-// out ḡ (n, P) fp32, Σw (n,) fp32.
+// Shapes: G (n, m, P) fp32 contiguous — n agents' stores of m flat pieces —
+// or Q (n, m, P) int8 with scale (n, m, nb) fp32 and cols (P,) int32, the
+// scale column of each position (the int8 blocks restart at every leaf of the
+// flat row, so the column is not p / q_block); T, R (n, m) fp32, valid (n, m)
+// bool (one byte each), or w (n, m) fp32; out ḡ (n, P) fp32, Σw (n,) fp32.
 //
-// Bound: bytes. Each element of G is read once and used for one multiply-add,
-// about 0.5 FLOP per byte against the card's ~20 FLOP/byte fp32 balance, so
-// the least time is (n·m·P + n·P)·4 bytes over the HBM rate. The design reads
-// G once, in coalesced rows (neighbouring threads on neighbouring elements of
-// one piece), keeps ITEMS fp32 accumulators per thread in registers for the
-// whole j loop (unrolled, so several pieces' loads are in flight) and
-// writes ḡ once. One launch covers every agent: grid (⌈P / TILE⌉, n), and a
-// TILE of 512 gives the quickstart's small planes (P = 9155) 18 blocks per
-// agent. P is the A2C parameter count (odd), so rows are not 16-byte
-// aligned: loads stay scalar and the ragged end is masked, with no padding copy.
+// Bound: bytes. Each element of G (Q) is read once and used for one
+// multiply-add (two multiplies and an add for int8), 0.5 FLOP per byte of
+// fp32 (3 per byte of int8) against the card's ~20 FLOP/byte fp32 balance, so
+// the least time is the bytes of G (Q and its scales), the metadata and ḡ
+// over the HBM rate. The design reads G once, in coalesced rows (neighbouring
+// threads on neighbouring elements of one piece), keeps ITEMS fp32
+// accumulators per thread in registers for the whole j loop (unrolled, so
+// several pieces' loads are in flight) and writes ḡ once. One launch covers
+// every agent: grid (⌈P / TILE⌉, n), and a TILE of 512 gives the quickstart's
+// small planes (P = 9155) 18 blocks per agent. P is the A2C parameter count
+// (odd), so rows are not 16-byte aligned: loads stay scalar and the ragged
+// end is masked, with no padding copy. The int8 kernel reads each position's
+// scale column once from cols and each piece's scale through the read-only
+// cache: a warp's 32 positions share one or two scales, a broadcast.
 //
 // Arithmetic: the weights follow eq4_weights' op order (mask, sum left to
 // right from 0, clamp at 1e-12, divide, ½(t̂ + r̂)) and the accumulation is
-// acc ← acc + w_j·G[j] for j = 0..m-1, each a separately rounded fp32 multiply
-// and add (no FMA contraction), so the plain PyTorch version in ref.py, which
-// performs the same ops in the same order, gives the same bits.
+// acc ← acc + w_j·G[j] (int8: acc ← acc + w_j·(q_j·s_j), the Pallas kernel's
+// order) for j = 0..m-1, each a separately rounded fp32 multiply and add (no
+// FMA contraction), so the plain PyTorch version in ref.py, which performs the
+// same ops in the same order, gives the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +53,45 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
   return x < lo ? lo : x;
 }
 
+// Stages one agent's eq. 4 weights in w_s (m floats; r_s is m more floats
+// of scratch) and, from block 0, writes its Σw: every thread loads a share
+// of the metadata; only the sums are sequential, and they read shared memory.
+__device__ void stage_eq4_weights(const float* __restrict__ T,
+                                  const float* __restrict__ R,
+                                  const uint8_t* __restrict__ valid,
+                                  float* w_s, float* r_s, float* sums,
+                                  float* __restrict__ wsum, int agent,
+                                  int m) {
+  const long long meta = (long long)agent * m;
+  for (int j = threadIdx.x; j < m; j += THREADS) {
+    const float v = valid[meta + j] ? 1.f : 0.f;
+    w_s[j] = __fmul_rn(T[meta + j], v);
+    r_s[j] = __fmul_rn(R[meta + j], v);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float st = 0.f, sr = 0.f;
+    for (int j = 0; j < m; ++j) {
+      st = __fadd_rn(st, w_s[j]);
+      sr = __fadd_rn(sr, r_s[j]);
+    }
+    sums[0] = clamp_min(st, EQ4_EPS);
+    sums[1] = clamp_min(sr, EQ4_EPS);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < m; j += THREADS) {
+    const float t_hat = __fdiv_rn(w_s[j], sums[0]);
+    const float r_hat = __fdiv_rn(r_s[j], sums[1]);
+    w_s[j] = __fmul_rn(0.5f, __fadd_rn(t_hat, r_hat));
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) {  // Σw once per agent
+    float s = 0.f;
+    for (int j = 0; j < m; ++j) s = __fadd_rn(s, w_s[j]);
+    wsum[agent] = s;
+  }
+}
+
 template <bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 wavg_kernel(const float* __restrict__ G, const float* __restrict__ T,
@@ -57,36 +106,7 @@ wavg_kernel(const float* __restrict__ G, const float* __restrict__ T,
   const long long meta = (long long)agent * m;
 
   if (FUSED) {
-    float* r_s = smem + m;
-    // every thread loads a share of the metadata; only the two sums
-    // are sequential, and they read shared memory
-    for (int j = threadIdx.x; j < m; j += THREADS) {
-      const float v = valid[meta + j] ? 1.f : 0.f;
-      w_s[j] = __fmul_rn(T[meta + j], v);
-      r_s[j] = __fmul_rn(R[meta + j], v);
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float st = 0.f, sr = 0.f;
-      for (int j = 0; j < m; ++j) {
-        st = __fadd_rn(st, w_s[j]);
-        sr = __fadd_rn(sr, r_s[j]);
-      }
-      sums[0] = clamp_min(st, EQ4_EPS);
-      sums[1] = clamp_min(sr, EQ4_EPS);
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < m; j += THREADS) {
-      const float t_hat = __fdiv_rn(w_s[j], sums[0]);
-      const float r_hat = __fdiv_rn(r_s[j], sums[1]);
-      w_s[j] = __fmul_rn(0.5f, __fadd_rn(t_hat, r_hat));
-    }
-    __syncthreads();
-    if (blockIdx.x == 0 && threadIdx.x == 0) {  // Σw once per agent
-      float s = 0.f;
-      for (int j = 0; j < m; ++j) s = __fadd_rn(s, w_s[j]);
-      wsum[agent] = s;
-    }
+    stage_eq4_weights(T, R, valid, w_s, smem + m, sums, wsum, agent, m);
   } else {
     for (int j = threadIdx.x; j < m; j += THREADS) w_s[j] = w_in[meta + j];
     __syncthreads();
@@ -119,6 +139,55 @@ wavg_kernel(const float* __restrict__ G, const float* __restrict__ T,
   }
 }
 
+__global__ void __launch_bounds__(THREADS)
+wavg_q_kernel(const int8_t* __restrict__ Q, const float* __restrict__ scale,
+              const int* __restrict__ cols, const float* __restrict__ T,
+              const float* __restrict__ R, const uint8_t* __restrict__ valid,
+              float* __restrict__ out, float* __restrict__ wsum, int m,
+              long long P, int nb) {
+  extern __shared__ float smem[];
+  float* w_s = smem;
+  __shared__ float sums[2];
+  const int agent = blockIdx.y;
+  const long long meta = (long long)agent * m;
+  stage_eq4_weights(T, R, valid, w_s, smem + m, sums, wsum, agent, m);
+
+  const int8_t* q = Q + meta * P;
+  const float* s = scale + meta * nb;
+  float* o = out + (long long)agent * P;
+  for (long long base = (long long)blockIdx.x * TILE; base < P;
+       base += (long long)gridDim.x * TILE) {
+    float acc[ITEMS];
+    int col[ITEMS];
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const long long p = base + threadIdx.x + (long long)i * THREADS;
+      acc[i] = 0.f;
+      col[i] = p < P ? __ldg(cols + p) : 0;   // once, for all m pieces
+    }
+#pragma unroll 8
+    for (int j = 0; j < m; ++j) {
+      const float wj = w_s[j];
+      const int8_t* row = q + (long long)j * P;
+      const float* srow = s + (long long)j * nb;
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const long long p = base + threadIdx.x + (long long)i * THREADS;
+        if (p < P) {
+          const float x = __fmul_rn((float)__ldg(row + p),
+                                    __ldg(srow + col[i]));
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(wj, x));
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) {
+      const long long p = base + threadIdx.x + (long long)i * THREADS;
+      if (p < P) o[p] = acc[i];
+    }
+  }
+}
+
 dim3 grid_for(int n, long long P) {
   const long long tiles = (P + TILE - 1) / TILE;
   return dim3((unsigned)(tiles < 2147483647LL ? tiles : 2147483647LL),
@@ -127,7 +196,7 @@ dim3 grid_for(int n, long long P) {
 
 }  // namespace
 
-// Both entry points make `device` current (this library links its own CUDA
+// The entry points make `device` current (this library links its own CUDA
 // runtime, whose current device is not PyTorch's), launch on `stream`, do
 // not synchronise and return the launch status for the caller to check.
 extern "C" int ddal_fused_wavg(const float* G, const float* T, const float* R,
@@ -148,6 +217,19 @@ extern "C" int ddal_wavg(const float* G, const float* w, float* out, int n,
   if (set != cudaSuccess) return (int)set;
   wavg_kernel<false><<<grid_for(n, P), THREADS, m * sizeof(float), stream>>>(
       G, nullptr, nullptr, nullptr, w, out, nullptr, m, P);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ddal_fused_wavg_q(const int8_t* Q, const float* scale,
+                                 const int* cols, const float* T,
+                                 const float* R, const uint8_t* valid,
+                                 float* out, float* wsum, int n, int m,
+                                 long long P, int nb, int device,
+                                 cudaStream_t stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  wavg_q_kernel<<<grid_for(n, P), THREADS, 2 * m * sizeof(float), stream>>>(
+      Q, scale, cols, T, R, valid, out, wsum, m, P, nb);
   return (int)cudaGetLastError();
 }
 

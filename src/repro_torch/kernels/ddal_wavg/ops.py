@@ -1,17 +1,20 @@
 """Dispatch for the eq. 4 share-step kernels.
 
-``fused_wavg`` (the default ``store`` combiner's share step) and
-``wavg`` (the legacy path, weights given) take the whole group's
-stores at once: G (n, m, P). Each runs its CUDA kernel on CUDA tensors
-and its plain version (``ref``) on CPU tensors, and nothing else: a
-build or launch failure raises, and ``impl`` can only name the path
-the tensors' device implies (``"auto"`` picks it). Each wrapper counts
-its kernel launches in ``<wrapper>.launches``, so a run can show that
-its share steps went through the kernel.
+``fused_wavg`` (the default ``store`` combiner's share step),
+``fused_wavg_q`` (its int8 twin, for stores built with
+``knowledge_quant_block > 0``) and ``wavg`` (the legacy path, weights
+given) take the whole group's stores at once: G (n, m, P). Each runs
+its CUDA kernel on CUDA tensors and its plain version (``ref``) on CPU
+tensors, and nothing else (``repro_torch.kernels.dispatch``). Each
+wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
+can show that its share steps went through the kernel.
 
-Unlike the reference's ``tree_fused_wavg``, there is no small-leaf
-branch: an agent's parameters are one flat row (9155 elements for the
-paper's A2C), and one launch covers every agent's store.
+Unlike the reference's ``tree_fused_wavg`` / ``tree_fused_wavg_q``,
+there is no small-leaf branch: an agent's parameters are one flat row
+(9155 elements for the paper's A2C), and one launch covers every
+agent's store. The int8 blocks still restart at every leaf of that row
+(``repro_torch.common.pytree.BlockLayout``), as the reference's
+per-leaf quantization has them.
 """
 from __future__ import annotations
 
@@ -21,22 +24,12 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.common.pytree import BlockLayout
+from repro_torch.kernels.dispatch import resolve
 from repro_torch.kernels.ddal_wavg import ref
 
-IMPLS = ("auto", "cuda", "plain")
 MAX_PIECES = 4096           # the kernel stages 2·m floats in smem
 MAX_AGENTS = 65535          # grid y
-
-
-def _resolve(impl: str, G: torch.Tensor) -> str:
-    if impl not in IMPLS:
-        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-    want = "cuda" if G.is_cuda else "plain"
-    if impl not in ("auto", want):
-        raise ValueError(
-            f"impl={impl!r} cannot run on {G.device} tensors: CUDA "
-            f"tensors take the kernel, CPU tensors its plain version")
-    return want
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,26 +43,30 @@ def _lib() -> ctypes.CDLL:
     lib.ddal_fused_wavg.restype = i
     lib.ddal_wavg.argtypes = [p, p, p, i, i, ll, i, p]
     lib.ddal_wavg.restype = i
+    lib.ddal_fused_wavg_q.argtypes = [p, p, p, p, p, p, p, p, i, i, ll, i,
+                                      i, p]
+    lib.ddal_fused_wavg_q.restype = i
     lib.ddal_error_string.argtypes = [i]
     lib.ddal_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(G: torch.Tensor, meta: dict) -> Tuple[int, int, int]:
-    if G.dtype != torch.float32 or G.ndim != 3 or not G.is_contiguous():
+def _check(G: torch.Tensor, meta: dict, dtype=torch.float32
+           ) -> Tuple[int, int, int]:
+    if G.dtype != dtype or G.ndim != 3 or not G.is_contiguous():
         raise ValueError(
-            f"G must be a contiguous (n, m, P) float32 tensor, got "
+            f"G must be a contiguous (n, m, P) {dtype} tensor, got "
             f"{tuple(G.shape)} {G.dtype} contiguous={G.is_contiguous()}")
     n, m, p = G.shape
     if not (1 <= n <= MAX_AGENTS and 1 <= m <= MAX_PIECES and p >= 1):
         raise ValueError(
             f"kernel takes 1 <= n <= {MAX_AGENTS}, 1 <= m <= "
             f"{MAX_PIECES}, P >= 1; got (n, m, P) = {(n, m, p)}")
-    for name, (x, dtype) in meta.items():
-        if (x.dtype != dtype or tuple(x.shape) != (n, m)
+    for name, (x, x_dtype) in meta.items():
+        if (x.dtype != x_dtype or tuple(x.shape) != (n, m)
                 or not x.is_contiguous() or x.device != G.device):
             raise ValueError(
-                f"{name} must be a contiguous ({n}, {m}) {dtype} tensor "
+                f"{name} must be a contiguous ({n}, {m}) {x_dtype} tensor "
                 f"on {G.device}, got {tuple(x.shape)} {x.dtype} on "
                 f"{x.device}")
     return n, m, p
@@ -86,7 +83,7 @@ def fused_wavg(G: torch.Tensor, T: torch.Tensor, R: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused eq. 4 share step for every agent: G (n, m, P), T, R
     (n, m) fp32, valid (n, m) bool → (ḡ (n, P) fp32, Σw (n,) fp32)."""
-    if _resolve(impl, G) == "plain":
+    if resolve(impl, G) == "plain":
         return ref.fused_wavg(G, T, R, valid)
     n, m, p = _check(G, {"T": (T, torch.float32), "R": (R, torch.float32),
                          "valid": (valid, torch.bool)})
@@ -102,11 +99,47 @@ def fused_wavg(G: torch.Tensor, T: torch.Tensor, R: torch.Tensor,
     return out, wsum
 
 
+def fused_wavg_q(Q: torch.Tensor, scale: torch.Tensor, T: torch.Tensor,
+                 R: torch.Tensor, valid: torch.Tensor, blocks: BlockLayout,
+                 *, impl: str = "auto"
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused eq. 4 share step over int8 stores: Q (n, m, P) int8,
+    scale (n, m, blocks.n_blocks) fp32, T, R (n, m) fp32, valid (n, m)
+    bool → (ḡ (n, P) fp32, Σw (n,) fp32), dequantised as q·s in the
+    loop; ``blocks`` says which scale column each position reads."""
+    if resolve(impl, Q) == "plain":
+        return ref.fused_wavg_q(Q, scale, T, R, valid, blocks)
+    n, m, p = _check(Q, {"T": (T, torch.float32), "R": (R, torch.float32),
+                         "valid": (valid, torch.bool)}, dtype=torch.int8)
+    nb = blocks.n_blocks
+    if p != blocks.size:
+        raise ValueError(f"rows have {p} elements, the block layout "
+                         f"{blocks.size}")
+    if (scale.dtype != torch.float32 or tuple(scale.shape) != (n, m, nb)
+            or not scale.is_contiguous() or scale.device != Q.device):
+        raise ValueError(
+            f"scale must be a contiguous ({n}, {m}, {nb}) float32 tensor "
+            f"on {Q.device}, got {tuple(scale.shape)} {scale.dtype} on "
+            f"{scale.device}")
+    cols = blocks.on(Q.device)[0]
+    out = torch.empty((n, p), dtype=torch.float32, device=Q.device)
+    wsum = torch.empty((n,), dtype=torch.float32, device=Q.device)
+    lib = _lib()
+    status = lib.ddal_fused_wavg_q(
+        Q.data_ptr(), scale.data_ptr(), cols.data_ptr(), T.data_ptr(),
+        R.data_ptr(), valid.data_ptr(), out.data_ptr(), wsum.data_ptr(),
+        n, m, p, nb, Q.device.index,
+        torch.cuda.current_stream(Q.device).cuda_stream)
+    _raise_on(lib, status, "ddal_fused_wavg_q")
+    fused_wavg_q.launches += 1
+    return out, wsum
+
+
 def wavg(G: torch.Tensor, w: torch.Tensor, *, impl: str = "auto"
          ) -> torch.Tensor:
     """Σ_j w_j·G[j] for every agent: G (n, m, P), w (n, m) fp32 →
     (n, P) fp32."""
-    if _resolve(impl, G) == "plain":
+    if resolve(impl, G) == "plain":
         return ref.wavg(G, w)
     n, m, p = _check(G, {"w": (w, torch.float32)})
     out = torch.empty((n, p), dtype=torch.float32, device=G.device)
@@ -120,9 +153,11 @@ def wavg(G: torch.Tensor, w: torch.Tensor, *, impl: str = "auto"
 
 
 fused_wavg.launches = 0
+fused_wavg_q.launches = 0
 wavg.launches = 0
 
 
 def reset_launches() -> None:
     fused_wavg.launches = 0
+    fused_wavg_q.launches = 0
     wavg.launches = 0

@@ -131,6 +131,7 @@ def make_a2c_group(env, opt: Optimizer, spec, gen: torch.Generator, *,
     astates, layout = init_a2c(gen, spec.n_agents, env, opt, hidden)
     gen_g, app, pof = make_a2c_callbacks(env, opt, layout, gamma=gamma,
                                          entropy_coef=entropy_coef)
-    ddal = DDAL(spec, gen_g, app, pof, exchange=exchange, device=dev)
+    ddal = DDAL(spec, gen_g, app, pof, exchange=exchange, device=dev,
+                layout=layout)
     return ddal, ddal.init(astates)
 

@@ -103,6 +103,103 @@ def test_epoch_steps_match_reference(topology, delay, max_delay):
         assert gs.epoch == int(want.epoch)
 
 
+SLICE2 = dict(n_agents=8, threshold=2, minibatch=2, m_pieces=6,
+              topology="ring", exchange_delay="uniform", max_delay=2,
+              relevance_mode="grad_cos", relevance_ema=0.9,
+              relevance_sketch_dim=256, knowledge_quant_block=128)
+
+
+@pytest.mark.parametrize("kw", [
+    SLICE2,
+    dict(SLICE2, relevance_sketch_dim=0, topology="full", m_pieces=16),
+], ids=["ring-sketch256-int8", "full-exact-int8"])
+def test_learned_relevance_int8_epoch_steps_match_reference(kw):
+    """The slice's spec, at a small width: two warm-up epochs, then share
+    epochs (2, 4, 6; the one at 2 finds no piece yet, the delay being
+    2) and sharing epochs without an update (3, 5), on gradients drawn
+    from one numpy table by both sides. After every epoch: the int8
+    planes, scales, T, valid and ptr of the stores and the delay line
+    bitwise; the learned relevance, and the R each piece carries (the
+    prior times that relevance), within atol 2e-6 (the cosines reduce
+    the flat row in another order than the reference's per-leaf sums);
+    parameters within rtol 1e-5 and AdamW moments within rtol 1e-5 with
+    an absolute floor of 1e-6 of their largest element: the eq. 4
+    weights carry the relevance's 1e-7-scale differences into ḡ, whose
+    elements that cancel to near zero then differ on the scale of its
+    largest terms, as in ``test_torch_learning``."""
+    n, qb = kw["n_agents"], kw["knowledge_quant_block"]
+    env = ref_envs.CartPole()
+    ref_opt = ref_optim.adamw(3e-3)
+    states = jax.vmap(lambda k: ref_a2c.init_a2c(k, env, ref_opt, HIDDEN))(
+        jax.random.split(jax.random.PRNGKey(0), n))
+    np_states = jax.tree.map(np.asarray, states)
+    _, layout = interop.flat_params(np_states.params)
+    rng = np.random.default_rng(5)
+    table = [jax.tree.map(
+        lambda x: (rng.normal(size=x.shape)
+                   + rng.normal(size=x.shape[1:])).astype(np.float32),
+        np_states.params) for _ in range(7)]
+
+    def ref_grads(state, g):
+        # vmapped per agent: the "key" handed in is the agent's gradient
+        return g, {"return": state.step.astype(jnp.float32)}, state
+
+    calls = []
+
+    def port_grads(state, gen):
+        g = interop.flat_params(table[len(calls)], layout=layout)[0]
+        calls.append(1)
+        return g, {"return": state.step.to(torch.float32)}, state
+
+    _, app, pof = ref_a2c.make_a2c_callbacks(env, ref_opt)
+    ref_ddal = RefDDAL(RefSpec(**kw), ref_grads, app, pof)
+    ref_gs = ref_ddal.init(states)
+    ref_step = jax.jit(ref_ddal.epoch_step)
+    opt = optim.adamw(3e-3)
+    _, p_app, p_pof = a2c.make_a2c_callbacks(envs.CartPole(), opt, layout)
+    ddal = DDAL(GroupSpec(**kw), port_grads, p_app, p_pof, device="cpu",
+                layout=layout)
+    gs = ddal.init(interop.a2c_state(np_states, layout))
+    assert gs.stores.scale.shape[-1] == layout.blocks(qb).n_blocks
+
+    for epoch in range(7):
+        ref_gs, _ = ref_step(ref_gs, jax.tree.map(jnp.asarray,
+                                                  table[epoch]))
+        gs, _ = ddal.epoch_step(gs, None)
+        want = jax.tree.map(np.asarray, ref_gs)
+        st = interop.knowledge_store(want.stores, layout, q_block=qb)
+        fl = interop.sparse_inflight(want.flight, layout, q_block=qb)
+        for got, ref in ((gs.stores, st), (gs.flight, fl)):
+            for name in ("grads", "scale", "T", "valid"):
+                np.testing.assert_array_equal(
+                    getattr(got, name).numpy(), getattr(ref, name).numpy(),
+                    err_msg=f"{name} {epoch}")
+            np.testing.assert_allclose(got.R.numpy(), ref.R.numpy(),
+                                       rtol=0, atol=2e-6)
+        np.testing.assert_array_equal(gs.stores.ptr.numpy(), st.ptr.numpy())
+        np.testing.assert_allclose(gs.relevance.numpy(),
+                                   interop.relevance(want.relevance).numpy(),
+                                   rtol=0, atol=2e-6,
+                                   err_msg=f"relevance {epoch}")
+        got_a = gs.agent_states
+        want_a = interop.a2c_state(want.agent_states, layout)
+        np.testing.assert_allclose(got_a.params.numpy(),
+                                   want_a.params.numpy(), rtol=1e-5,
+                                   atol=1e-7, err_msg=f"params {epoch}")
+        for key in ("m", "v"):
+            w = want_a.opt_state[key].numpy()
+            np.testing.assert_allclose(
+                got_a.opt_state[key].numpy(), w, rtol=1e-5,
+                atol=1e-6 * float(np.abs(w).max()), err_msg=f"{key} {epoch}")
+        np.testing.assert_array_equal(got_a.step.numpy(),
+                                      want_a.step.numpy())
+    # learned: off the uniform prior, inside [min_rel, 1]
+    rel = gs.relevance.numpy()
+    assert (rel < 1.0).any() and (rel >= 1e-3).all() and (rel <= 1.0).all()
+    # epochs 0, 1 independent; 4, 6 share (epoch 2's store is empty)
+    assert gs.agent_states.step.tolist() == [4] * n
+
+
 def test_twenty_epoch_cpu_run_stays_finite():
     spec = GroupSpec(n_agents=2, threshold=5, minibatch=5, m_pieces=8)
     launches = ops.fused_wavg.launches
@@ -138,11 +235,11 @@ def test_run_with_legacy_wavg_path_matches_fused():
 
 
 UNPORTED = [
-    dict(knowledge_quant_block=128), dict(elastic=True),
+    dict(elastic=True),
     dict(transport_loss=0.1), dict(transport_dup=0.1),
     dict(transport_corrupt=0.1), dict(transport_jitter=1),
     dict(transport_retransmit=1), dict(transport_decay=0.5),
-    dict(max_staleness=3), dict(relevance_mode="grad_cos"),
+    dict(max_staleness=3),
     dict(topology="random_k", degree=2, resample_every=5),
     dict(exchange_estimator="obs_stats"), dict(exchange_combiner="flat"),
     dict(exchange_schedule="dynamic", topology="random_k", degree=2,
@@ -185,7 +282,13 @@ def test_default_spec_and_ported_choices_construct():
                dict(exchange_delay="uniform", max_delay=2),
                dict(exchange_schedule="static", exchange_estimator="uniform",
                     exchange_combiner="store", exchange_transport="none"),
-               dict(topology="torus2d"), dict(topology="star")):
+               dict(topology="torus2d"), dict(topology="star"),
+               dict(knowledge_quant_block=128),
+               dict(relevance_mode="grad_cos"),
+               dict(relevance_mode="grad_cos", relevance_sketch_dim=256),
+               dict(exchange_estimator="grad_cos"),
+               dict(exchange_estimator="grad_cos+sketch",
+                    relevance_sketch_dim=64)):
         assert GroupSpec(n_agents=4, **kw) == GroupSpec(n_agents=4, **kw)
 
 

@@ -173,3 +173,109 @@ def test_regular_exchange_predicate_matches_reference():
             k = port.degree
             assert (K._regular_exchange(port, m, k)
                     == RK._regular_exchange(ref, m, k)), (name, m)
+
+
+def _assert_int8(port, want):
+    """Int8 planes and scales bitwise; ``want`` is already converted."""
+    assert port.grads.dtype == torch.int8
+    np.testing.assert_array_equal(port.grads.numpy(), want.grads.numpy())
+    np.testing.assert_array_equal(port.scale.numpy(), want.scale.numpy())
+    for name in ("T", "R", "valid"):
+        np.testing.assert_array_equal(getattr(port, name).numpy(),
+                                      getattr(want, name).numpy(),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("relevance", ["static", "learned"])
+@pytest.mark.parametrize("topo_name,delay,qb", [
+    ("ring", 2, 128),            # general delivery, uniform delay 2
+    ("full", 0, 128),            # the aligned k-block fast path
+    ("full", 1, 1024),
+])
+def test_int8_send_deliver_sequence(topo_name, delay, qb, relevance):
+    """Eight epochs of send + deliver of shared pieces over int8 planes,
+    sharing from epoch 2 on: each source's piece is quantized once
+    before the gather, and the scales ride with it. The delay line and
+    the stores — int8 planes, scales, T, R, valid and ptr — are bitwise
+    the reference's after every epoch. ``learned`` hands both sides a
+    per-edge R that changes every epoch, on the port as a tensor (the
+    learned estimator's form) instead of a host table."""
+    n = 5 if topo_name == "ring" else 4
+    make = getattr(T, topo_name)
+    ref_topo = getattr(RT, topo_name)(n).with_delay(delay)
+    topo = make(n).with_delay(delay)
+    k = topo.degree
+    m = 2 * k if topo_name == "full" else 5
+    layout = _layout()
+    params0 = jax.tree.map(jnp.asarray, _params_like())
+    ref_f = RK.make_sparse_inflight(params0, ref_topo, delay, qb)
+    ref_s = jax.vmap(lambda _: RK.make_store(params0, m, qb))(jnp.arange(n))
+    blocks = layout.blocks(qb)
+    port_f = K.make_sparse_inflight(n, k, delay, layout.size, "cpu", blocks)
+    port_s = K.make_store(n, m, layout.size, "cpu", blocks)
+    ref_send = jax.jit(lambda f, t, p, tv, e, en: RK.sparse_send(
+        f, t, p, tv, e, en, quant_block=qb))
+    ref_deliver = jax.jit(lambda f, s, e: RK.sparse_deliver(
+        f, s, e, ref_topo))
+    rng = np.random.default_rng(qb + delay)
+    for epoch in range(8):
+        pieces = _pieces(rng, (n,))
+        Tv = np.full((n,), max(epoch, 1), np.float32)
+        sharing = epoch >= 2
+        ref_t, port_t = ref_topo, topo
+        if relevance == "learned":
+            r = rng.random((n, k)).astype(np.float32)
+            ref_t = ref_topo._replace(relevance=jnp.asarray(r))
+            port_t = topo._replace(relevance=torch.from_numpy(r))
+        ref_f = ref_send(ref_f, ref_t, jax.tree.map(jnp.asarray, pieces),
+                         jnp.asarray(Tv), jnp.int32(epoch),
+                         jnp.asarray(sharing))
+        ref_f, ref_s = ref_deliver(ref_f, ref_s, jnp.int32(epoch))
+        port_f = K.sparse_send(
+            port_f, port_t, interop.flat_params(pieces, layout=layout)[0],
+            torch.from_numpy(Tv), epoch, sharing)
+        port_f, port_s = K.sparse_deliver(port_f, port_s, epoch, topo)
+        want_f = interop.sparse_inflight(jax.tree.map(np.asarray, ref_f),
+                                         layout, q_block=qb)
+        want_s = interop.knowledge_store(jax.tree.map(np.asarray, ref_s),
+                                         layout, q_block=qb)
+        _assert_int8(port_f, want_f)
+        _assert_int8(port_s, want_s)
+        np.testing.assert_array_equal(port_s.ptr.numpy(), want_s.ptr.numpy())
+    assert bool(port_s.valid.any())
+
+
+def test_int8_store_append_carries_scales():
+    """``append`` / ``append_many`` on an int8 store move the scales with
+    the planes, and refuse a piece without them."""
+    n, m, qb = 2, 3, 128
+    layout = _layout()
+    blocks = layout.blocks(qb)
+    params0 = jax.tree.map(jnp.asarray, _params_like())
+    ref = jax.vmap(lambda _: RK.make_store(params0, m, qb))(jnp.arange(n))
+    port = K.make_store(n, m, layout.size, "cpu", blocks)
+    rng = np.random.default_rng(0)
+    from repro.kernels.ddal_wavg import ops as ref_wavg_ops
+    from repro_torch.kernels.ddal_wavg.ref import quantize_flat
+    for step in range(4):
+        piece = _pieces(rng, (n,))
+        qt, st = jax.jit(lambda t: ref_wavg_ops.quantize_tree(
+            t, qb, lead=1))(jax.tree.map(jnp.asarray, piece))
+        Tv = rng.random(n).astype(np.float32)
+        ref = jax.vmap(lambda s, p, t, r, sc: RK.append(
+            s, p, t, r, True, scale=sc))(ref, qt, jnp.asarray(Tv),
+                                          jnp.asarray(Tv), st)
+        q, s = quantize_flat(interop.flat_params(piece, layout=layout)[0],
+                             blocks)
+        port = K.append(port, q, torch.from_numpy(Tv), torch.from_numpy(Tv),
+                        scale=s)
+        want = interop.knowledge_store(jax.tree.map(np.asarray, ref),
+                                       layout, q_block=qb)
+        _assert_int8(port, want)
+    with pytest.raises(ValueError, match="scales"):
+        K.append(port, q, torch.from_numpy(Tv), torch.from_numpy(Tv))
+    many = K.append_many(port, q[:, None].expand(n, 2, -1),
+                         torch.ones(n, 2), torch.ones(n, 2),
+                         torch.ones(n, 2, dtype=torch.bool),
+                         scales=s[:, None].expand(n, 2, -1))
+    assert torch.equal(many.scale[:, 1], s) and torch.equal(many.scale[:, 2], s)
