@@ -9,22 +9,28 @@ Phases, each printing its lines:
 2. build every CUDA kernel of the main path from the sources in this
    checkout (one ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the main path and at edge cases, with its time beside the
+   shapes of the main paths and at edge cases, with its time beside the
    plain version's, a one-call PyTorch yardstick's and the least time
    the card could take: the fp32 eq. 4 share step (both entries), the
    gradient sketch (signs through the kernel bitwise, sketches within
-   their gate, two launches bitwise equal) and the int8 share step
-   (bitwise);
-4. the main path, through the entry points a user calls: DDA3C groups
-   at the paper's width (A2C, hidden 64, CartPole-v0) trained for a few
-   hundred epochs, the fourth with learned sketched relevance and int8
-   knowledge planes, each run with the kernels' launch counts zeroed
-   just before it and read just after;
-5. the card against the port's CPU path on small groups with seeded
-   gradients, fp32 and int8 + learned relevance;
+   their gate, two launches bitwise equal), the int8 share step
+   (bitwise) and the SSD intra-chunk dual form (within its gate, two
+   launches bitwise equal);
+4. the main paths, through the entry points a user calls, each run with
+   the kernels' launch counts zeroed just before it and read just
+   after: DDA3C groups at the paper's width (A2C, hidden 64,
+   CartPole-v0) trained for a few hundred epochs, the fourth with
+   learned sketched relevance and int8 knowledge planes; then
+   (``[serve]``) mamba2-780m at its published widths and depth served
+   by ``repro_torch.launch.serve``: 4 requests of up to 1023 prompt
+   tokens, prefill and 32 greedy tokens each;
+5. the card against the port's CPU path: small DDA3C groups with seeded
+   gradients, fp32 and int8 + learned relevance; and the serving path
+   at mamba2-780m's widths cut to 2 layers with fp32 compute;
 6. a profile of a few main-path epochs of the quickstart group and of
-   the fourth run's configuration: the device's busy share, the ops
-   that take the time and the host-clock split of an epoch.
+   the fourth run's configuration (the device's busy share, the ops
+   that take the time and the host-clock split of an epoch), and of
+   one full-width prefill and 4 decode steps.
 
 It prints one JSON line of per-kernel numbers (``launches`` is the
 count of the first path that drives the kernel, ``launches_by_path``
@@ -47,12 +53,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 G_TOL = dict(rtol=2e-5, atol=2e-5)     # ḡ, as the Pallas kernel is held
 W_RTOL = 1e-6                          # Σw
 EPOCHS = 300                           # of each main-path run
 
 SKETCH_DIM, QUANT_BLOCK = 256, 128      # the fourth main-path run's
-SOURCES = ("ddal_wavg", "grad_sketch")
+SOURCES = ("ddal_wavg", "grad_sketch", "ssd_scan")
+SSD_GATE = 1e-5        # × Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|, per element
+# the serving path: mamba2-780m at its published widths and depth
+SERVE_ARGV = ["--arch", "mamba2-780m", "--full", "--serve", "engine=batch",
+              "--serve", "slots=2", "--requests", "4", "--prompt-len",
+              "1024", "--serve", "max_new_tokens=32"]
+SERVE_LABEL = "[serve] mamba2-780m"
 
 KERNELS = {
     "ddal_fused_wavg": dict(
@@ -71,6 +84,10 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/grad_sketch/csrc/grad_sketch.cu",
         replaces="src/repro/kernels/grad_sketch/kernel.py:116"),
+    "ssd_intra_chunk": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:48"),
 }
 
 
@@ -81,6 +98,26 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str):
     if not ok:
         raise SmokeFailure(what)
+
+
+def _counted():
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from repro_torch.kernels.ddal_wavg import ops
+    from repro_torch.kernels.grad_sketch import ops as sketch_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return {"ddal_fused_wavg": ops.fused_wavg, "ddal_wavg": ops.wavg,
+            "ddal_fused_wavg_q": ops.fused_wavg_q,
+            "grad_sketch": sketch_ops.sketch_flat,
+            "ssd_intra_chunk": ssd_ops.ssd_intra_chunk}
+
+
+def reset_launches():
+    for fn in _counted().values():
+        fn.launches = 0
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def device_phase(torch):
@@ -397,6 +434,148 @@ def wavg_q_phase(torch):
     return row
 
 
+def _ssd_case(torch, seed, b, nc, l, h, p, n, g, dtype, pad=0):
+    """Chunked SSD inputs on the card, drawn as the reference's kernel
+    test draws them (x, B, C normal, dt = softplus(normal), A =
+    −exp(normal), cs the cumsum of dt·A); x, B, C in ``dtype``. The
+    last ``pad`` steps of every chunk are ``ssd_chunked``'s padding:
+    dt = 0 and x, B, C zero."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    xc, dtc = normal(b, nc, l, h, p), torch.nn.functional.softplus(
+        normal(b, nc, l, h))
+    A = -torch.exp(normal(h))
+    Bc, Cc = normal(b, nc, l, g, n), normal(b, nc, l, g, n)
+    if pad:
+        for t in (xc, dtc, Bc, Cc):
+            t[:, :, l - pad:] = 0
+    cs = torch.cumsum(dtc * A, dim=2)
+    return [xc.to(dtype), dtc, cs, Bc.to(dtype), Cc.to(dtype)]
+
+
+def ssd_bound(bn, l, h, p, n, g, esize):
+    """Least time (ms), the larger of operations and bytes, and which
+    one it is. Over the l(l+1)/2 causal (i, j) pairs of a chunk: the
+    score C_i·B_j, 2n operations once per (chunk, group), since B and C
+    are shared by the heads of a group; per (chunk, head) the decay
+    exp(cs_i − cs_j) and its product with the score (3) and the product
+    with x_j (2p), plus l·p to fold dt_j into x_j. With bf16 B and C the
+    score runs at the bf16 tensor-core rate (bf16 products are exact in
+    fp32, and the sums stay fp32), with fp32 ones at the fp32 rate (tf32
+    would round them); the rest is fp32 at the fp32 rate, since S·x
+    takes fp32 scores. Bytes: each input read once, the fp32 output
+    written once, at the HBM rate."""
+    pairs = l * (l + 1) // 2
+    score = bn * g * pairs * 2 * n
+    rest = bn * h * (pairs * (3 + 2 * p) + l * p)
+    score_rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
+    nbytes = (bn * l * h * p * esize + 2 * bn * l * g * n * esize
+              + 2 * bn * l * h * 4 + bn * l * h * p * 4)
+    ops_ms = (score / score_rate + rest / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def ssd_kernel_phase(torch):
+    """The SSD intra-chunk kernel against its plain version: the
+    reference's three test shapes within its rtol = atol = 2e-5; the
+    main path's shape in fp32 and bf16, ragged shapes and a dt = 0
+    padded chunk within SSD_GATE · Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|
+    per element (the plain version on |x|, |B|, |C|: the sum of the
+    absolute values of the terms both add, in other orders); every case
+    launched twice, bitwise equal. Returns the numbers at the main
+    path's (bn, h, l, p, n) = (8, 48, 256, 64, 128) in bf16."""
+    from repro_torch.kernels.ssd_scan import ops, ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, (b, nc, l, h, p, n, g), dtype, pad, reference gate, timed)
+    cases = [("reference test shape", (2, 2, 32, 3, 16, 16, 3), f32, 0,
+              True, False),
+             ("reference test shape", (1, 4, 64, 2, 32, 64, 2), f32, 0,
+              True, False),
+             ("reference test shape", (2, 1, 128, 4, 64, 128, 4), f32, 0,
+              True, False),
+             ("main path, bf16", (2, 4, 256, 48, 64, 128, 1), bf16, 0,
+              False, True),
+             ("main path, fp32", (2, 4, 256, 48, 64, 128, 1), f32, 0,
+              False, True),
+             ("dt = 0 padding (70 of 256 steps)", (1, 2, 256, 48, 64, 128,
+                                                   1), bf16, 70, False,
+              False),
+             ("ragged l, p, n; 3 groups", (1, 3, 100, 6, 40, 48, 3), f32,
+              0, False, False)]
+    row = {}
+    for seed, (label, shape, dtype, pad, ref_gate, timed) in enumerate(
+            cases):
+        b, nc, l, h, p, n, g = shape
+        args = _ssd_case(torch, seed, b, nc, l, h, p, n, g, dtype, pad)
+        got = ops.ssd_intra_chunk(*args)
+        again = ops.ssd_intra_chunk(*args)
+        want = ref.ssd_intra_chunk(*args)
+        xc, dtc, cs, Bc, Cc = args
+        scale = ref.ssd_intra_chunk(xc.abs(), dtc, cs, Bc.abs(), Cc.abs())
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        share = float((diff / (SSD_GATE * scale).clamp_min(1e-30)).max())
+        bitwise = torch.equal(got, again)
+        ok = bool((diff <= SSD_GATE * scale).all()) and bitwise
+        if ref_gate:
+            ok = ok and torch.allclose(got, want, rtol=2e-5, atol=2e-5)
+        if pad:
+            ok = ok and not bool(got[:, :, l - pad:].any())
+        err = float(diff.max())
+        print(f"[kernel] ssd_intra_chunk {label} (b·nc, h, l, p, n, g) = "
+              f"({b * nc}, {h}, {l}, {p}, {n}, {g}) {str(dtype)[6:]}: max "
+              f"abs {err:.3e}, worst share of the {SSD_GATE:g}·Σ|terms| "
+              f"gate {share:.4f}"
+              f"{', reference gate rtol=atol=2e-5' if ref_gate else ''}"
+              f"{', padded rows exactly 0' if pad else ''}, two launches "
+              f"bitwise {bitwise} -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"ssd kernel disagrees with its plain version: {label} "
+                  f"{shape} {dtype}")
+        if not timed:
+            continue
+        bn = b * nc
+        ms, host = time_ms(torch, lambda: ops.ssd_intra_chunk(*args), 50)
+        plain_ms, plain_host = time_ms(
+            torch, lambda: ref.ssd_intra_chunk(*args), 10)
+        # the plain version's two matmuls, per head as it computes them,
+        # with the operands laid out and the mask L·dt built outside
+        heads = [ref.heads_of(t, h).float().movedim(3, 2).reshape(
+            bn, h, l, n) for t in (Cc, Bc)]
+        Ch, BhT = heads[0].contiguous(), heads[1].transpose(-1, -2) \
+            .contiguous()
+        Xh = xc.float().movedim(3, 2).reshape(bn, h, l, p).contiguous()
+        csh = cs.movedim(3, 2).reshape(bn, h, l)
+        L = torch.where(torch.ones(l, l, dtype=torch.bool, device="cuda")
+                        .tril(), torch.exp(csh[..., :, None]
+                                           - csh[..., None, :]), 0.0)
+        M = L * dtc.movedim(3, 2).reshape(bn, h, l)[..., None, :]
+        del L
+        lib_ms, lib_host = time_ms(
+            torch, lambda: torch.matmul(torch.matmul(Ch, BhT) * M, Xh), 50)
+        del Ch, BhT, Xh, M
+        b_ms, b_by = ssd_bound(bn, l, h, p, n, g, xc.element_size())
+        score_rate = ("989 TFLOP/s bf16" if xc.element_size() == 2
+                      else "67 TFLOP/s fp32")
+        print(f"[kernel] ssd_intra_chunk {label}: device {ms:.5f} ms "
+              f"({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, {b_by}: on the "
+              f"causal half, C·Bᵀ once per (chunk, group) at "
+              f"{score_rate}, decay and S·x per (chunk, head) at 67 "
+              f"TFLOP/s fp32), plain {plain_ms:.5f} ms, the plain "
+              f"version's two torch.matmuls per head, fp32, mask built "
+              f"outside the timing {lib_ms:.5f} ms; host per call: kernel "
+              f"{host:.5f} ms, plain {plain_host:.5f} ms, matmuls "
+              f"{lib_host:.5f} ms")
+        if not row:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return row
+
+
 def _mean(x):
     return float(x.float().mean()) if x.numel() else float("nan")
 
@@ -414,8 +593,6 @@ def main_path_phase(torch, epochs=EPOCHS):
     from repro_torch import optim
     from repro_torch.configs.base import GroupSpec
     from repro_torch.core.ddal import DDAL
-    from repro_torch.kernels.ddal_wavg import ops
-    from repro_torch.kernels.grad_sketch import ops as sketch_ops
     from repro_torch.rl.a2c import init_a2c, make_a2c_callbacks, \
         make_a2c_group
     from repro_torch.rl.envs import CartPole
@@ -447,16 +624,12 @@ def main_path_phase(torch, epochs=EPOCHS):
         else:
             ddal, gs = make_a2c_group(env, opt, spec, gen)
         torch.cuda.synchronize()
-        ops.reset_launches()
-        sketch_ops.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         gs, metrics = ddal.run(gs, gen, n_epochs)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        launched = {"ddal_fused_wavg": ops.fused_wavg.launches,
-                    "ddal_wavg": ops.wavg.launches,
-                    "ddal_fused_wavg_q": ops.fused_wavg_q.launches,
-                    "grad_sketch": sketch_ops.sketch_flat.launches}
+        launched = launch_counts()
         shares = sum(1 for e in range(spec.threshold, n_epochs)
                      if e % spec.minibatch == 0)
         # the estimator skips warm-up epochs (the reference computes and
@@ -612,7 +785,7 @@ def profile_phase(torch):
         rows.sort(key=lambda r: -r[2])
         ours = [(r[0][:40], r[1], round(r[2]), round(r[3])) for r in rows
                 if "wavg_kernel" in r[0] or "wavg_q_kernel" in r[0]
-                or "sketch_" in r[0]]
+                or "sketch_" in r[0] or "ssd_chunk_kernel" in r[0]]
 
         def wall_of(fn, reps=10):
             torch.cuda.synchronize()
@@ -647,6 +820,187 @@ def profile_phase(torch):
                   f"{dev_us:.0f} us, host {cpu_us:.0f} us")
 
 
+def serve_phase(torch):
+    """The serving path at mamba2-780m's published widths and depth,
+    through ``repro_torch.launch.serve`` called as a function (4
+    requests of up to 1023 prompt tokens, 2 slots, 32 greedy tokens),
+    with every kernel's launch count zeroed just before the call and
+    read just after. Returns ({kernel: {path: launches}}, prompts)."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch import serve
+
+    cfg = get_arch_config("mamba2-780m")
+    s = cfg.ssm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        report = serve.main(SERVE_ARGV)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    # the launcher's per-slot lines print ~1000-id prompts: summarise
+    for (toks, lens), outs in zip(report["batches"], report["outputs"]):
+        for row in range(outs.shape[0]):
+            print(f"[serve]   prompt of {int(lens[row])} ids -> "
+                  f"{outs[row].tolist()}")
+    for ln in out.getvalue().splitlines()[-2:]:
+        print(f"[serve]   {ln}")
+    calls = report["prefill_calls"]
+    want = {name: 0 for name in KERNELS}
+    want["ssd_intra_chunk"] = cfg.n_layers * calls
+    lens = [len(pr) for pr in report["prompts"]]
+    print(f"[serve] mamba2-780m: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {s.expand * cfg.d_model // s.head_dim} SSD heads "
+          f"of {s.head_dim}, d_state {s.d_state}, chunk {s.chunk}, vocab "
+          f"{cfg.vocab_size}, {cfg.compute_dtype} compute; {len(lens)} "
+          f"requests, prompt lengths {lens}, {calls} prefill calls; prefill "
+          f"ms per batch "
+          + ", ".join(f"{ms:.2f}" for ms in report["prefill_ms"])
+          + f" (the first includes the card's warm-up); decode "
+          f"{report['decode_tok_s']:.1f} tok/s over "
+          f"{sum(report['decode_s']):.3f} s; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    check(launched == want, f"[serve]: launches {launched} != {want} "
+                            f"({cfg.n_layers} layers x {calls} prefills)")
+    outs = report["outputs"]
+    check(calls == 2 and len(outs) == 2
+          and all(o.shape == (2, 32) and o.dtype == torch.int32
+                  and bool(((o >= 0) & (o < cfg.vocab_size)).all())
+                  for o in outs),
+          "[serve]: not 4 requests x 32 tokens in the vocabulary")
+    check(all(lg.shape == (2, cfg.vocab_size)
+              and bool(torch.isfinite(lg.float()).all())
+              for lg in report["first_logits"]),
+          "[serve]: non-finite or misshapen prefill logits")
+    return ({"ssd_intra_chunk": {SERVE_LABEL: launched["ssd_intra_chunk"]}},
+            report["prompts"])
+
+
+def equiv_serve_phase(torch, prompts):
+    """The card against the port's CPU path on the [serve] prompts, at
+    mamba2-780m's widths cut to 2 layers with fp32 compute, on the same
+    weights (drawn on the host, copied to the card): prefill logits
+    within rtol = atol = 1e-4 (matmuls and the SSD kernel sum in
+    another fp32 order than the CPU), the 32 greedy tokens of every
+    request equal."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
+
+    cfg = get_arch_config("mamba2-780m").with_(n_layers=2,
+                                               compute_dtype="float32")
+    params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    serve = ServeConfig(max_len=128, max_new_tokens=32)
+    results, launched, secs = {}, {}, {}
+    for dev in ("cpu", "cuda"):
+        engine = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params),
+                             serve)
+        reset_launches()
+        t0 = time.perf_counter()
+        results[dev] = []
+        for toks, lens in serve_batches(prompts, 2, device=dev):
+            logits, cache = engine.prefill(toks, lens)
+            out = engine.decode(logits, cache, lens)
+            results[dev].append((logits.cpu(), out.cpu()))
+        secs[dev] = time.perf_counter() - t0
+        launched[dev] = launch_counts()["ssd_intra_chunk"]
+    errs, rels, same = [], [], True
+    for (lg_c, out_c), (lg_g, out_g) in zip(results["cpu"], results["cuda"]):
+        d = (lg_g - lg_c).abs()
+        errs.append(float(d.max()))
+        rels.append(float((d / lg_c.abs().clamp_min(1e-30)).max()))
+        same = same and torch.equal(out_g, out_c)
+    ok = (all(torch.allclose(g[0], c[0], rtol=1e-4, atol=1e-4) for g, c in
+              zip(results["cuda"], results["cpu"])) and same
+          and launched == {"cpu": 0, "cuda": cfg.n_layers * len(errs)})
+    print(f"[equiv] serve mamba2-780m widths, 2 layers, fp32, {len(prompts)} "
+          f"requests x 32 greedy tokens, card vs CPU: prefill logits max abs "
+          f"{max(errs):.3e} (max rel {max(rels):.3e}; rtol=atol=1e-4), "
+          f"greedy tokens equal {same}, ssd_intra_chunk launches "
+          f"{launched}; CPU {secs['cpu']:.1f} s, card {secs['cuda']:.1f} s "
+          f"-> {'ok' if ok else 'FAIL'}")
+    check(ok, "card and CPU serving paths disagree")
+
+
+def profile_serve_phase(torch, prompts):
+    """The device's busy share and the ops that take the time at full
+    width, after a warm-up: one prefill of the first [serve] batch in
+    one profiler window, 4 decode steps in another; then the same split
+    on the host clock with the profiler off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import get_model
+    from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
+
+    cfg = get_arch_config("mamba2-780m")
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    engine = ServeEngine(cfg, params, ServeConfig(max_len=128,
+                                                  max_new_tokens=5))
+    toks, lens = serve_batches(prompts[:2], 2, device="cuda")[0]
+    engine.generate(toks, lens)                       # warm-up
+    torch.cuda.synchronize()
+    state = {}
+
+    def prefill():
+        state["prefill"] = engine.prefill(toks, lens)
+
+    def decode():
+        engine.decode(*state["prefill"], lens)
+
+    for label, fn in (("prefill", prefill), ("4 decode steps", decode)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if getattr(e, "device_type", None) is not None
+                   and str(e.device_type).endswith("CUDA")]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        rows = [(ev.key, ev.count,
+                 getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0)),
+                 getattr(ev, "self_cpu_time_total", 0.0))
+                for ev in prof.key_averages()]
+        ssd_us = sum(r[2] for r in rows if "ssd_chunk_kernel" in r[0])
+        print(f"[profile] serve mamba2-780m {label}, batch of "
+              f"{toks.shape[0]} x {toks.shape[1]} prompt tokens: wall "
+              f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.2f} ms "
+              f"({busy_us / (wall * 1e6):.1%}), {len(kernels)} device "
+              f"kernels, ssd_chunk_kernel {ssd_us / 1e3:.3f} ms")
+        for what, col in (("device", 2), ("self host", 3)):
+            for key, count, dev_us, cpu_us in sorted(
+                    rows, key=lambda r: -r[col])[:6]:
+                print(f"[profile]   by {what} time: {key[:60]}: {count} "
+                      f"calls, device {dev_us:.0f} us, self host "
+                      f"{cpu_us:.0f} us")
+    times = {"prefill": [], "decode step": []}
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        times["prefill"].append((t1 - t0) * 1e3)
+        times["decode step"].append((time.perf_counter() - t1) * 1e3 / 4)
+    print("[profile] serve, host clock, profiler off, 3 repetitions (ms): "
+          + "; ".join(f"{k} " + ", ".join(f"{v:.2f}" for v in vs)
+                      for k, vs in times.items()))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -663,14 +1017,20 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     t_start = time.perf_counter()
     try:
-        device_phase(torch)
+        card = device_phase(torch)
         build_phase()
         table = kernel_phase(torch)
         table["grad_sketch"] = sketch_phase(torch)
         table["ddal_fused_wavg_q"] = wavg_q_phase(torch)
+        table["ssd_intra_chunk"] = ssd_kernel_phase(torch)
         launches = main_path_phase(torch)
+        serve_launches, prompts = serve_phase(torch)
+        for name, paths in serve_launches.items():
+            launches[name].update(paths)
         equivalence_phase(torch)
+        equiv_serve_phase(torch, prompts)
         profile_phase(torch)
+        profile_serve_phase(torch, prompts)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
@@ -690,6 +1050,7 @@ def main() -> int:
         print("chip_smoke: FAILED: non-finite kernel time", file=sys.stderr)
         return 1
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(card)                                  # name, power limit
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,15 @@ def tree_leaves_with_paths(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
     return [(prefix, tree)]
 
 
+def tree_map(fn, tree, *rest):
+    """``fn`` leaf by leaf over matching nests of dicts (the model
+    zoo's parameter and cache trees): ``fn(leaf, *matching_leaves)``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def _build(skeleton, leaves_by_path: dict, prefix: Path = ()):
     if isinstance(skeleton, dict):
         return {k: _build(skeleton[k], leaves_by_path, prefix + (k,))

@@ -1,18 +1,22 @@
-"""DDAL group configuration (paper §5) — the port's copy of
-``repro.configs.base.GroupSpec``.
+"""Configuration dataclasses — the port's copies of
+``repro.configs.base.GroupSpec`` (DDAL group configuration, paper §5),
+``ArchConfig`` and ``SSMConfig``.
 
 The fields, defaults and validation are the reference's, so a spec
 that the reference rejects is rejected here with the same
 ``ValueError``. On top of that, a field whose behaviour the port does
 not implement yet is refused at construction with a
 :class:`NotPortedError` naming the field, so an unported option is
-never silently ignored. ``ArchConfig`` (the LLM model zoo) is not
-copied: no port slice uses it yet.
+never silently ignored. ``ArchConfig`` and ``SSMConfig`` (the model
+zoo) are copied for the SSM family only; the other families raise
+:class:`NotPortedError`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
+
+import torch
 
 TOPOLOGIES = ("full", "ring", "torus2d", "star", "random_k",
               "hierarchical")
@@ -263,3 +267,87 @@ class GroupSpec:
                 raise NotPortedError(
                     f"GroupSpec.{field}={getattr(self, field)!r} is not "
                     f"ported to repro_torch yet")
+
+
+# ---------------------------------------------------------------------
+# Model zoo: the SSM family (Mamba2) only
+# ---------------------------------------------------------------------
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+PORTED_FAMILIES = ("ssm",)
+SSD_IMPLS = ("xla", "pallas_interpret")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block configuration — the reference's fields and
+    defaults."""
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256
+    d_conv: int = 4
+
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """The port's copy of ``repro.configs.base.ArchConfig``, cut to the
+    fields the SSM family's forward and decode read (the attention,
+    MoE and modality fields, ``remat`` and ``unroll_layers`` are not
+    copied). A family other than ``"ssm"`` raises
+    :class:`NotPortedError`; an unknown family or ``ssd_impl`` raises
+    ``ValueError``.
+
+    ``ssd_impl`` is kept and validated against the reference's values
+    (``"xla"``, ``"pallas_interpret"``), but it selects nothing: as for
+    every kernel of the port, CUDA tensors take the SSD kernel and CPU
+    tensors its plain version (``repro_torch.kernels.ssd_scan.ops``).
+    """
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    vocab_size: int
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    ssd_impl: str = "xla"
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}; expected "
+                             f"one of {FAMILIES}")
+        if self.family not in PORTED_FAMILIES:
+            raise NotPortedError(
+                f"ArchConfig.family={self.family!r} is not ported to "
+                f"repro_torch yet; the port has {PORTED_FAMILIES}")
+        if self.ssm is None:
+            raise ValueError("an ssm-family ArchConfig needs ssm=SSMConfig")
+        if self.ssd_impl not in SSD_IMPLS:
+            raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; "
+                             f"expected one of {SSD_IMPLS}")
+        for which in ("param_dtype", "compute_dtype"):
+            if getattr(self, which) not in DTYPES:
+                raise ValueError(f"{which} must be one of "
+                                 f"{tuple(DTYPES)}, got "
+                                 f"{getattr(self, which)!r}")
+
+    def dtype(self, which: str = "compute") -> torch.dtype:
+        return DTYPES[self.param_dtype if which == "param" else
+                      self.compute_dtype]
+
+    def with_(self, **kw) -> "ArchConfig":
+        return replace(self, **kw)
+
+    def reduced(self) -> "ArchConfig":
+        """Smoke-test variant, the reference's numbers: 2 layers,
+        d_model ≤ 256, vocab ≤ 512, fp32; ssm d_state 16, head_dim 16,
+        chunk 32."""
+        return replace(
+            self, n_layers=2, d_model=min(self.d_model, 256),
+            vocab_size=min(self.vocab_size, 512), param_dtype="float32",
+            compute_dtype="float32",
+            ssm=replace(self.ssm, d_state=16, head_dim=16, chunk=32))

@@ -8,7 +8,9 @@ port's tensors. Parameter-shaped pytrees become flat rows through a
 leaf order, so both sides then compute the same thing. Int8 stores and
 delay lines keep their int8 planes, and their per-leaf scale leaves
 (…, ⌈size / q_block⌉) are laid side by side in leaf order into the
-port's scale columns (``BlockLayout``).
+port's scale columns (``BlockLayout``). The SSM model zoo's params
+keep the reference's pytree as they are (``ssm_params``), and Mamba2
+decode states go both ways (``ssm_state``, ``ssm_state_to_numpy``).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import PlaneLayout, tree_leaves_with_paths
+from repro_torch.common.pytree import (PlaneLayout, tree_leaves_with_paths,
+                                       tree_map)
 from repro_torch.core.knowledge import KnowledgeStore, SparseInFlight
 from repro_torch.rl.a2c import A2CState
 
@@ -121,3 +124,46 @@ def relevance(state, device="cpu") -> torch.Tensor:
     """The reference's (n, n) learned relevance state
     (``GroupState.relevance`` of the gradient estimators)."""
     return _t(state, device, torch.float32)
+
+
+# ---------------------------------------------------------------------
+# the SSM model zoo (Mamba2): params and decode states
+# ---------------------------------------------------------------------
+SSM_STATE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")
+
+
+def _array_to_tensor(x, device) -> torch.Tensor:
+    """A numpy leaf → a tensor of the same dtype; bf16 arrays (numpy's
+    ``ml_dtypes`` bfloat16, as JAX hands them out) go through fp32,
+    which holds every bf16 value exactly."""
+    if np.asarray(x).dtype.name == "bfloat16":
+        return _t(np.asarray(x, np.float32), device).to(torch.bfloat16)
+    return _t(x, device)
+
+
+def ssm_params(params, device="cpu") -> dict:
+    """The reference's SSM-model params (``repro.models.ssm_model``:
+    numpy leaves, the layers' leaves stacked on axis 0) → the port's,
+    which keep the same pytree and dtypes."""
+    want = {"embed", "final_norm", "layers"}
+    if not want <= set(params) or set(params["layers"]) != {"ln", "mamba"}:
+        raise ValueError(f"not an SSM-model param tree: keys "
+                         f"{sorted(params)}")
+    return tree_map(lambda x: _array_to_tensor(x, device), params)
+
+
+def ssm_state(state, device="cpu") -> dict:
+    """A reference Mamba2 decode state (``make_mamba_state`` layout: conv
+    tails and the SSM state, one leading layer axis or none) → the
+    port's."""
+    if set(state) != set(SSM_STATE_KEYS):
+        raise ValueError(f"not a Mamba2 decode state: keys {sorted(state)}")
+    return {k: _array_to_tensor(state[k], device) for k in SSM_STATE_KEYS}
+
+
+def ssm_state_to_numpy(state) -> dict:
+    """The port's Mamba2 decode state → numpy arrays (bf16 tails as
+    fp32), for the reference's functions."""
+    return {k: state[k].detach().to("cpu").to(
+        torch.float32 if state[k].dtype == torch.bfloat16
+        else state[k].dtype).numpy() for k in SSM_STATE_KEYS}

@@ -155,9 +155,3 @@ def wavg(G: torch.Tensor, w: torch.Tensor, *, impl: str = "auto"
 fused_wavg.launches = 0
 fused_wavg_q.launches = 0
 wavg.launches = 0
-
-
-def reset_launches() -> None:
-    fused_wavg.launches = 0
-    fused_wavg_q.launches = 0
-    wavg.launches = 0

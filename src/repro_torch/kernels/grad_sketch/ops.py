@@ -80,7 +80,3 @@ def sketch_flat(G: torch.Tensor, seed: int, dim: int, offset: int = 0, *,
 
 
 sketch_flat.launches = 0
-
-
-def reset_launches() -> None:
-    sketch_flat.launches = 0

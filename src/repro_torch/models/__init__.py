@@ -1,0 +1,2 @@
+"""The model zoo (port of ``repro.models``): the SSM family (Mamba2)."""
+from repro_torch.models.model import Model, get_model  # noqa: F401

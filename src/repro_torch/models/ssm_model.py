@@ -1,0 +1,107 @@
+"""Mamba2 language model (attention-free SSM stack) — the port of
+``repro.models.ssm_model``.
+
+Parameters keep the reference's pytree: ``{"embed", "final_norm",
+"lm_head", "layers": {"ln", "mamba": {...}}}`` with every per-layer
+leaf stacked on axis 0, and so does the decode cache (each leaf
+(n_layers, batch, ...)). The reference scans over the stacked layers;
+here a Python loop takes layer ``i``'s views.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import tree_map
+from repro_torch.models.common import dense_init, embed_init, rms_norm
+from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
+                                       mamba2_decode, mamba2_forward)
+
+
+def layer(tree, i: int):
+    """Layer ``i``'s slice of a pytree stacked on axis 0 (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stack_layers(trees):
+    """The inverse of :func:`layer`: per-layer pytrees → one pytree
+    stacked on axis 0."""
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def init_ssm_model(cfg, gen: torch.Generator, device=None) -> dict:
+    """The stacked-layer parameters on ``device`` (``None``: the card);
+    ``gen`` must live on that device."""
+    dev = resolve_device(device)
+    dt = cfg.dtype("param")
+    params = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, dev),
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dt, device=dev)
+
+    def one():
+        return {"ln": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+                "mamba": init_mamba2(cfg, gen, dev)}
+
+    # each layer is drawn, then copied into its slot of the stacked
+    # leaves, so the weights are never held twice (3.1 GB at full width)
+    first = one()
+    stacked = tree_map(
+        lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), first)
+    for i in range(cfg.n_layers):
+        tree_map(lambda dst, src: dst.copy_(src), layer(stacked, i),
+                 first if i == 0 else one())
+    params["layers"] = stacked
+    return params
+
+
+def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    w = (params["embed"].T if cfg.tie_embeddings
+         else params["lm_head"]).to(cfg.dtype("compute"))
+    return x @ w
+
+
+def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    # the rows a token picks, cast: the reference casts the whole table
+    # first, which gives the same values
+    return params["embed"][tokens.long()].to(cfg.dtype("compute"))
+
+
+def ssm_forward(cfg, params: dict, batch: dict,
+                cache: Optional[dict] = None):
+    """Full-sequence pass; returns (logits, aux = 0, decode_state). The
+    state is None unless a cache to continue from is given."""
+    x = _embed(cfg, params, batch["tokens"])
+    states = []
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        o, new_state = mamba2_forward(
+            cfg, lp["mamba"], h, None if cache is None else layer(cache, i))
+        x = x + o
+        states.append(new_state)
+    new_cache = None if cache is None else stack_layers(states)
+    return (_head(cfg, params, x), torch.zeros((), dtype=torch.float32),
+            new_cache)
+
+
+def ssm_decode(cfg, params: dict, batch: dict, cache: dict):
+    x = _embed(cfg, params, batch["tokens"])
+    states = []
+    for i in range(cfg.n_layers):
+        lp = layer(params["layers"], i)
+        h = rms_norm(x, lp["ln"], cfg.norm_eps)
+        o, new_state = mamba2_decode(cfg, lp["mamba"], h, layer(cache, i))
+        x = x + o
+        states.append(new_state)
+    return _head(cfg, params, x), stack_layers(states)
+
+
+def make_ssm_cache(cfg, batch: int, max_len: int = 0, device=None) -> dict:
+    return make_mamba_state(cfg, batch, cfg.n_layers, device=device)
