@@ -6,7 +6,7 @@
 Phases, each printing its lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
-2. build every CUDA kernel of the main path from the sources in this
+2. build every CUDA kernel of the main paths from the sources in this
    checkout (one ``nvcc`` per source, all started together);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths and at edge cases, with its time beside the
@@ -14,23 +14,27 @@ Phases, each printing its lines:
    the card could take: the fp32 eq. 4 share step (both entries), the
    gradient sketch (signs through the kernel bitwise, sketches within
    their gate, two launches bitwise equal), the int8 share step
-   (bitwise) and the SSD intra-chunk dual form (within its gate, two
-   launches bitwise equal);
+   (bitwise), the SSD intra-chunk dual form and the flash attention
+   (each within its gate, two launches bitwise equal);
 4. the main paths, through the entry points a user calls, each run with
    the kernels' launch counts zeroed just before it and read just
    after: DDA3C groups at the paper's width (A2C, hidden 64,
    CartPole-v0) trained for a few hundred epochs, the fourth with
-   learned sketched relevance and int8 knowledge planes; then
-   (``[serve]``) mamba2-780m at its published widths and depth served
-   by ``repro_torch.launch.serve``: 4 requests of up to 1023 prompt
-   tokens, prefill and 32 greedy tokens each;
+   learned sketched relevance and int8 knowledge planes; mamba2-780m
+   and llama3.2-3b at their published widths and depth served by
+   ``repro_torch.launch.serve`` (``[serve]``: 4 requests of up to 1023
+   prompt tokens, prefill and 32 greedy tokens each); and llama3.2-3b
+   scoring 2 x 4096 ids through ``get_model(cfg).forward`` / ``.loss``
+   without a cache (``[score]``: the flash kernel in every layer), with
+   a profile of one scoring pass;
 5. the card against the port's CPU path: small DDA3C groups with seeded
-   gradients, fp32 and int8 + learned relevance; and the serving path
-   at mamba2-780m's widths cut to 2 layers with fp32 compute;
+   gradients, fp32 and int8 + learned relevance; the serving paths at
+   mamba2-780m's and llama3.2-3b's widths cut to 2 layers with fp32
+   compute; the llama scoring pass at the same cut;
 6. a profile of a few main-path epochs of the quickstart group and of
    the fourth run's configuration (the device's busy share, the ops
    that take the time and the host-clock split of an epoch), and of
-   one full-width prefill and 4 decode steps.
+   one full-width mamba2-780m prefill and 4 decode steps.
 
 It prints one JSON line of per-kernel numbers (``launches`` is the
 count of the first path that drives the kernel, ``launches_by_path``
@@ -59,13 +63,24 @@ W_RTOL = 1e-6                          # Σw
 EPOCHS = 300                           # of each main-path run
 
 SKETCH_DIM, QUANT_BLOCK = 256, 128      # the fourth main-path run's
-SOURCES = ("ddal_wavg", "grad_sketch", "ssd_scan")
+SOURCES = ("ddal_wavg", "grad_sketch", "ssd_scan", "flash_attention")
 SSD_GATE = 1e-5        # × Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|, per element
 # the serving path: mamba2-780m at its published widths and depth
 SERVE_ARGV = ["--arch", "mamba2-780m", "--full", "--serve", "engine=batch",
               "--serve", "slots=2", "--requests", "4", "--prompt-len",
               "1024", "--serve", "max_new_tokens=32"]
 SERVE_LABEL = "[serve] mamba2-780m"
+# the scoring path: llama3.2-3b at its published widths and depth, B
+# rows of the repo's train_4k sequence length
+LLAMA = "llama3.2-3b"
+SCORE_B, SCORE_S, SCORE_PASSES = 2, 4096, 3
+SCORE_LABEL = "[score] llama3.2-3b"
+LLAMA_SERVE_ARGV = ["--arch", LLAMA, "--full", "--serve", "engine=batch",
+                    "--serve", "slots=2", "--requests", "4", "--prompt-len",
+                    "1024", "--serve", "max_new_tokens=32", "--serve",
+                    "max_len=1056"]
+LLAMA_SERVE_LABEL = "[serve] llama3.2-3b"
+FA_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, as the Pallas kernel is held
 
 KERNELS = {
     "ddal_fused_wavg": dict(
@@ -88,6 +103,11 @@ KERNELS = {
         route="cuda",
         source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:48"),
+    "flash_attention": dict(
+        route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:93"),
 }
 
 
@@ -104,11 +124,13 @@ def _counted():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.ddal_wavg import ops
     from repro_torch.kernels.grad_sketch import ops as sketch_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     return {"ddal_fused_wavg": ops.fused_wavg, "ddal_wavg": ops.wavg,
             "ddal_fused_wavg_q": ops.fused_wavg_q,
             "grad_sketch": sketch_ops.sketch_flat,
-            "ssd_intra_chunk": ssd_ops.ssd_intra_chunk}
+            "ssd_intra_chunk": ssd_ops.ssd_intra_chunk,
+            "flash_attention": fa_ops.flash_attention}
 
 
 def reset_launches():
@@ -576,6 +598,124 @@ def ssd_kernel_phase(torch):
     return row
 
 
+def flash_bound(B, S, H, K, D, window, esize):
+    """Least time (ms), the larger of operations and bytes, and which one
+    it is, with the all-bf16 figure beside it. Over the (i, j) pairs
+    the mask keeps (Σ_i min(i + 1, window)) per (b, h): q·kᵀ, 2·D
+    operations per pair, at the bf16 tensor-core rate for bf16 inputs
+    (bf16 products are exact in fp32) or the fp32 rate for fp32 ones;
+    p·v, 2·D per pair, at the fp32 rate, since p is fp32 as in the
+    reference. Bytes: q, k and v read once, o written once, at the HBM
+    rate. The all-bf16 figure runs both products at the bf16 rate."""
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    flops = 2 * D * pairs * B * H                 # each of the two products
+    qk_rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
+    ops_ms = (flops / qk_rate + flops / FP32_FLOP_PER_S) * 1e3
+    bytes_ms = (2 * B * S * H * D + 2 * B * S * K * D) * esize \
+        / HBM_BYTES_PER_S * 1e3
+    bf16_ms = max(2 * flops / BF16_FLOP_PER_S * 1e3, bytes_ms)
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations", bf16_ms
+    return bytes_ms, "bytes", bf16_ms
+
+
+def _fa_within_gate(torch, got, want):
+    """fp32: the reference's rtol = atol = 2e-5. bf16: kernel and plain
+    version both compute in fp32 and round the output once, so they may
+    land one bf16 unit apart where the fp32 values straddle a rounding
+    boundary: |got − want| ≤ 2^-7·|want| + 2e-5."""
+    if got.dtype == torch.float32:
+        return torch.allclose(got, want, **FA_TOL)
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 2e-5).all())
+
+
+def flash_kernel_phase(torch):
+    """The flash-attention kernel against its plain version: the scoring
+    path's shape in bf16 and fp32, a window of 512 at S = 4096, windows
+    smaller than a 64-row tile, ragged S, MQA and D = 64, each within
+    its gate and launched twice, bitwise equal. Returns the numbers at
+    the scoring path's (B, S, H, K, D) = (2, 4096, 24, 8, 128) in
+    bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, (B, S, H, K, D), window, dtype, timed)
+    path = (SCORE_B, SCORE_S, 24, 8, 128)
+    cases = [("scoring path", path, None, bf16, True),
+             ("scoring path", path, None, f32, True),
+             ("window 512", path, 512, bf16, True),
+             ("window 512", (1, SCORE_S, 24, 8, 128), 512, f32, False),
+             ("window 5, smaller than a tile", (1, 300, 4, 2, 128), 5, f32,
+              False),
+             ("window 40", (2, 300, 4, 2, 64), 40, bf16, False),
+             ("ragged S = 4000", (1, 4000, 24, 8, 128), None, bf16, False),
+             ("ragged S = 80", (2, 80, 4, 4, 32), None, f32, False),
+             ("MQA, D = 64", (2, 513, 8, 1, 64), None, f32, False),
+             ("MQA, D = 64", (2, 513, 8, 1, 64), None, bf16, False),
+             ("D = 16, one token", (1, 1, 2, 1, 16), None, f32, False)]
+    row = {}
+    for seed, (label, (B, S, H, K, D), window, dtype, timed) in enumerate(
+            cases):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                   for shape in ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+        got = ops.flash_attention(q, k, v, window=window)
+        again = ops.flash_attention(q, k, v, window=window)
+        want = ref.attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, again)
+        ok = _fa_within_gate(torch, got, want) and bitwise
+        err = float((got.float() - want.float()).abs().max())
+        gate = ("rtol=atol=2e-5" if dtype == f32
+                else "2^-7·|want| + 2e-5 (one bf16 unit)")
+        print(f"[kernel] flash_attention {label} (B, S, H, K, D) = "
+              f"({B}, {S}, {H}, {K}, {D}) {str(dtype)[6:]}: max abs "
+              f"{err:.3e}, gate {gate}, two launches bitwise {bitwise} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"flash kernel disagrees with its plain version: {label} "
+                  f"{(B, S, H, K, D)} {dtype}")
+        del want
+        if not timed:
+            continue
+        ms, host = time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, window=window), 20)
+        plain_ms, plain_host = time_ms(torch, lambda: ref.attention(
+            q, k, v, window=window), 3)
+        # the yardstick in the (B, H, S, D) layout it takes, GQA by its
+        # own flag (torch >= 2.5), the window as a boolean mask built
+        # outside the timing
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device="cuda")[:, None]
+            j = torch.arange(S, device="cuda")[None, :]
+            mask = (j <= i) & (i - j < window)
+        lib_ms, lib_host = time_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), 20)
+        del qt, kt, vt, mask
+        b_ms, b_by, bf16_ms = flash_bound(B, S, H, K, D, window,
+                                          q.element_size())
+        print(f"[kernel] flash_attention {label} {str(dtype)[6:]}: device "
+              f"{ms:.5f} ms ({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, "
+              f"{b_by}: q·kᵀ at "
+              f"{'989 TFLOP/s bf16' if dtype == bf16 else '67 TFLOP/s fp32'}"
+              f", p·v at 67 TFLOP/s fp32 over the kept pairs; both products "
+              f"at the bf16 rate {bf16_ms:.5f} ms), plain {plain_ms:.5f} ms, "
+              f"scaled_dot_product_attention ({str(dtype)[6:]}, enable_gqa"
+              f"{', window as a mask' if window else ', is_causal'}) "
+              f"{lib_ms:.5f} ms; host per call: kernel {host:.5f} ms, "
+              f"plain {plain_host:.5f} ms, sdpa {lib_host:.5f} ms")
+        if not row:
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return row
+
+
 def _mean(x):
     return float(x.float().mean()) if x.numel() else float("nan")
 
@@ -723,7 +863,11 @@ def equivalence_phase(torch):
             ddal = DDAL(spec, gen_grads, apply_grads, params_of,
                         device=dev, layout=layout)
             gs = ddal.init(astates)
+            reset_launches()
             gs, _ = ddal.run(gs, None, 9)
+            check(launch_counts()["flash_attention"] == 0,
+                  f"{label} on {dev}: the DDA3C path launched "
+                  f"flash_attention")
             results[dev] = [gs.agent_states.params.cpu(),
                             gs.stores.grads.cpu(), gs.relevance.cpu()]
             if spec.knowledge_quant_block:
@@ -820,26 +964,104 @@ def profile_phase(torch):
                   f"{dev_us:.0f} us, host {cpu_us:.0f} us")
 
 
-def serve_phase(torch):
-    """The serving path at mamba2-780m's published widths and depth,
-    through ``repro_torch.launch.serve`` called as a function (4
+def _llama_batch(torch, cfg, B, S, seed=0):
+    """B rows of S ids drawn by ``np.random.default_rng(seed)`` over the
+    vocabulary, the next ids as labels, positions 0..S−1, on the card."""
+    import numpy as np
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                               (B, S + 1), dtype=np.int32)
+    pos = torch.arange(S, dtype=torch.int32, device="cuda").expand(B, S)
+    return {"tokens": torch.from_numpy(ids[:, :-1].copy()).cuda(),
+            "labels": torch.from_numpy(ids[:, 1:].copy()).cuda(),
+            "positions": pos}
+
+
+def score_phase(torch, cfg, params):
+    """The scoring path: llama3.2-3b at its published widths and depth
+    (fp32 weights drawn from seed 0, bf16 compute) scores B = 2 rows of
+    S = 4096 ids through ``get_model(cfg).forward(..., None)`` and
+    ``.loss`` under ``torch.no_grad()``: one warm-up pass, then, with
+    the launch counts zeroed, one forward (logits checked) and
+    SCORE_PASSES timed loss passes. Returns {kernel: {path: launches}}."""
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    batch = _llama_batch(torch, cfg, SCORE_B, SCORE_S)
+    with torch.no_grad():
+        model.loss(cfg, params, batch)                       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        logits, cache = model.forward(cfg, params, batch, None)
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(logits).all())
+        shape = tuple(logits.shape)
+        del logits
+        times, losses = [], []
+        for _ in range(SCORE_PASSES):
+            t0 = time.perf_counter()
+            loss = model.loss(cfg, params, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    passes = 1 + SCORE_PASSES
+    ms = [t * 1e3 for t in times]
+    tokens = SCORE_B * SCORE_S
+    best = min(ms)
+    print(f"{SCORE_LABEL}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, fp32 "
+          f"weights, {cfg.compute_dtype} compute; {SCORE_B} x {SCORE_S} "
+          f"tokens; loss passes ms " + ", ".join(f"{t:.2f}" for t in ms)
+          + f" (best {best:.2f}: {tokens / best * 1e3:,.0f} tokens/s); "
+          f"loss " + ", ".join(f"{x:.5f}" for x in losses)
+          + f" (ln V = {math.log(cfg.vocab_size):.5f}, ln V + "
+          f"d_model·0.02²/2 = "
+          f"{math.log(cfg.vocab_size) + cfg.d_model * 2e-4:.5f}); logits "
+          f"{shape} "
+          f"finite {finite}; peak memory {peak / 2 ** 30:.3f} GiB; "
+          f"{passes} passes, launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    want = {name: 0 for name in KERNELS}
+    want["flash_attention"] = cfg.n_layers * passes
+    check(launched == want, f"{SCORE_LABEL}: launches {launched} != {want} "
+                            f"({cfg.n_layers} layers x {passes} passes)")
+    check(cache is None and finite
+          and shape == (SCORE_B, SCORE_S, cfg.vocab_size),
+          f"{SCORE_LABEL}: non-finite or misshapen logits, or a cache")
+    # random weights: after the final norm the logits have variance
+    # d_model·0.02² (1.23), so the loss sits near ln V + 0.61 = 12.38
+    ln_v = math.log(cfg.vocab_size)
+    check(all(math.isfinite(x) and ln_v - 0.5 < x < ln_v + 1.5
+              for x in losses) and max(losses) - min(losses) < 1e-3,
+          f"{SCORE_LABEL}: loss {losses} not within (ln V − 0.5, ln V + "
+          f"1.5) or not repeatable")
+    return {"flash_attention": {SCORE_LABEL: launched["flash_attention"]}}
+
+
+def serve_phase(torch, argv, label):
+    """A serving path at its arch's published widths and depth, through
+    ``repro_torch.launch.serve`` called as a function with ``argv`` (4
     requests of up to 1023 prompt tokens, 2 slots, 32 greedy tokens),
     with every kernel's launch count zeroed just before the call and
-    read just after. Returns ({kernel: {path: launches}}, prompts)."""
+    read just after: mamba2-780m's prefill runs the SSD kernel in every
+    layer, llama3.2-3b's none (prefill passes a cache, as in the
+    reference). Returns ({kernel: {path: launches}}, prompts)."""
     import contextlib
     import io
 
     from repro_torch.configs import get_arch_config
     from repro_torch.launch import serve
 
-    cfg = get_arch_config("mamba2-780m")
-    s = cfg.ssm
+    cfg = get_arch_config(argv[argv.index("--arch") + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     reset_launches()
     with contextlib.redirect_stdout(out):
-        report = serve.main(SERVE_ARGV)
+        report = serve.main(argv)
     torch.cuda.synchronize()
     launched = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -852,53 +1074,66 @@ def serve_phase(torch):
         print(f"[serve]   {ln}")
     calls = report["prefill_calls"]
     want = {name: 0 for name in KERNELS}
-    want["ssd_intra_chunk"] = cfg.n_layers * calls
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        want["ssd_intra_chunk"] = cfg.n_layers * calls
+        widths = (f"{s.expand * cfg.d_model // s.head_dim} SSD heads of "
+                  f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}")
+    else:
+        widths = (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
+                  f"{cfg.head_dim}, d_ff {cfg.d_ff}")
     lens = [len(pr) for pr in report["prompts"]]
-    print(f"[serve] mamba2-780m: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {s.expand * cfg.d_model // s.head_dim} SSD heads "
-          f"of {s.head_dim}, d_state {s.d_state}, chunk {s.chunk}, vocab "
-          f"{cfg.vocab_size}, {cfg.compute_dtype} compute; {len(lens)} "
-          f"requests, prompt lengths {lens}, {calls} prefill calls; prefill "
-          f"ms per batch "
+    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {widths}"
+          f", vocab {cfg.vocab_size}, {cfg.compute_dtype} compute; "
+          f"{len(lens)} requests, prompt lengths {lens}, {calls} prefill "
+          f"calls; prefill ms per batch "
           + ", ".join(f"{ms:.2f}" for ms in report["prefill_ms"])
           + f" (the first includes the card's warm-up); decode "
           f"{report['decode_tok_s']:.1f} tok/s over "
           f"{sum(report['decode_s']):.3f} s; peak memory "
           f"{peak / 2 ** 30:.3f} GiB; launches "
           + ", ".join(f"{k} {v}" for k, v in launched.items()))
-    check(launched == want, f"[serve]: launches {launched} != {want} "
+    check(launched == want, f"{label}: launches {launched} != {want} "
                             f"({cfg.n_layers} layers x {calls} prefills)")
     outs = report["outputs"]
     check(calls == 2 and len(outs) == 2
           and all(o.shape == (2, 32) and o.dtype == torch.int32
                   and bool(((o >= 0) & (o < cfg.vocab_size)).all())
                   for o in outs),
-          "[serve]: not 4 requests x 32 tokens in the vocabulary")
+          f"{label}: not 4 requests x 32 tokens in the vocabulary")
     check(all(lg.shape == (2, cfg.vocab_size)
               and bool(torch.isfinite(lg.float()).all())
               for lg in report["first_logits"]),
-          "[serve]: non-finite or misshapen prefill logits")
-    return ({"ssd_intra_chunk": {SERVE_LABEL: launched["ssd_intra_chunk"]}},
+          f"{label}: non-finite or misshapen prefill logits")
+    return ({name: {label: launched[name]} for name, n in want.items() if n},
             report["prompts"])
 
 
-def equiv_serve_phase(torch, prompts):
-    """The card against the port's CPU path on the [serve] prompts, at
-    mamba2-780m's widths cut to 2 layers with fp32 compute, on the same
-    weights (drawn on the host, copied to the card): prefill logits
-    within rtol = atol = 1e-4 (matmuls and the SSD kernel sum in
-    another fp32 order than the CPU), the 32 greedy tokens of every
-    request equal."""
-    from repro_torch.common.pytree import tree_map
+def _cut_to_two_layers(torch, arch):
+    """``arch`` at its published widths cut to 2 layers with fp32
+    compute, and its weights drawn on the host from seed 0."""
     from repro_torch.configs import get_arch_config
     from repro_torch.models import get_model
+
+    cfg = get_arch_config(arch).with_(n_layers=2, compute_dtype="float32")
+    return cfg, get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+
+
+def equiv_serve_phase(torch, arch, prompts, cut=None):
+    """The card against the port's CPU path on the [serve] prompts, at
+    ``arch``'s widths cut to 2 layers with fp32 compute, on the same
+    weights (drawn on the host, copied to the card): prefill logits
+    within rtol = atol = 1e-4 (matmuls and, for mamba2-780m, the SSD
+    kernel sum in another fp32 order than the CPU), the 32 greedy
+    tokens of every request equal; the SSD kernel launched once per
+    layer per prefill on the card for mamba2-780m, no kernel for
+    llama3.2-3b (its prefill passes a cache), none on the CPU."""
+    from repro_torch.common.pytree import tree_map
     from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
 
-    cfg = get_arch_config("mamba2-780m").with_(n_layers=2,
-                                               compute_dtype="float32")
-    params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                 "cpu")
-    serve = ServeConfig(max_len=128, max_new_tokens=32)
+    cfg, params = cut or _cut_to_two_layers(torch, arch)
+    serve = ServeConfig(max_len=1056, max_new_tokens=32)
     results, launched, secs = {}, {}, {}
     for dev in ("cpu", "cuda"):
         engine = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params),
@@ -911,23 +1146,64 @@ def equiv_serve_phase(torch, prompts):
             out = engine.decode(logits, cache, lens)
             results[dev].append((logits.cpu(), out.cpu()))
         secs[dev] = time.perf_counter() - t0
-        launched[dev] = launch_counts()["ssd_intra_chunk"]
+        launched[dev] = launch_counts()
     errs, rels, same = [], [], True
     for (lg_c, out_c), (lg_g, out_g) in zip(results["cpu"], results["cuda"]):
         d = (lg_g - lg_c).abs()
         errs.append(float(d.max()))
         rels.append(float((d / lg_c.abs().clamp_min(1e-30)).max()))
         same = same and torch.equal(out_g, out_c)
+    want = {name: 0 for name in KERNELS}
+    want_cuda = dict(want)
+    if cfg.family == "ssm":
+        want_cuda["ssd_intra_chunk"] = cfg.n_layers * len(errs)
     ok = (all(torch.allclose(g[0], c[0], rtol=1e-4, atol=1e-4) for g, c in
               zip(results["cuda"], results["cpu"])) and same
-          and launched == {"cpu": 0, "cuda": cfg.n_layers * len(errs)})
-    print(f"[equiv] serve mamba2-780m widths, 2 layers, fp32, {len(prompts)} "
+          and launched == {"cpu": want, "cuda": want_cuda})
+    print(f"[equiv] serve {arch} widths, 2 layers, fp32, {len(prompts)} "
           f"requests x 32 greedy tokens, card vs CPU: prefill logits max abs "
           f"{max(errs):.3e} (max rel {max(rels):.3e}; rtol=atol=1e-4), "
-          f"greedy tokens equal {same}, ssd_intra_chunk launches "
-          f"{launched}; CPU {secs['cpu']:.1f} s, card {secs['cuda']:.1f} s "
+          f"greedy tokens equal {same}, card launches "
+          + ", ".join(f"{k} {v}" for k, v in launched["cuda"].items())
+          + f"; CPU {secs['cpu']:.1f} s, card {secs['cuda']:.1f} s "
           f"-> {'ok' if ok else 'FAIL'}")
-    check(ok, "card and CPU serving paths disagree")
+    check(ok, f"card and CPU serving paths disagree: {arch}")
+
+
+def equiv_score_phase(torch, cut):
+    """The scoring path on the card against the port's CPU path at
+    llama3.2-3b's widths cut to 2 layers with fp32 compute, on the same
+    weights, 2 rows of 320 ids: logits within rtol = atol = 1e-4 and
+    the loss within 1e-5 (the flash kernel, on the card, against its
+    plain version, on the CPU, and matmuls summed in other orders); the
+    kernel launched once per layer on the card, never on the CPU."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.models import get_model
+
+    cfg, params = cut
+    model = get_model(cfg)
+    batch = {k: t.cpu() for k, t in _llama_batch(torch, cfg, 2, 320,
+                                                 seed=1).items()}
+    out, launched = {}, {}
+    with torch.no_grad():
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            b = {k: t.to(dev) for k, t in batch.items()}
+            reset_launches()
+            logits, _ = model.forward(cfg, p, b, None)
+            out[dev] = (logits.cpu(), float(model.loss(cfg, p, b)))
+            launched[dev] = launch_counts()["flash_attention"]
+    d = (out["cuda"][0] - out["cpu"][0]).abs()
+    loss_err = abs(out["cuda"][1] - out["cpu"][1])
+    ok = (torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
+          and loss_err <= 1e-5 * abs(out["cpu"][1])
+          and launched == {"cpu": 0, "cuda": 2 * cfg.n_layers})
+    print(f"[equiv] score {LLAMA} widths, 2 layers, fp32, 2 x 320 ids, card "
+          f"vs CPU: logits max abs {float(d.max()):.3e} (rtol=atol=1e-4), "
+          f"loss {out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f} (rel 1e-5), "
+          f"flash_attention launches {launched} (forward + loss) -> "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "card and CPU scoring paths disagree")
 
 
 def profile_serve_phase(torch, prompts):
@@ -1001,6 +1277,48 @@ def profile_serve_phase(torch, prompts):
                       for k, vs in times.items()))
 
 
+def profile_score_phase(torch, cfg, params):
+    """The device's busy share and the ops that take the time over one
+    full-width scoring pass (the loss of SCORE_B x SCORE_S ids), after
+    the warm-up of the [score] phase, with the flash kernel's share of
+    the busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import get_model
+
+    model = get_model(cfg)
+    batch = _llama_batch(torch, cfg, SCORE_B, SCORE_S)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.loss(cfg, params, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    rows = [(ev.key, ev.count,
+             getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0)),
+             getattr(ev, "self_cpu_time_total", 0.0))
+            for ev in prof.key_averages()]
+    fa_us = sum(r[2] for r in rows if "flash_fwd_kernel" in r[0])
+    print(f"[profile] score {LLAMA}, one loss pass over {SCORE_B} x "
+          f"{SCORE_S} ids: wall {wall * 1e3:.1f} ms, device busy "
+          f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%}), "
+          f"{len(kernels)} device kernels, flash_fwd_kernel "
+          f"{fa_us / 1e3:.3f} ms ({fa_us / max(busy_us, 1e-9):.1%} of the "
+          f"busy time)")
+    for what, col in (("device", 2), ("self host", 3)):
+        for key, count, dev_us, cpu_us in sorted(rows,
+                                                 key=lambda r: -r[col])[:8]:
+            print(f"[profile]   by {what} time: {key[:60]}: {count} calls, "
+                  f"device {dev_us:.0f} us, self host {cpu_us:.0f} us")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1014,7 +1332,11 @@ def main() -> int:
               f"script ({exc}); run it from a checkout of the repo",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_arch_config
+    from repro_torch.models import get_model
     torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     try:
         card = device_phase(torch)
@@ -1023,12 +1345,29 @@ def main() -> int:
         table["grad_sketch"] = sketch_phase(torch)
         table["ddal_fused_wavg_q"] = wavg_q_phase(torch)
         table["ssd_intra_chunk"] = ssd_kernel_phase(torch)
+        table["flash_attention"] = flash_kernel_phase(torch)
         launches = main_path_phase(torch)
-        serve_launches, prompts = serve_phase(torch)
-        for name, paths in serve_launches.items():
-            launches[name].update(paths)
+        serve_launches, prompts = serve_phase(torch, SERVE_ARGV,
+                                              SERVE_LABEL)
+        llama_launches, _ = serve_phase(torch, LLAMA_SERVE_ARGV,
+                                        LLAMA_SERVE_LABEL)
+        # the scoring path and its profile share one full-width model
+        llama = get_arch_config(LLAMA)
+        params = get_model(llama).init(
+            llama, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        score_launches = score_phase(torch, llama, params)
+        profile_score_phase(torch, llama, params)
+        del params
+        torch.cuda.empty_cache()
+        for paths in (serve_launches, llama_launches, score_launches):
+            for name, by_path in paths.items():
+                launches[name].update(by_path)
         equivalence_phase(torch)
-        equiv_serve_phase(torch, prompts)
+        equiv_serve_phase(torch, "mamba2-780m", prompts)
+        cut = _cut_to_two_layers(torch, LLAMA)
+        equiv_score_phase(torch, cut)
+        equiv_serve_phase(torch, LLAMA, prompts, cut)
+        del cut
         profile_phase(torch)
         profile_serve_phase(torch, prompts)
     except SmokeFailure as exc:

@@ -45,6 +45,31 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def layer(tree, i: int):
+    """Layer ``i``'s slice of a pytree stacked on axis 0 (views)."""
+    return tree_map(lambda t: t[i], tree)
+
+
+def stack_layers(trees):
+    """The inverse of :func:`layer`: per-layer pytrees → one pytree
+    stacked on axis 0."""
+    return tree_map(lambda *ts: torch.stack(ts), *trees)
+
+
+def init_stacked(n_layers: int, draw):
+    """``draw()`` called ``n_layers`` times, each layer's tree copied
+    into its slot of leaves stacked on axis 0 as soon as it is drawn,
+    so a model's weights are never held twice (the reference draws them
+    all at once under ``vmap``)."""
+    first = draw()
+    stacked = tree_map(
+        lambda t: t.new_empty((n_layers,) + tuple(t.shape)), first)
+    for i in range(n_layers):
+        tree_map(lambda dst, src: dst.copy_(src), layer(stacked, i),
+                 first if i == 0 else draw())
+    return stacked
+
+
 def _build(skeleton, leaves_by_path: dict, prefix: Path = ()):
     if isinstance(skeleton, dict):
         return {k: _build(skeleton[k], leaves_by_path, prefix + (k,))

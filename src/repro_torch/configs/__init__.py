@@ -7,6 +7,7 @@ import importlib
 from repro_torch.configs.base import ArchConfig, SSMConfig  # noqa: F401
 
 _ARCH_MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
     "mamba2-780m": "mamba2_780m",
 }
 

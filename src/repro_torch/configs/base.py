@@ -8,8 +8,8 @@ that the reference rejects is rejected here with the same
 not implement yet is refused at construction with a
 :class:`NotPortedError` naming the field, so an unported option is
 never silently ignored. ``ArchConfig`` and ``SSMConfig`` (the model
-zoo) are copied for the SSM family only; the other families raise
-:class:`NotPortedError`.
+zoo) are copied for the SSM and dense families only; the other
+families raise :class:`NotPortedError`.
 """
 from __future__ import annotations
 
@@ -270,11 +270,13 @@ class GroupSpec:
 
 
 # ---------------------------------------------------------------------
-# Model zoo: the SSM family (Mamba2) only
+# Model zoo: the SSM family (Mamba2) and the dense transformer family
 # ---------------------------------------------------------------------
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-PORTED_FAMILIES = ("ssm",)
+PORTED_FAMILIES = ("ssm", "dense")
 SSD_IMPLS = ("xla", "pallas_interpret")
+ATTENTION_IMPLS = ("xla", "pallas", "pallas_interpret")
+ROPE_MODES = ("standard", "mrope", "none")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -293,28 +295,48 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     """The port's copy of ``repro.configs.base.ArchConfig``, cut to the
-    fields the SSM family's forward and decode read (the attention,
-    MoE and modality fields, ``remat`` and ``unroll_layers`` are not
-    copied). A family other than ``"ssm"`` raises
-    :class:`NotPortedError`; an unknown family or ``ssd_impl`` raises
-    ``ValueError``.
+    fields the SSM and dense families read (``mrope_sections``, the
+    hybrid and modality fields, ``first_k_dense``, ``remat``,
+    ``unroll_layers``, ``moe_dispatch``, ``mla_absorb`` and
+    ``max_position`` are not copied). ``moe``, ``mla`` and
+    ``cross_attention`` are kept so that a config asking for them is
+    refused: set, they raise :class:`NotPortedError`, as do
+    ``rope_mode="mrope"`` and a family other than ``"ssm"`` or
+    ``"dense"``; an unknown family, ``rope_mode``, ``ssd_impl``,
+    ``attention_impl`` or dtype raises ``ValueError``.
 
-    ``ssd_impl`` is kept and validated against the reference's values
-    (``"xla"``, ``"pallas_interpret"``), but it selects nothing: as for
-    every kernel of the port, CUDA tensors take the SSD kernel and CPU
-    tensors its plain version (``repro_torch.kernels.ssd_scan.ops``).
+    ``ssd_impl`` and ``attention_impl`` are kept and validated against
+    the reference's values, but they select nothing: as for every
+    kernel of the port, CUDA tensors take the kernel (the SSD intra-chunk
+    form, the flash attention of a cache-free pass) and CPU tensors its
+    plain version (``repro_torch.kernels.ssd_scan.ops``,
+    ``repro_torch.kernels.flash_attention.ops``).
     """
     name: str
     family: str
     n_layers: int
     d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
     vocab_size: int
+    head_dim: int = 128
+    qkv_bias: bool = False
+    rope_mode: str = "standard"         # standard | none (mrope: unported)
+    rope_theta: float = 1e6
+    sliding_window: Optional[int] = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[object] = None        # unported: must stay None
+    mla: Optional[object] = None        # unported: must stay None
     ssm: Optional[SSMConfig] = None
+    cross_attention: bool = False       # unported: must stay False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    attention_scores_dtype: str = "float32"
+    attention_impl: str = "xla"
     ssd_impl: str = "xla"
+    citation: str = ""
 
     def __post_init__(self):
         if self.family not in FAMILIES:
@@ -324,12 +346,36 @@ class ArchConfig:
             raise NotPortedError(
                 f"ArchConfig.family={self.family!r} is not ported to "
                 f"repro_torch yet; the port has {PORTED_FAMILIES}")
-        if self.ssm is None:
+        for field in ("moe", "mla", "cross_attention"):
+            if getattr(self, field):
+                raise NotPortedError(
+                    f"ArchConfig.{field}={getattr(self, field)!r} is not "
+                    f"ported to repro_torch yet")
+        if self.family == "ssm" and self.ssm is None:
             raise ValueError("an ssm-family ArchConfig needs ssm=SSMConfig")
+        if self.family == "dense" and not (
+                self.n_heads >= 1 and self.n_kv_heads >= 1
+                and self.n_heads % self.n_kv_heads == 0
+                and self.head_dim >= 2 and self.head_dim % 2 == 0):
+            raise ValueError(
+                f"a dense ArchConfig needs n_kv_heads dividing n_heads and "
+                f"an even head_dim, got n_heads={self.n_heads}, "
+                f"n_kv_heads={self.n_kv_heads}, head_dim={self.head_dim}")
+        if self.rope_mode not in ROPE_MODES:
+            raise ValueError(f"unknown rope_mode {self.rope_mode!r}; "
+                             f"expected one of {ROPE_MODES}")
+        if self.rope_mode == "mrope":
+            raise NotPortedError("ArchConfig.rope_mode='mrope' is not "
+                                 "ported to repro_torch yet")
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; "
                              f"expected one of {SSD_IMPLS}")
-        for which in ("param_dtype", "compute_dtype"):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"unknown attention_impl "
+                             f"{self.attention_impl!r}; expected one of "
+                             f"{ATTENTION_IMPLS}")
+        for which in ("param_dtype", "compute_dtype",
+                      "attention_scores_dtype"):
             if getattr(self, which) not in DTYPES:
                 raise ValueError(f"{which} must be one of "
                                  f"{tuple(DTYPES)}, got "
@@ -344,10 +390,21 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant, the reference's numbers: 2 layers,
-        d_model ≤ 256, vocab ≤ 512, fp32; ssm d_state 16, head_dim 16,
-        chunk 32."""
-        return replace(
-            self, n_layers=2, d_model=min(self.d_model, 256),
+        d_model ≤ 256, vocab ≤ 512, fp32; ≤ 4 heads of 32 with the kv
+        heads cut to divide them, d_ff ≤ 512, a sliding window of 16
+        where there is one; ssm d_state 16, head_dim 16, chunk 32."""
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        while n_heads % n_kv:
+            n_kv -= 1
+        kw = dict(
+            n_layers=2, d_model=min(self.d_model, 256), n_heads=n_heads,
+            n_kv_heads=n_kv, head_dim=32,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512), param_dtype="float32",
-            compute_dtype="float32",
-            ssm=replace(self.ssm, d_state=16, head_dim=16, chunk=32))
+            compute_dtype="float32")
+        if self.ssm is not None:
+            kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=32)
+        if self.sliding_window is not None:
+            kw["sliding_window"] = 16
+        return replace(self, **kw)

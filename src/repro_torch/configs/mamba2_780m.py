@@ -11,7 +11,13 @@ def get_config() -> ArchConfig:
         family="ssm",
         n_layers=48,
         d_model=1536,
-        vocab_size=50280,        # attention-free, no MLP: Mamba2 blocks
+        n_heads=0,               # attention-free
+        n_kv_heads=0,
+        head_dim=0,
+        d_ff=0,                  # no MLP: Mamba2 blocks only
+        vocab_size=50280,
+        rope_mode="none",
         ssm=SSMConfig(d_state=128, expand=2, head_dim=64, n_groups=1,
                       chunk=256, d_conv=4),
+        citation="arXiv:2405.21060",
     )

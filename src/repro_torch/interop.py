@@ -8,9 +8,11 @@ port's tensors. Parameter-shaped pytrees become flat rows through a
 leaf order, so both sides then compute the same thing. Int8 stores and
 delay lines keep their int8 planes, and their per-leaf scale leaves
 (…, ⌈size / q_block⌉) are laid side by side in leaf order into the
-port's scale columns (``BlockLayout``). The SSM model zoo's params
-keep the reference's pytree as they are (``ssm_params``), and Mamba2
-decode states go both ways (``ssm_state``, ``ssm_state_to_numpy``).
+port's scale columns (``BlockLayout``). The model zoo's params keep
+the reference's pytree as they are (``ssm_params``,
+``transformer_params``), and Mamba2 decode states and transformer KV
+caches go both ways (``ssm_state``, ``ssm_state_to_numpy``,
+``kv_cache``, ``kv_cache_to_numpy``).
 """
 from __future__ import annotations
 
@@ -167,3 +169,42 @@ def ssm_state_to_numpy(state) -> dict:
     return {k: state[k].detach().to("cpu").to(
         torch.float32 if state[k].dtype == torch.bfloat16
         else state[k].dtype).numpy() for k in SSM_STATE_KEYS}
+
+
+# ---------------------------------------------------------------------
+# the dense transformer (llama): params and KV caches
+# ---------------------------------------------------------------------
+KV_KEYS = ("k", "v", "pos")
+
+
+def transformer_params(params, device="cpu") -> dict:
+    """The reference's dense-transformer params
+    (``repro.models.transformer``: numpy leaves, the layers' leaves
+    stacked on axis 0) → the port's, which keep the same pytree and
+    dtypes."""
+    want = {"embed", "final_norm", "layers"}
+    if (not want <= set(params)
+            or set(params["layers"]) != {"ln1", "ln2", "attn", "mlp"}):
+        raise ValueError(f"not a dense-transformer param tree: keys "
+                         f"{sorted(params)}")
+    return tree_map(lambda x: _array_to_tensor(x, device), params)
+
+
+def kv_cache(cache, device="cpu") -> dict:
+    """A reference transformer KV cache (``{"layers": {"kv": {"k", "v",
+    "pos"}}}``, leaves (n_layers, batch, slots, ...)) → the port's."""
+    if set(cache) != {"layers"} or set(cache["layers"]) != {"kv"} \
+            or set(cache["layers"]["kv"]) != set(KV_KEYS):
+        raise ValueError(f"not a transformer KV cache: keys {sorted(cache)}")
+    kv = cache["layers"]["kv"]
+    return {"layers": {"kv": {k: _array_to_tensor(kv[k], device)
+                              for k in KV_KEYS}}}
+
+
+def kv_cache_to_numpy(cache) -> dict:
+    """The port's KV cache → numpy arrays (bf16 k and v as fp32), for
+    the reference's functions."""
+    kv = cache["layers"]["kv"]
+    return {"layers": {"kv": {k: kv[k].detach().to("cpu").to(
+        torch.float32 if kv[k].dtype == torch.bfloat16
+        else kv[k].dtype).numpy() for k in KV_KEYS}}}

@@ -1,9 +1,9 @@
 """Serving launcher — the port of ``repro.launch.serve`` for the
 fixed-batch engine:
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --full --requests 4 --prompt-len 1024 --serve engine=batch \\
-        --serve slots=2 --serve max_new_tokens=32
+        --serve slots=2 --serve max_new_tokens=32 --serve max_len=1056
 
 Flags, the ``--serve key=value`` vocabulary
 (``repro_torch.serving.cli_options``) and the numpy prompt draw are
@@ -12,7 +12,10 @@ weights are drawn from a ``torch.Generator`` of that seed, so they are
 not the reference's. ``--device`` (default ``cuda``) picks the card or
 the host; ``engine=continuous`` and ``engine=group`` raise
 ``NotPortedError``. Without ``--full`` the arch runs ``reduced()``.
-``--arch`` defaults to the one ported arch, ``mamba2-780m``.
+``--arch`` defaults to the reference's, ``llama3.2-3b``; ``mamba2-780m``
+is the other ported arch. A transformer's KV cache holds ``max_len``
+positions (default 128), so a longer prompt plus its new tokens needs
+``--serve max_len=``.
 
 ``main`` prints the reference's per-slot lines, then the prefill time
 of each batch and the decode rate (host clock, the card synchronised
@@ -60,7 +63,7 @@ def draw_prompts(vocab_size: int, requests: int, prompt_len: int,
 
 def _parser():
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="mamba2-780m")
+    p.add_argument("--arch", default="llama3.2-3b")
     p.add_argument("--requests", type=int, default=6)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--serve", action="append", default=[],

@@ -1,6 +1,7 @@
 """Shared layer primitives — the port of the parts of
-``repro.models.common`` the SSM family uses: RMSNorm and the
-parameter initialisers.
+``repro.models.common`` the SSM and dense families use: RMSNorm, the
+parameter initialisers, the position-mask bias, the materialised
+softmax attention and the token-mean cross-entropy.
 
 The initialisers draw from a ``torch.Generator``, so they give the
 reference's distributions (a truncated normal of fan-in scale, a
@@ -54,3 +55,60 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
     device = device if device is not None else gen.device
     return (torch.randn(tuple(shape), generator=gen, device=device,
                         dtype=torch.float32) * 0.02).to(dtype)
+
+
+def causal_mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                     window: Optional[int] = None,
+                     k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Additive attention bias from position comparisons.
+
+    q_pos: (B, Sq) absolute positions of the queries; k_pos: (B, Sk) of
+    the keys; window: sliding-window width (None = full causal);
+    k_valid: optional (B, Sk) bool marking live cache slots. Returns a
+    (B, 1, Sq, Sk) fp32 bias of 0 / −1e30 (broadcast over heads)."""
+    ok = k_pos[:, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        ok &= k_pos[:, None, :] > (q_pos[:, :, None] - window)
+    if k_valid is not None:
+        ok &= k_valid[:, None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=ok.device)
+    neg = torch.full((), -1e30, dtype=torch.float32, device=ok.device)
+    return torch.where(ok, zero, neg)[:, None, :, :]
+
+
+def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor, scale: float,
+                      scores_dtype: torch.dtype = torch.float32
+                      ) -> torch.Tensor:
+    """Materialised attention. q: (B, Sq, H, Dk), k: (B, Sk, K, Dk), v:
+    (B, Sk, K, Dv) with H = G·K (GQA: k and v gathered onto the H query
+    heads, head h reading kv head h // G); bias: (B, 1, Sq, Sk).
+
+    The scores and the softmax are in ``scores_dtype`` (the reference's
+    ``attention_scores_dtype``); the probabilities times v accumulate
+    in fp32, and the result is cast to q's dtype."""
+    H, K = q.shape[2], k.shape[2]
+    if H != K:
+        idx = torch.arange(H, device=k.device) // (H // K)
+        k = k.index_select(2, idx)
+        v = v.index_select(2, idx)
+    sdt = scores_dtype
+    scores = torch.einsum("bqhd,bshd->bhqs", q.to(sdt), k.to(sdt))
+    scores = scores * torch.tensor(scale, dtype=sdt) + bias.to(sdt)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", probs.to(torch.float32),
+                       v.to(sdt).to(torch.float32))
+    return out.to(q.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -100) -> torch.Tensor:
+    """Token-mean cross-entropy with an ignore mask; logits (..., V) of
+    any float dtype, fp32 math."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    safe = torch.clamp(labels.long(), min=0)
+    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    mask = (labels != ignore).to(torch.float32)
+    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                         min=1.0)

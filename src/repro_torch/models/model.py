@@ -1,13 +1,16 @@
 """Public model API — the port of ``repro.models.model`` for the SSM
-family:
+and dense families:
 
     model = get_model(cfg)
     params = model.init(cfg, generator, device)
+    loss = model.loss(cfg, params, batch)                      # scoring
     logits, cache = model.forward(cfg, params, batch, cache)   # prefill
     logits, cache = model.decode(cfg, params, batch, cache)
 
-The training loss is not ported (``loss`` raises ``NotPortedError``):
-this slice serves.
+The dense family ("transformer") has its loss, a cache-free pass with
+no gradient on the card (the flash kernel has no backward, as the
+reference's has no VJP); the SSM family's ``loss`` raises
+``NotPortedError``.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Callable, Dict
 
 from repro_torch.configs.base import ArchConfig, NotPortedError
 from repro_torch.models import ssm_model as ssm
+from repro_torch.models import transformer as tf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,17 +31,30 @@ class Model:
     make_cache: Callable         # (cfg, batch_size, max_len, device)
 
 
+def _tf_prefill(cfg, params, batch, cache):
+    logits, _, new_cache = tf.transformer_forward(cfg, params, batch,
+                                                  cache=cache)
+    return logits, new_cache
+
+
 def _ssm_prefill(cfg, params, batch, cache):
     logits, _, new_cache = ssm.ssm_forward(cfg, params, batch, cache=cache)
     return logits, new_cache
 
 
 def _unported_loss(cfg, params, batch):
-    raise NotPortedError("the model zoo's training loss is not ported to "
+    raise NotPortedError("the SSM family's loss is not ported to "
                          "repro_torch yet (only serving is)")
 
 
 _FAMILIES: Dict[str, Model] = {
+    "transformer": Model(
+        init=tf.init_transformer,
+        loss=tf.transformer_loss,
+        forward=_tf_prefill,
+        decode=tf.transformer_decode,
+        make_cache=tf.make_transformer_cache,
+    ),
     "ssm": Model(
         init=ssm.init_ssm_model,
         loss=_unported_loss,
@@ -49,7 +66,8 @@ _FAMILIES: Dict[str, Model] = {
 
 
 def get_model(cfg: ArchConfig) -> Model:
-    if cfg.family not in _FAMILIES:
+    family = "transformer" if cfg.family == "dense" else cfg.family
+    if family not in _FAMILIES:
         raise NotPortedError(f"model family {cfg.family!r} is not ported "
                              f"to repro_torch yet")
-    return _FAMILIES[cfg.family]
+    return _FAMILIES[family]

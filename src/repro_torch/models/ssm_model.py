@@ -14,21 +14,10 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import init_stacked, layer, stack_layers
 from repro_torch.models.common import dense_init, embed_init, rms_norm
 from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
                                        mamba2_decode, mamba2_forward)
-
-
-def layer(tree, i: int):
-    """Layer ``i``'s slice of a pytree stacked on axis 0 (views)."""
-    return tree_map(lambda t: t[i], tree)
-
-
-def stack_layers(trees):
-    """The inverse of :func:`layer`: per-layer pytrees → one pytree
-    stacked on axis 0."""
-    return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
 def init_ssm_model(cfg, gen: torch.Generator, device=None) -> dict:
@@ -48,15 +37,7 @@ def init_ssm_model(cfg, gen: torch.Generator, device=None) -> dict:
         return {"ln": torch.ones((cfg.d_model,), dtype=dt, device=dev),
                 "mamba": init_mamba2(cfg, gen, dev)}
 
-    # each layer is drawn, then copied into its slot of the stacked
-    # leaves, so the weights are never held twice (3.1 GB at full width)
-    first = one()
-    stacked = tree_map(
-        lambda t: t.new_empty((cfg.n_layers,) + tuple(t.shape)), first)
-    for i in range(cfg.n_layers):
-        tree_map(lambda dst, src: dst.copy_(src), layer(stacked, i),
-                 first if i == 0 else one())
-    params["layers"] = stacked
+    params["layers"] = init_stacked(cfg.n_layers, one)
     return params
 
 

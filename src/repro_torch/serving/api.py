@@ -59,9 +59,10 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
     prompt's LAST real token. tokens: (B, P); lengths: (B,).
 
     As in the reference, the whole right-padded (B, P) block runs
-    through the model, so an SSM's state after prefill has also
-    absorbed the P − length pad tokens of a shorter row, and that row
-    decodes on from there."""
+    through the model: a transformer's KV cache also holds the pad
+    tokens of a shorter row (at positions past its length, masked until
+    decode overwrites them), and an SSM's state after prefill has
+    absorbed them, so that row decodes on from there."""
     B = tokens.shape[0]
     cache = model.make_cache(cfg, B, max_len, device=tokens.device)
     logits, cache = model.forward(cfg, params,
