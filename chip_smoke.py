@@ -7,7 +7,9 @@ Phases, each printing its lines:
 
 1. the card (``nvidia-smi`` name and power limit) and the versions;
 2. build every CUDA kernel of the main paths from the sources in this
-   checkout (one ``nvcc`` per source, all started together);
+   checkout (one ``nvcc`` per source, all started together), with the
+   registers and spills ptxas reports for each kernel instance (a
+   flash instance that spills fails the run);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths and at edge cases, with its time beside the
    plain version's, a one-call PyTorch yardstick's and the least time
@@ -15,7 +17,9 @@ Phases, each printing its lines:
    gradient sketch (signs through the kernel bitwise, sketches within
    their gate, two launches bitwise equal), the int8 share step
    (bitwise), the SSD intra-chunk dual form and the flash attention
-   (each within its gate, two launches bitwise equal);
+   (bf16 on the tensor cores, fp32 on the CUDA cores; each within its
+   gate, two launches bitwise equal, with its TFLOP/s over the tiles
+   it visits and the blocks per SM of every flash instance);
 4. the main paths, through the entry points a user calls, each run with
    the kernels' launch counts zeroed just before it and read just
    after: DDA3C groups at the paper's width (A2C, hidden 64,
@@ -159,22 +163,74 @@ def device_phase(torch):
 
 
 def build_phase():
+    """Builds every source and prints each kernel instance's registers
+    and spills; returns {source: the instances' names}."""
     from repro_torch.kernels import cuda_build
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         libs = dict(zip(SOURCES, pool.map(cuda_build.load, SOURCES)))
     secs = time.perf_counter() - t0
+    instances = {}
     for name in SOURCES:
         src = cuda_build.source_of(name).relative_to(ROOT)
         print(f"[build] {src} -> "
               f"{cuda_build.BUILD_DIR.relative_to(ROOT)}/{name}.so")
-        for ln in libs[name][1].splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
-                print(f"[build]   ptxas {ln.strip()}")
+        report = ptxas_report(libs[name][1])
+        instances[name] = {kernel for kernel, *_ in report}
+        for kernel, regs, stores, loads in report:
+            print(f"[build]   ptxas {kernel}: {regs} registers, spill "
+                  f"stores {stores} B, spill loads {loads} B")
+        if name == "flash_attention":
+            check(len(report) == 8 and all(st == ld == 0 for _, _, st, ld
+                                           in report),
+                  f"flash_attention: ptxas reports spills or not the 8 "
+                  f"instances (fp32 / bf16 x D = 16, 32, 64, 128): {report}")
     print(f"[build] {len(SOURCES)} sources built in parallel and loaded "
           f"in {secs:.2f} s")
-    return secs
+    return instances
+
+
+def _demangle(names):
+    """C++ names of the mangled kernel symbols (``c++filt``), without
+    their parameter lists; the mangled names where it is missing."""
+    import shutil
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return list(names)
+    return [_short_name(full) for full in out]
+
+
+def _short_name(kernel):
+    """A demangled kernel name without its namespace prefix, return
+    type and parameters: the form ptxas's report and a profile share."""
+    kernel = kernel.replace("(anonymous namespace)::", "")
+    return kernel.split("(")[0].removeprefix("void ")
+
+
+def ptxas_report(log):
+    """[(kernel, registers, spill store bytes, spill load bytes)] for
+    each kernel instance that ``nvcc -Xptxas -v`` reported in ``log``."""
+    import re
+    rows, name, spills = [], None, (0, 0)
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        used = re.search(r"Used (\d+) registers", ln)
+        if entry:
+            name, spills = entry.group(1), (0, 0)
+        elif spill and name:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        elif used and name:
+            rows.append((name, int(used.group(1)), *spills))
+            name = None
+    return [(kernel, *rest) for kernel, (_, *rest) in
+            zip(_demangle([r[0] for r in rows]), rows)]
 
 
 def time_ms(torch, fn, iters):
@@ -600,24 +656,49 @@ def ssd_kernel_phase(torch):
 
 def flash_bound(B, S, H, K, D, window, esize):
     """Least time (ms), the larger of operations and bytes, and which one
-    it is, with the all-bf16 figure beside it. Over the (i, j) pairs
-    the mask keeps (Σ_i min(i + 1, window)) per (b, h): q·kᵀ, 2·D
-    operations per pair, at the bf16 tensor-core rate for bf16 inputs
-    (bf16 products are exact in fp32) or the fp32 rate for fp32 ones;
-    p·v, 2·D per pair, at the fp32 rate, since p is fp32 as in the
-    reference. Bytes: q, k and v read once, o written once, at the HBM
-    rate. The all-bf16 figure runs both products at the bf16 rate."""
+    it is. Over the (i, j) pairs the mask keeps (Σ_i min(i + 1, window)
+    per (b, h)), each product is 2·D operations per pair. bf16 inputs:
+    q·kᵀ as one bf16 product (bf16 products are exact in fp32) and p·v as
+    two, p_hi·v + p_lo·v (p is fp32 in the reference and one bf16 p
+    leaves the one-unit gate; one TF32 product at half the rate costs the
+    same), all at the bf16 tensor-core rate. fp32 inputs: both products
+    at the fp32 rate (TF32 would round the inputs). Bytes: q, k and v
+    read once, o written once, at the HBM rate."""
     w = S if window is None else min(window, S)
     pairs = w * (w + 1) // 2 + (S - w) * w
-    flops = 2 * D * pairs * B * H                 # each of the two products
-    qk_rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
-    ops_ms = (flops / qk_rate + flops / FP32_FLOP_PER_S) * 1e3
+    flops = 2 * D * pairs * B * H                 # one product
+    if esize == 2:
+        ops_ms = 3 * flops / BF16_FLOP_PER_S * 1e3
+    else:
+        ops_ms = 2 * flops / FP32_FLOP_PER_S * 1e3
     bytes_ms = (2 * B * S * H * D + 2 * B * S * K * D) * esize \
         / HBM_BYTES_PER_S * 1e3
-    bf16_ms = max(2 * flops / BF16_FLOP_PER_S * 1e3, bytes_ms)
     if ops_ms >= bytes_ms:
-        return ops_ms, "operations", bf16_ms
-    return bytes_ms, "bytes", bf16_ms
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def flash_mma_flops(B, S, H, D, window, dtype_is_bf16):
+    """The operations the kernel runs over the tiles it visits, as
+    ``csrc/flash_attention.cu`` walks them: per query tile the key tiles
+    from the window's first to the diagonal; bf16 (128 x 64 tiles,
+    three products) skips a tile per warp of 16 rows when it is wholly
+    masked for them, fp32 (64 x 64, two products) runs every visited
+    tile whole."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    bq, bk = ops.TILES[torch.bfloat16 if dtype_is_bf16 else torch.float32]
+    rows, products = (16, 3) if dtype_is_bf16 else (bq, 2)
+    units = 0                          # (rows x bk) blocks of work
+    for i0 in range(0, S, bq):
+        last = min(i0 + bq, S) - 1
+        lo = max(0, i0 - window + 1) if window else 0
+        for j0 in range(lo // bk * bk, last + 1, bk):
+            for w0 in range(i0, i0 + bq, rows):
+                skip = j0 > w0 + rows - 1 or (
+                    window and j0 + bk - 1 <= w0 - window)
+                units += not skip
+    return units * rows * bk * D * 2 * products * B * H
 
 
 def _fa_within_gate(torch, got, want):
@@ -632,12 +713,13 @@ def _fa_within_gate(torch, got, want):
 
 
 def flash_kernel_phase(torch):
-    """The flash-attention kernel against its plain version: the scoring
-    path's shape in bf16 and fp32, a window of 512 at S = 4096, windows
-    smaller than a 64-row tile, ragged S, MQA and D = 64, each within
-    its gate and launched twice, bitwise equal. Returns the numbers at
-    the scoring path's (B, S, H, K, D) = (2, 4096, 24, 8, 128) in
-    bf16."""
+    """The flash-attention kernels against their plain version: the
+    scoring path's shape in bf16 (the tensor-core kernel) and fp32 (the
+    CUDA-core kernel), a window of 512 at S = 4096, windows smaller than
+    a tile and across 128-row tiles, ragged S, MQA, D = 16, 32 and 64,
+    each within its gate and launched twice, bitwise equal; then the
+    blocks per SM of every instance. Returns the numbers at the scoring
+    path's (B, S, H, K, D) = (2, 4096, 24, 8, 128) in bf16."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
@@ -655,7 +737,13 @@ def flash_kernel_phase(torch):
              ("ragged S = 80", (2, 80, 4, 4, 32), None, f32, False),
              ("MQA, D = 64", (2, 513, 8, 1, 64), None, f32, False),
              ("MQA, D = 64", (2, 513, 8, 1, 64), None, bf16, False),
-             ("D = 16, one token", (1, 1, 2, 1, 16), None, f32, False)]
+             ("D = 16, one token", (1, 1, 2, 1, 16), None, f32, False),
+             ("S = 129, one row past a 128-row tile", (1, 129, 4, 2, 128),
+              None, bf16, False),
+             ("window 127 across 128-row tiles", (1, 700, 4, 2, 128), 127,
+              bf16, False),
+             ("D = 16", (2, 333, 6, 3, 16), None, bf16, False),
+             ("D = 32, window 100", (2, 333, 6, 3, 32), 100, bf16, False)]
     row = {}
     for seed, (label, (B, S, H, K, D), window, dtype, timed) in enumerate(
             cases):
@@ -698,14 +786,15 @@ def flash_kernel_phase(torch):
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True), 20)
         del qt, kt, vt, mask
-        b_ms, b_by, bf16_ms = flash_bound(B, S, H, K, D, window,
-                                          q.element_size())
+        b_ms, b_by = flash_bound(B, S, H, K, D, window, q.element_size())
+        mma = flash_mma_flops(B, S, H, D, window, dtype == bf16)
+        work = ("q·kᵀ + p_hi·v + p_lo·v at 989 TFLOP/s bf16" if dtype == bf16
+                else "q·kᵀ + p·v at 67 TFLOP/s fp32")
         print(f"[kernel] flash_attention {label} {str(dtype)[6:]}: device "
               f"{ms:.5f} ms ({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, "
-              f"{b_by}: q·kᵀ at "
-              f"{'989 TFLOP/s bf16' if dtype == bf16 else '67 TFLOP/s fp32'}"
-              f", p·v at 67 TFLOP/s fp32 over the kept pairs; both products "
-              f"at the bf16 rate {bf16_ms:.5f} ms), plain {plain_ms:.5f} ms, "
+              f"{b_by}: {work} over the kept pairs), "
+              f"{mma / ms / 1e9:.1f} TFLOP/s over the {mma / 1e9:.1f} GFLOP "
+              f"of the tiles it visits, plain {plain_ms:.5f} ms, "
               f"scaled_dot_product_attention ({str(dtype)[6:]}, enable_gqa"
               f"{', window as a mask' if window else ', is_causal'}) "
               f"{lib_ms:.5f} ms; host per call: kernel {host:.5f} ms, "
@@ -713,6 +802,9 @@ def flash_kernel_phase(torch):
         if not row:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    print("[kernel] flash_attention blocks per SM (256 threads each): "
+          + ", ".join(f"{str(dt)[6:]} D = {D} {ops.blocks_per_sm(dt, D)}"
+                      for dt in (f32, bf16) for D in ops.HEAD_DIMS))
     return row
 
 
@@ -1277,11 +1369,12 @@ def profile_serve_phase(torch, prompts):
                       for k, vs in times.items()))
 
 
-def profile_score_phase(torch, cfg, params):
+def profile_score_phase(torch, cfg, params, flash_kernels):
     """The device's busy share and the ops that take the time over one
     full-width scoring pass (the loss of SCORE_B x SCORE_S ids), after
-    the warm-up of the [score] phase, with the flash kernel's share of
-    the busy time."""
+    the warm-up of the [score] phase, with the share of the busy time of
+    every kernel of the flash library (``flash_kernels``: the instances
+    ptxas reported when it was built, whatever they are named)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import get_model
@@ -1305,13 +1398,17 @@ def profile_score_phase(torch, cfg, params):
                      getattr(ev, "cuda_time_total", 0.0)),
              getattr(ev, "self_cpu_time_total", 0.0))
             for ev in prof.key_averages()]
-    fa_us = sum(r[2] for r in rows if "flash_fwd_kernel" in r[0])
+    fa = [r for r in rows if _short_name(r[0]) in flash_kernels]
+    fa_us = sum(r[2] for r in fa)
     print(f"[profile] score {LLAMA}, one loss pass over {SCORE_B} x "
           f"{SCORE_S} ids: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%}), "
-          f"{len(kernels)} device kernels, flash_fwd_kernel "
+          f"{len(kernels)} device kernels, the flash library's kernels "
           f"{fa_us / 1e3:.3f} ms ({fa_us / max(busy_us, 1e-9):.1%} of the "
-          f"busy time)")
+          f"busy time) in {sum(r[1] for r in fa)} calls of "
+          f"{sorted(_short_name(r[0]) for r in fa)}")
+    check(bool(fa), f"{SCORE_LABEL}: no kernel of the flash library in the "
+                    f"profile (its kernels: {sorted(flash_kernels)})")
     for what, col in (("device", 2), ("self host", 3)):
         for key, count, dev_us, cpu_us in sorted(rows,
                                                  key=lambda r: -r[col])[:8]:
@@ -1340,7 +1437,7 @@ def main() -> int:
     t_start = time.perf_counter()
     try:
         card = device_phase(torch)
-        build_phase()
+        instances = build_phase()
         table = kernel_phase(torch)
         table["grad_sketch"] = sketch_phase(torch)
         table["ddal_fused_wavg_q"] = wavg_q_phase(torch)
@@ -1356,7 +1453,8 @@ def main() -> int:
         params = get_model(llama).init(
             llama, torch.Generator(device="cuda").manual_seed(0), "cuda")
         score_launches = score_phase(torch, llama, params)
-        profile_score_phase(torch, llama, params)
+        profile_score_phase(torch, llama, params,
+                            instances["flash_attention"])
         del params
         torch.cuda.empty_cache()
         for paths in (serve_launches, llama_launches, score_launches):

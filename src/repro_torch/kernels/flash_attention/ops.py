@@ -3,16 +3,31 @@
 ``flash_attention`` takes the reference's model-layer interface
 (``repro.kernels.flash_attention.ops``): q (B, S, H, D), k and v
 (B, S, K, D) with K dividing H, and returns (B, S, H, D) in q's dtype.
-CUDA tensors take the kernel, CPU tensors the plain version (``ref``),
-and nothing else: the tensors' device is the only switch. The kernel's
+CUDA tensors take a kernel, CPU tensors the plain version (``ref``),
+and nothing else: the tensors' device is the only switch. The kernel
 launches are counted in ``flash_attention.launches``.
 
-The kernel reads q, k and v in that layout with their strides (the head
-dim contiguous) and k and v by kv head ``h // (H / K)``, so it makes no
-swap copy and no GQA repeat; the plain version repeats k and v onto the
-heads, the same values. It takes fp32 or bf16 (the three alike), head
-dims 16, 32, 64 and 128, any S, causal attention with an optional
-sliding window, and no gradient: the reference kernel has no VJP.
+On the card the dtype picks the kernel of ``csrc/flash_attention.cu``,
+and nothing falls back from one to the other or to the plain version:
+
+- **bf16** takes the tensor-core kernel: blocks of 128 query rows
+  (8 warps of 16) over 64-key tiles, q·kᵀ by bf16 ``mma.sync``
+  m16n8k16 into fp32, the online softmax in registers, and p·v as two
+  bf16 products, p_hi·v + p_lo·v with p_hi = bf16(p) and p_lo =
+  bf16(p − p_hi), so that the output stays within one bf16 unit of the
+  plain version's (one bf16 p does not); k and v stream through a
+  2-stage ``cp.async`` ring, which needs q, k and v 16-byte aligned
+  (``data_ptr`` and the strides over b, s and the head). Every tensor
+  the model builds is; an input that is not raises ``ValueError``.
+- **fp32** takes the CUDA-core kernel (64 × 64 tiles, IEEE fp32 FMAs):
+  the tensor cores would round fp32 inputs to TF32.
+
+Both read q, k and v in their layout with their strides (the head dim
+contiguous) and k and v by kv head ``h // (H / K)``, so they make no
+swap copy and no GQA repeat; the plain version repeats k and v onto
+the heads, the same values. Head dims 16, 32, 64 and 128, any S,
+causal attention with an optional sliding window, and no gradient:
+the reference kernel has no VJP.
 """
 from __future__ import annotations
 
@@ -28,6 +43,9 @@ from repro_torch.kernels.flash_attention import ref
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_BH = 65535               # grid y (heads) and z (batch)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (query rows per block, keys per tile) of each dtype's kernel
+TILES = {torch.float32: (64, 64), torch.bfloat16: (128, 64)}
+ALIGN = 16                   # bytes, for the bf16 kernel's cp.async
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,6 +58,8 @@ def _lib() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                         ctypes.c_float] + [ll] * 9 + [i, i, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_blocks_per_sm.argtypes = [i, i, i, p]
+    lib.flash_attention_blocks_per_sm.restype = i
     lib.flash_attention_error_string.argtypes = [i]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -72,6 +92,16 @@ def _check(q, k, v, causal, window):
         raise ValueError("the kernel is causal only, as the reference's")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q.dtype == torch.bfloat16:
+        for name, t in zip("qkv", (q, k, v)):
+            size = t.element_size()
+            if (t.data_ptr() % ALIGN
+                    or any(s * size % ALIGN for s in t.stride()[:3])):
+                raise ValueError(
+                    f"the bf16 kernel needs {name} {ALIGN}-byte aligned "
+                    f"(cp.async): data_ptr % {ALIGN} = "
+                    f"{t.data_ptr() % ALIGN}, strides {t.stride()[:3]} "
+                    f"x {size} bytes")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -99,12 +129,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         K, D, 0 if window is None else window, scale, *strides,
         _DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(
-            f"flash_attention launch failed: "
-            f"{lib.flash_attention_error_string(status).decode()}")
+    _raise_on(lib, status, "launch")
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+def _raise_on(lib, status, what):
+    if status != 0:
+        raise RuntimeError(
+            f"flash_attention {what} failed: "
+            f"{lib.flash_attention_error_string(status).decode()}")
+
+
+def blocks_per_sm(dtype: torch.dtype, head_dim: int,
+                  device: int = 0) -> int:
+    """Blocks of the ``dtype`` kernel at ``head_dim`` that one SM of card
+    ``device`` holds at once (registers, shared memory and threads)."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    _raise_on(lib, lib.flash_attention_blocks_per_sm(
+        _DTYPES[dtype], head_dim, device, ctypes.byref(blocks)),
+        "occupancy query")
+    return blocks.value

@@ -12,10 +12,12 @@ runs where only PyTorch is installed:
 Tolerances. fp32 inputs: the reference's rtol = atol = 2e-5
 (``tests/test_kernels.py``); the kernel and the plain version add the
 same fp32 terms in other orders (online against materialised softmax).
-bf16 inputs: both compute in fp32 and round the output to bf16 once,
-so they may land one bf16 unit in the last place apart where the fp32
-values straddle a rounding boundary: |got − want| ≤ 2^-7·|want| (one
-unit at the bottom of a binade) + 2e-5.
+bf16 inputs: the tensor-core kernel takes exact bf16 products into
+fp32 sums and splits p into two bf16 halves (p_hi + p_lo), the plain
+version computes in fp32; both round the output to bf16 once, so they
+may land one bf16 unit in the last place apart where the fp32 values
+straddle a rounding boundary: |got − want| ≤ 2^-7·|want| (one unit at
+the bottom of a binade) + 2e-5.
 """
 from __future__ import annotations
 
@@ -78,6 +80,56 @@ def test_kernel_matches_plain(B, S, H, K, D, window, dtype):
     assert got.dtype == dtype and got.shape == (B, S, H, D)
     assert torch.equal(got, again)
     assert within_gate(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,D,window", [
+    (1, 127, 4, 2, 128, None),       # one query tile, short of its edge
+    (1, 128, 4, 2, 128, None),       # exactly one 128-row tile
+    (1, 129, 4, 2, 128, None),       # one row into the second tile
+    (1, 4097, 8, 2, 128, None),      # one row past 32 tiles
+    (1, 700, 4, 2, 128, 64),         # windows that cross a 128-row tile
+    (1, 700, 4, 2, 128, 127),
+    (1, 700, 4, 2, 128, 128),
+    (2, 333, 6, 3, 16, None),        # the smaller head dims
+    (2, 333, 6, 3, 32, 100),
+    (2, 333, 6, 2, 64, None),
+])
+def test_bf16_kernel_at_tile_edges(B, S, H, K, D, window):
+    """The tensor-core kernel's tile edges: S around 128-row query tiles
+    and 64-key tiles, windows that start inside a query tile, D = 16, 32
+    and 64; within one bf16 unit, two launches bitwise equal."""
+    dev = _card()
+    q, k, v = qkv(S * 7 + D, B, S, H, K, D, dev, torch.bfloat16)
+    got = ops.flash_attention(q, k, v, window=window)
+    assert torch.equal(got, ops.flash_attention(q, k, v, window=window))
+    assert within_gate(got, ref.attention(q, k, v, window=window))
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_reads_strided_heads():
+    """bf16 q, k, v as views of one fused (B, S, H + 2K, D) projection
+    (16-byte aligned strides) give the result of contiguous copies."""
+    dev = _card()
+    fused = torch.randn((2, 300, 12, 128), device=dev).to(torch.bfloat16)
+    q, k, v = fused[:, :, :8], fused[:, :, 8:10], fused[:, :, 10:]
+    got = ops.flash_attention(q, k, v, window=200)
+    assert within_gate(got, ref.attention(q, k, v, window=200))
+    assert torch.equal(got, ops.flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), window=200))
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refuses_unaligned_inputs():
+    """cp.async copies 16 bytes: a bf16 view that starts 2 bytes in is
+    refused before any launch."""
+    dev = _card()
+    base = torch.randn((1, 64, 4, 17), device=dev).to(torch.bfloat16)
+    q = base[..., 1:]
+    launches = ops.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention(q, q[:, :, :2], q[:, :, 2:])
+    assert ops.flash_attention.launches == launches
 
 
 @pytest.mark.gpu
