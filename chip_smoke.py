@@ -15,8 +15,10 @@ Phases, each printing its lines:
    plain version's, a one-call PyTorch yardstick's and the least time
    the card could take: the fp32 eq. 4 share step (both entries), the
    gradient sketch (signs through the kernel bitwise, sketches within
-   their gate, two launches bitwise equal), the int8 share step
-   (bitwise), the SSD intra-chunk dual form and the flash attention
+   their gate, two launches bitwise equal, also at the row-block and
+   chunk edges), the int8 share step (bitwise, also at m = 1, 5, 33,
+   4096 and n = 1), the SSD intra-chunk dual form (which must refuse
+   inputs that require grad) and the flash attention
    (bf16 on the tensor cores, fp32 on the CUDA cores; each within its
    gate, two launches bitwise equal, with its TFLOP/s over the tiles
    it visits and the blocks per SM of every flash instance);
@@ -176,7 +178,7 @@ def build_phase():
         src = cuda_build.source_of(name).relative_to(ROOT)
         print(f"[build] {src} -> "
               f"{cuda_build.BUILD_DIR.relative_to(ROOT)}/{name}.so")
-        report = ptxas_report(libs[name][1])
+        report = cuda_build.ptxas_report(libs[name][1])
         instances[name] = {kernel for kernel, *_ in report}
         for kernel, regs, stores, loads in report:
             print(f"[build]   ptxas {kernel}: {regs} registers, spill "
@@ -189,48 +191,6 @@ def build_phase():
     print(f"[build] {len(SOURCES)} sources built in parallel and loaded "
           f"in {secs:.2f} s")
     return instances
-
-
-def _demangle(names):
-    """C++ names of the mangled kernel symbols (``c++filt``), without
-    their parameter lists; the mangled names where it is missing."""
-    import shutil
-    tool = shutil.which("c++filt")
-    if tool is None:
-        return list(names)
-    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
-                         text=True, timeout=60).stdout.splitlines()
-    if len(out) != len(names):
-        return list(names)
-    return [_short_name(full) for full in out]
-
-
-def _short_name(kernel):
-    """A demangled kernel name without its namespace prefix, return
-    type and parameters: the form ptxas's report and a profile share."""
-    kernel = kernel.replace("(anonymous namespace)::", "")
-    return kernel.split("(")[0].removeprefix("void ")
-
-
-def ptxas_report(log):
-    """[(kernel, registers, spill store bytes, spill load bytes)] for
-    each kernel instance that ``nvcc -Xptxas -v`` reported in ``log``."""
-    import re
-    rows, name, spills = [], None, (0, 0)
-    for ln in log.splitlines():
-        entry = re.search(r"Compiling entry function '(\w+)'", ln)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", ln)
-        used = re.search(r"Used (\d+) registers", ln)
-        if entry:
-            name, spills = entry.group(1), (0, 0)
-        elif spill and name:
-            spills = (int(spill.group(1)), int(spill.group(2)))
-        elif used and name:
-            rows.append((name, int(used.group(1)), *spills))
-            name = None
-    return [(kernel, *rest) for kernel, (_, *rest) in
-            zip(_demangle([r[0] for r in rows]), rows)]
 
 
 def time_ms(torch, fn, iters):
@@ -391,17 +351,28 @@ def sketch_phase(torch):
           f"100: bitwise -> ok")
 
     seed = fold_seed(0, 100)
+    # (label, n, P, d, offset, seed, reference gate, timed)
     cases = [("main path: n=8 agents' rows", 8, p, SKETCH_DIM, 0, seed,
-              False),
-             ("reference test shape", 8, 1024, 128, 11, 7, True),
-             ("reference test shape", 3, 4097, 256, 11, 7, True),
-             ("reference test shape", 8, 1000, 128, 11, 7, True),
-             ("reference test shape", 16, 2048, 384, 11, 7, True),
-             ("unaligned width", 8, p, 100, 0, seed, False),
+              False, True),
+             ("reference test shape", 8, 1024, 128, 11, 7, True, True),
+             ("reference test shape", 3, 4097, 256, 11, 7, True, True),
+             ("reference test shape", 8, 1000, 128, 11, 7, True, True),
+             ("reference test shape", 16, 2048, 384, 11, 7, True, True),
+             ("unaligned width", 8, p, 100, 0, seed, False, True),
              ("LLM-scale plane", 16, 2 ** 22 + 37, SKETCH_DIM, 0, seed,
-              False)]
+              False, True),
+             # the row-block instances' edges and the chunk's
+             ("one row", 1, p, SKETCH_DIM, 5, seed, False, False),
+             ("9 rows in a 16-row block", 9, p, SKETCH_DIM, 5, seed, False,
+              False),
+             ("17 rows in two 16-row blocks", 17, p, SKETCH_DIM, 5, seed,
+              False, False),
+             ("P shorter than one chunk", 8, ops.MIN_CHUNK - 12, SKETCH_DIM,
+              3, seed, False, False),
+             ("P one chunk + 1", 8, ops.MIN_CHUNK + 1, SKETCH_DIM, 3, seed,
+              False, False)]
     row = {}
-    for label, n, p_, d, offset, sd, ref_gate in cases:
+    for label, n, p_, d, offset, sd, ref_gate, timed in cases:
         g = torch.Generator(device="cuda").manual_seed(n * 7 + d)
         G = torch.randn((n, p_), generator=g, device="cuda")
         got = ops.sketch_flat(G, sd, d, offset=offset)
@@ -414,13 +385,20 @@ def sketch_phase(torch):
         if ref_gate:
             ok = ok and torch.allclose(got, want, rtol=1e-4, atol=1e-3)
         err = float(diff.max())
+        geo = ops.sketch_geometry(n, p_, d)
+        x, y, z = geo.grid(n, d)
         print(f"[kernel] grad_sketch {label} (n, P, d) = ({n}, {p_}, {d}), "
-              f"offset {offset}: max abs {err:.3e}, worst share of the "
+              f"offset {offset}, {geo.rows}-row blocks, {geo.chunks} chunks "
+              f"of {geo.chunk} (grid {x} x {y} x {z} = {x * y * z} blocks, "
+              f"second pass {geo.reduce_blocks} blocks): max abs "
+              f"{err:.3e}, worst share of the "
               f"1e-5·Σ|G| gate {float((diff / gate).max()):.3f}"
               f"{', reference gate rtol 1e-4 atol 1e-3' if ref_gate else ''}"
               f", two launches bitwise {torch.equal(got, again)} -> "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"sketch kernel disagrees with its plain version: {label}")
+        if not timed:
+            continue
         big = n * p_ > 1e7
         iters = 20 if big else 200
         ms, host = time_ms(
@@ -459,13 +437,26 @@ def wavg_q_phase(torch):
 
     a2c = _a2c_layout(torch)
     ragged = PlaneLayout(None, [()], [(2 ** 20 + 37,)])
+    # (label, layout, n, m, q_block, invalid pieces, timed)
     cases = [("main path: n=8 ring share step, q_block 128", a2c, 8, 32,
-              128, "some"),
-             ("q_block 1024", a2c, 8, 32, 1024, "some"),
-             ("every piece invalid", a2c, 8, 32, 128, "all"),
-             ("big ragged plane, q_block 128", ragged, 16, 8, 128, "some")]
-    row = {}
-    for label, layout, n, m, qb, invalid in cases:
+              128, "some", True),
+             ("q_block 1024", a2c, 8, 32, 1024, "some", True),
+             ("every piece invalid", a2c, 8, 32, 128, "all", True),
+             ("big ragged plane, q_block 128", ragged, 16, 8, 128, "some",
+              True),
+             # across the kernel's 32-piece batches, and one agent
+             ("one piece", a2c, 8, 1, 128, "some", False),
+             ("5 pieces", a2c, 8, 5, 128, "some", False),
+             ("33 pieces", a2c, 8, 33, 128, "some", False),
+             (f"{ops.MAX_PIECES} pieces (the most)", a2c, 1, ops.MAX_PIECES,
+              128, "some", False),
+             ("one agent", a2c, 1, 32, 128, "some", False),
+             ("12 pieces", a2c, 8, 12, 128, "some", False),
+             ("12 pieces, two agents", a2c, 2, 12, 128, "some", False),
+             ("12 pieces, big ragged plane", ragged, 4, 12, 128, "some",
+              False)]
+    row, instances = {}, set()
+    for label, layout, n, m, qb, invalid, timed in cases:
         G, T, R, valid = make_case(torch, n, m, layout.size, seed=n + qb,
                                    invalid=invalid)
         blocks = layout.blocks(qb)
@@ -478,11 +469,18 @@ def wavg_q_phase(torch):
         if invalid == "all":
             ok = ok and not bool(got_g.any()) and not bool(got_w.any())
         err = float((got_g - want_g).abs().max())
+        geo = ops.wavg_q_geometry(n, m, layout.size)
+        instances.add((geo.batch, geo.items))
         print(f"[kernel] ddal_fused_wavg_q {label} (n, m, P) = ({n}, {m}, "
-              f"{layout.size}), {blocks.n_blocks} scale columns: max abs "
-              f"{err:.3e}, ḡ and Σw bitwise {ok} -> "
+              f"{layout.size}), {blocks.n_blocks} scale columns, grid "
+              f"{geo.blocks} x {n} = {geo.blocks * n} blocks of "
+              f"{ops.Q_THREADS} threads x {geo.items} positions, "
+              f"{geo.batch}-piece batches: "
+              f"max abs {err:.3e}, ḡ and Σw bitwise {ok} -> "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"int8 kernel disagrees with its plain version: {label}")
+        if not timed:
+            continue
         big = n * m * layout.size > 1e8
         iters = 20 if big else 200
         w = ref.eq4_weights(T, R, valid)
@@ -509,6 +507,11 @@ def wavg_q_phase(torch):
         if not row:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by="bytes", library_ms=lib_ms)
+    want = {(32, 1), (16, 1), (16, 2), (8, 1), (8, 4)}
+    print(f"[kernel] ddal_fused_wavg_q instances (batch, positions per "
+          f"thread) run: {sorted(instances)} of {sorted(want)}")
+    check(instances == want, "not every int8 kernel instance was held "
+                             "against the plain version")
     return row
 
 
@@ -567,8 +570,33 @@ def ssd_kernel_phase(torch):
     absolute values of the terms both add, in other orders); every case
     launched twice, bitwise equal. Returns the numbers at the main
     path's (bn, h, l, p, n) = (8, 48, 256, 64, 128) in bf16."""
+    from repro_torch.configs.base import NotPortedError
     from repro_torch.kernels.ssd_scan import ops, ref
     f32, bf16 = torch.float32, torch.bfloat16
+    # no backward on the card: a call autograd would record raises
+    # rather than drop the gradient of the intra-chunk term
+    outcomes = []
+    for which in range(5):
+        args = _ssd_case(torch, 99, 1, 1, 32, 2, 16, 16, 2, f32)
+        args[which].requires_grad_(True)
+        launches = ops.ssd_intra_chunk.launches
+        try:
+            ops.ssd_intra_chunk(*args)
+            raised = False
+        except NotPortedError:
+            raised = True
+        refused = raised and ops.ssd_intra_chunk.launches == launches
+        with torch.no_grad():
+            ran = ops.ssd_intra_chunk(*args)
+        outcomes.append(refused and ops.ssd_intra_chunk.launches
+                        == launches + 1 and bool(torch.isfinite(ran).all()))
+    ok = all(outcomes)
+    print(f"[kernel] ssd_intra_chunk with x, dt, cs, B or C requiring grad "
+          f"under grad mode: NotPortedError and no launch in "
+          f"{sum(outcomes)} of 5, and each call runs under "
+          f"torch.no_grad() -> {'ok' if ok else 'FAIL'}")
+    check(ok, "ssd_intra_chunk ran with an input that requires grad, which "
+              "would drop that input's gradient")
     # (label, (b, nc, l, h, p, n, g), dtype, pad, reference gate, timed)
     cases = [("reference test shape", (2, 2, 32, 3, 16, 16, 3), f32, 0,
               True, False),
@@ -1377,6 +1405,7 @@ def profile_score_phase(torch, cfg, params, flash_kernels):
     ptxas reported when it was built, whatever they are named)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.cuda_build import short_name
     from repro_torch.models import get_model
 
     model = get_model(cfg)
@@ -1398,7 +1427,7 @@ def profile_score_phase(torch, cfg, params, flash_kernels):
                      getattr(ev, "cuda_time_total", 0.0)),
              getattr(ev, "self_cpu_time_total", 0.0))
             for ev in prof.key_averages()]
-    fa = [r for r in rows if _short_name(r[0]) in flash_kernels]
+    fa = [r for r in rows if short_name(r[0]) in flash_kernels]
     fa_us = sum(r[2] for r in fa)
     print(f"[profile] score {LLAMA}, one loss pass over {SCORE_B} x "
           f"{SCORE_S} ids: wall {wall * 1e3:.1f} ms, device busy "
@@ -1406,7 +1435,7 @@ def profile_score_phase(torch, cfg, params, flash_kernels):
           f"{len(kernels)} device kernels, the flash library's kernels "
           f"{fa_us / 1e3:.3f} ms ({fa_us / max(busy_us, 1e-9):.1%} of the "
           f"busy time) in {sum(r[1] for r in fa)} calls of "
-          f"{sorted(_short_name(r[0]) for r in fa)}")
+          f"{sorted(short_name(r[0]) for r in fa)}")
     check(bool(fa), f"{SCORE_LABEL}: no kernel of the flash library in the "
                     f"profile (its kernels: {sorted(flash_kernels)})")
     for what, col in (("device", 2), ("self host", 3)):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -86,3 +87,44 @@ def load(name: str) -> Tuple[ctypes.CDLL, str]:
             path, log = build(name)
             _loaded[name] = (ctypes.CDLL(str(path)), log)
         return _loaded[name]
+
+
+def _demangle(names):
+    """C++ names of the mangled kernel symbols (``c++filt``), without
+    their parameter lists; the mangled names where it is missing."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return list(names)
+    return [short_name(full) for full in out]
+
+
+def short_name(kernel: str) -> str:
+    """A demangled kernel name without its namespace prefix, return
+    type and parameters: the form ptxas's report and a profile share."""
+    kernel = kernel.replace("(anonymous namespace)::", "")
+    return kernel.split("(")[0].removeprefix("void ")
+
+
+def ptxas_report(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] for
+    each kernel instance that ``nvcc -Xptxas -v`` reported in ``log``
+    (the log ``build`` returns), with demangled short names."""
+    rows, name, spills = [], None, (0, 0)
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        used = re.search(r"Used (\d+) registers", ln)
+        if entry:
+            name, spills = entry.group(1), (0, 0)
+        elif spill and name:
+            spills = (int(spill.group(1)), int(spill.group(2)))
+        elif used and name:
+            rows.append((name, int(used.group(1)), *spills))
+            name = None
+    return [(kernel, *rest) for kernel, (_, *rest) in
+            zip(_demangle([r[0] for r in rows]), rows)]

@@ -5,9 +5,11 @@
 ``knowledge_quant_block > 0``) and ``wavg`` (the legacy path, weights
 given) take the whole group's stores at once: G (n, m, P). Each runs
 its CUDA kernel on CUDA tensors and its plain version (``ref``) on CPU
-tensors, and nothing else (``repro_torch.kernels.dispatch``). Each
-wrapper counts its kernel launches in ``<wrapper>.launches``, so a run
-can show that its share steps went through the kernel.
+tensors, and nothing else: the tensors' device is the only switch.
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a
+run can show that its share steps went through the kernel. The int8
+kernel's launch geometry is computed here (``wavg_q_geometry``), where
+the CPU tests can hold it.
 
 Unlike the reference's ``tree_fused_wavg`` / ``tree_fused_wavg_q``,
 there is no small-leaf branch: an agent's parameters are one flat row
@@ -20,16 +22,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.common.pytree import BlockLayout
-from repro_torch.kernels.dispatch import resolve
 from repro_torch.kernels.ddal_wavg import ref
 
-MAX_PIECES = 4096           # the kernel stages 2·m floats in smem
+MAX_PIECES = 4096           # the kernels stage up to 2·m floats in smem
 MAX_AGENTS = 65535          # grid y
+SMS = 132                   # the H100 SXM's streaming multiprocessors
+MAX_GRID_X = 2 ** 31 - 1
+# int8 kernel: Q_THREADS threads per block, BATCH pieces held in
+# registers at a time (the least of Q_BATCHES that covers m), and
+# ITEMS = 32 / BATCH positions per thread where the grid keeps
+# Q_MIN_BLOCKS_PER_SM blocks per SM (else 1)
+Q_THREADS = 64
+Q_BATCHES = (8, 16, 32)
+Q_MIN_BLOCKS_PER_SM = 4
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +54,7 @@ def _lib() -> ctypes.CDLL:
     lib.ddal_wavg.argtypes = [p, p, p, i, i, ll, i, p]
     lib.ddal_wavg.restype = i
     lib.ddal_fused_wavg_q.argtypes = [p, p, p, p, p, p, p, p, i, i, ll, i,
-                                      i, p]
+                                      i, i, i, i, p]
     lib.ddal_fused_wavg_q.restype = i
     lib.ddal_error_string.argtypes = [i]
     lib.ddal_error_string.restype = ctypes.c_char_p
@@ -72,6 +82,32 @@ def _check(G: torch.Tensor, meta: dict, dtype=torch.float32
     return n, m, p
 
 
+class WavgQGeometry(NamedTuple):
+    """The int8 kernel's grid (blocks, n) of ``Q_THREADS``-thread
+    blocks: block b of an agent takes positions b·span .. b·span + span
+    - 1 (span = Q_THREADS·items; the last block masks the ragged end),
+    thread t of it positions t, t + Q_THREADS, ...; ``batch`` pieces are
+    held in registers at a time."""
+    items: int
+    batch: int
+    blocks: int
+
+
+def wavg_q_geometry(n: int, m: int, P: int) -> WavgQGeometry:
+    """32 / batch positions per thread where that grid still holds
+    ``Q_MIN_BLOCKS_PER_SM`` blocks per SM (long planes), else one
+    (the paper's P = 9155)."""
+    batch = next(b for b in Q_BATCHES if b >= min(m, Q_BATCHES[-1]))
+    items = Q_BATCHES[-1] // batch
+    blocks = -(-P // (Q_THREADS * items))
+    if n * blocks < Q_MIN_BLOCKS_PER_SM * SMS:
+        items, blocks = 1, -(-P // Q_THREADS)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"P = {P} needs {blocks} blocks per agent, more "
+                         f"than the grid's {MAX_GRID_X}")
+    return WavgQGeometry(items, batch, blocks)
+
+
 def _raise_on(lib, status: int, what: str):
     if status != 0:
         raise RuntimeError(
@@ -79,11 +115,10 @@ def _raise_on(lib, status: int, what: str):
 
 
 def fused_wavg(G: torch.Tensor, T: torch.Tensor, R: torch.Tensor,
-               valid: torch.Tensor, *, impl: str = "auto"
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused eq. 4 share step for every agent: G (n, m, P), T, R
     (n, m) fp32, valid (n, m) bool → (ḡ (n, P) fp32, Σw (n,) fp32)."""
-    if resolve(impl, G) == "plain":
+    if not G.is_cuda:
         return ref.fused_wavg(G, T, R, valid)
     n, m, p = _check(G, {"T": (T, torch.float32), "R": (R, torch.float32),
                          "valid": (valid, torch.bool)})
@@ -100,14 +135,13 @@ def fused_wavg(G: torch.Tensor, T: torch.Tensor, R: torch.Tensor,
 
 
 def fused_wavg_q(Q: torch.Tensor, scale: torch.Tensor, T: torch.Tensor,
-                 R: torch.Tensor, valid: torch.Tensor, blocks: BlockLayout,
-                 *, impl: str = "auto"
+                 R: torch.Tensor, valid: torch.Tensor, blocks: BlockLayout
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused eq. 4 share step over int8 stores: Q (n, m, P) int8,
     scale (n, m, blocks.n_blocks) fp32, T, R (n, m) fp32, valid (n, m)
     bool → (ḡ (n, P) fp32, Σw (n,) fp32), dequantised as q·s in the
     loop; ``blocks`` says which scale column each position reads."""
-    if resolve(impl, Q) == "plain":
+    if not Q.is_cuda:
         return ref.fused_wavg_q(Q, scale, T, R, valid, blocks)
     n, m, p = _check(Q, {"T": (T, torch.float32), "R": (R, torch.float32),
                          "valid": (valid, torch.bool)}, dtype=torch.int8)
@@ -121,6 +155,7 @@ def fused_wavg_q(Q: torch.Tensor, scale: torch.Tensor, T: torch.Tensor,
             f"scale must be a contiguous ({n}, {m}, {nb}) float32 tensor "
             f"on {Q.device}, got {tuple(scale.shape)} {scale.dtype} on "
             f"{scale.device}")
+    geo = wavg_q_geometry(n, m, p)
     cols = blocks.on(Q.device)[0]
     out = torch.empty((n, p), dtype=torch.float32, device=Q.device)
     wsum = torch.empty((n,), dtype=torch.float32, device=Q.device)
@@ -128,18 +163,17 @@ def fused_wavg_q(Q: torch.Tensor, scale: torch.Tensor, T: torch.Tensor,
     status = lib.ddal_fused_wavg_q(
         Q.data_ptr(), scale.data_ptr(), cols.data_ptr(), T.data_ptr(),
         R.data_ptr(), valid.data_ptr(), out.data_ptr(), wsum.data_ptr(),
-        n, m, p, nb, Q.device.index,
+        n, m, p, nb, geo.items, geo.batch, geo.blocks, Q.device.index,
         torch.cuda.current_stream(Q.device).cuda_stream)
     _raise_on(lib, status, "ddal_fused_wavg_q")
     fused_wavg_q.launches += 1
     return out, wsum
 
 
-def wavg(G: torch.Tensor, w: torch.Tensor, *, impl: str = "auto"
-         ) -> torch.Tensor:
+def wavg(G: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Σ_j w_j·G[j] for every agent: G (n, m, P), w (n, m) fp32 →
     (n, P) fp32."""
-    if resolve(impl, G) == "plain":
+    if not G.is_cuda:
         return ref.wavg(G, w)
     n, m, p = _check(G, {"w": (w, torch.float32)})
     out = torch.empty((n, p), dtype=torch.float32, device=G.device)

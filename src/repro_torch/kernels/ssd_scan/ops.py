@@ -5,8 +5,11 @@
 the layout ``repro_torch.models.ssd.ssd_chunked`` makes them, and
 returns y_diag (b, nc, l, h, p) fp32. CUDA tensors take the kernel,
 CPU tensors the plain version (``ref``), and nothing else: the
-tensors' device is the only switch. The kernel's launches are counted
-in ``ssd_intra_chunk.launches``.
+tensors' device is the only switch. The kernel has no backward (the
+reference's Pallas kernel defines no VJP), so a CUDA call that
+autograd would record (grad mode on, an input that requires grad)
+raises ``NotPortedError`` rather than drop that input's gradient. The kernel's launches are counted in
+``ssd_intra_chunk.launches``.
 
 B and C may carry g groups instead of h heads (g dividing h): the
 kernel then reads head k's projections from group k // (h / g), and
@@ -22,6 +25,7 @@ import functools
 
 import torch
 
+from repro_torch.configs.base import NotPortedError
 from repro_torch.kernels.ssd_scan import ref
 
 MAX_P = 64                   # the kernel's output tile is 64 columns wide
@@ -84,6 +88,11 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
     (b, nc, l, g, n), g dividing h → y_diag (b, nc, l, h, p) fp32."""
     if not xc.is_cuda:
         return ref.ssd_intra_chunk(xc, dtc, cs, Bc, Cc)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xc, dtc, cs, Bc, Cc)):
+        raise NotPortedError(
+            "ssd_intra_chunk has no backward on the card, as the reference "
+            "kernel has no VJP; call it under torch.no_grad()")
     _check(xc, dtc, cs, Bc, Cc)
     b, nc, l, h, p = xc.shape
     g, n = Bc.shape[3], Bc.shape[4]

@@ -94,17 +94,18 @@ def test_plain_accumulates_in_kernel_order():
 
 
 def test_dispatch_is_by_device_and_never_falls_back():
+    """CPU tensors take the plain version, with no launch counted; the
+    wrappers have no switch besides the tensors' device."""
     G, T, R, valid = _torch(*_case(1, 2, 16))
     launches = ops.fused_wavg.launches
     ops.fused_wavg(G, T, R, valid)                 # CPU → plain
-    ops.fused_wavg(G, T, R, valid, impl="plain")
     assert ops.fused_wavg.launches == launches     # no kernel ran
-    with pytest.raises(ValueError, match="impl='cuda'"):
+    with pytest.raises(TypeError, match="impl"):
+        ops.fused_wavg(G, T, R, valid, impl="plain")
+    with pytest.raises(TypeError, match="impl"):
         ops.fused_wavg(G, T, R, valid, impl="cuda")
-    with pytest.raises(ValueError, match="impl='cuda'"):
+    with pytest.raises(TypeError, match="impl"):
         ops.wavg(G, T, impl="cuda")
-    with pytest.raises(ValueError, match="impl must be one of"):
-        ops.fused_wavg(G, T, R, valid, impl="pallas")
 
 
 # ---------------------------------------------------------------------
@@ -245,5 +246,5 @@ def test_plain_int8_step_accumulates_in_kernel_order():
         acc = (acc + np.float32(w[0, j].item()) * deq[j]).astype(np.float32)
     got, _ = ops.fused_wavg_q(q, s, *_torch(T, R, valid), blocks)
     np.testing.assert_array_equal(got[0].numpy(), acc)
-    with pytest.raises(ValueError, match="impl='cuda'"):
+    with pytest.raises(TypeError, match="impl"):
         ops.fused_wavg_q(q, s, *_torch(T, R, valid), blocks, impl="cuda")

@@ -107,12 +107,13 @@ def test_flat_row_sketch_equals_reference_per_leaf_walk(dim):
 
 
 def test_dispatch_is_by_device_and_never_falls_back():
+    """CPU tensors take the plain version, with no launch counted; the
+    wrapper has no switch besides the tensors' device."""
     G = torch.ones((2, 10))
     launches = ops.sketch_flat.launches
     ops.sketch_flat(G, 0, 4)                      # CPU → plain
-    ops.sketch_flat(G, 0, 4, impl="plain")
     assert ops.sketch_flat.launches == launches   # no kernel ran
-    with pytest.raises(ValueError, match="impl='cuda'"):
+    with pytest.raises(TypeError, match="impl"):
+        ops.sketch_flat(G, 0, 4, impl="plain")
+    with pytest.raises(TypeError, match="impl"):
         ops.sketch_flat(G, 0, 4, impl="cuda")
-    with pytest.raises(ValueError, match="impl must be one of"):
-        ops.sketch_flat(G, 0, 4, impl="xla")

@@ -45,11 +45,17 @@ def _a2c_layout():
 @pytest.mark.parametrize("n,p,d,offset", [
     (8, A2C_P, 256, 0), (8, 1024, 128, 11), (3, 4097, 256, 11),
     (8, 1000, 128, 11), (16, 2048, 384, 11), (8, A2C_P, 100, 0),
-    (2, 70_000, 256, 2 ** 32 - 1000)])
+    (2, 70_000, 256, 2 ** 32 - 1000),
+    # the row-block instances' edges: 1 row, 9 of 16, 17 over two blocks
+    (1, A2C_P, 256, 0), (9, A2C_P, 256, 5), (17, A2C_P, 256, 5),
+    # shorter than one chunk; one chunk and one position
+    (8, ops.MIN_CHUNK - 12, 256, 3), (8, ops.MIN_CHUNK + 1, 256, 3)])
 def test_sketch_kernel_matches_plain(n, p, d, offset):
     """|got − want| ≤ 1e-5·Σ_p |G[r, p]| per element (the two sum in
     other orders; ±1 products are exact); two launches bitwise equal."""
     dev = _card()
+    if p <= ops.MIN_CHUNK + 1:
+        assert ops.sketch_geometry(n, p, d).chunks == (p > ops.MIN_CHUNK) + 1
     G = torch.from_numpy(np.random.default_rng(n * p).normal(
         size=(n, p)).astype(np.float32)).to(dev)
     launches = ops.sketch_flat.launches
@@ -94,16 +100,29 @@ def _q_case(dev, n, m, layout, qb, seed, invalid="some"):
     return Q, S, T, R, valid, blocks
 
 
+# case: (ragged plane instead of the A2C's, n, m, q_block); the cases run
+# every kernel instance (8-, 16- and 32-piece batches, one, two or four
+# positions per thread) and cross its batches (one piece, short batches,
+# one batch and one piece, the most pieces the wrapper takes)
+INT8_CASES = {"a2c-128": (False, 8, 32, 128), "a2c-1024": (False, 8, 32, 1024),
+              "all-invalid": (False, 8, 32, 128),
+              "ragged-plane": (True, 16, 8, 128), "m=1": (False, 8, 1, 128),
+              "m=5": (False, 8, 5, 128), "m=12": (False, 8, 12, 128),
+              "m=12, n=2": (False, 2, 12, 128),
+              "ragged-plane, m=12": (True, 4, 12, 128),
+              "m=33": (False, 8, 33, 128),
+              "m=MAX_PIECES": (False, 1, wavg_ops.MAX_PIECES, 128),
+              "n=1": (False, 1, 32, 128)}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["a2c-128", "a2c-1024", "all-invalid",
-                                  "ragged-plane"])
+@pytest.mark.parametrize("case", list(INT8_CASES))
 def test_int8_share_step_matches_plain_bitwise(case):
+    """ḡ and Σw bitwise, at every case of INT8_CASES."""
     dev = _card()
-    if case == "ragged-plane":
-        layout, n, m, qb = PlaneLayout(None, [()], [(2 ** 20 + 37,)]), 16, 8, 128
-    else:
-        layout, n, m = _a2c_layout(), 8, 32
-        qb = 1024 if case == "a2c-1024" else 128
+    ragged, n, m, qb = INT8_CASES[case]
+    layout = (PlaneLayout(None, [()], [(2 ** 20 + 37,)]) if ragged
+              else _a2c_layout())
     Q, S, T, R, valid, blocks = _q_case(
         dev, n, m, layout, qb, seed=len(case),
         invalid="all" if case == "all-invalid" else "some")

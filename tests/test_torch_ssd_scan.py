@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ssd_scan import ops as r_ops  # noqa: E402
@@ -165,6 +166,33 @@ def test_ssd_chunked_matches_reference(s, g, with_state):
                                **CHUNKED_TOL)
     np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
                                **CHUNKED_TOL)
+
+
+def test_ssd_chunked_gradient_reaches_the_intra_chunk_term():
+    """One chunk from a zero state: the inter-chunk term is 0, so the
+    whole output, and its gradient, comes from the intra-chunk term.
+    On the CPU that term is the plain version, which autograd
+    differentiates: the gradients of Σ y·v with respect to x, dt, B
+    and C are nonzero and match jax.grad of the reference's
+    ssd_chunked (on the card the kernel refuses such a call)."""
+    b, s, h, p, g, n = 1, 32, 2, 8, 1, 16
+    x, dt, A, B, C, _ = ssd_inputs(11, b, s, h, p, g, n)
+    v = np.random.default_rng(12).normal(size=(b, s, h, p)).astype(
+        np.float32)
+
+    def r_loss(x, dt, B, C):
+        y, _ = r_ssd.ssd_chunked(x, dt, jnp.asarray(A), B, C, s)
+        return jnp.sum(y * jnp.asarray(v))
+
+    want = jax.grad(r_loss, argnums=(0, 1, 2, 3))(
+        *map(jnp.asarray, (x, dt, B, C)))
+    X, DT, BB, CC = [t.requires_grad_(True) for t in _torch(x, dt, B, C)]
+    y, _ = ssd.ssd_chunked(X, DT, _torch(A)[0], BB, CC, s)
+    got = torch.autograd.grad((y * _torch(v)[0]).sum(), (X, DT, BB, CC))
+    for gt, wt in zip(got, want):
+        assert bool(gt.abs().gt(0).any())
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt),
+                                   **CHUNKED_TOL)
 
 
 def test_padding_is_a_no_op_on_the_recurrence():

@@ -27,6 +27,7 @@ torch.set_num_threads(1)
 
 from repro_torch.common.pytree import tree_map  # noqa: E402
 from repro_torch.configs import get_arch_config  # noqa: E402
+from repro_torch.configs.base import NotPortedError  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops, ref  # noqa: E402
 from repro_torch.models import get_model, ssd  # noqa: E402
 from repro_torch.serving import ServeConfig, ServeEngine, \
@@ -64,6 +65,25 @@ def _within_gate(got, args):
     want = ref.ssd_intra_chunk(*args)
     scale = ref.ssd_intra_chunk(xc.abs(), dtc, cs, Bc.abs(), Cc.abs())
     return bool(((got - want).abs() <= GATE * scale).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", range(5))
+def test_input_that_requires_grad_raises(which):
+    """The kernel has no backward: a CUDA call that autograd would
+    record raises rather than drop the gradient of that input; under
+    torch.no_grad() the same call runs."""
+    dev = _card()
+    args = chunk_inputs(5, 1, 1, 32, 2, 16, 16, device=dev)
+    args[which].requires_grad_(True)
+    launches = ops.ssd_intra_chunk.launches
+    with pytest.raises(NotPortedError, match="no backward on the card"):
+        ops.ssd_intra_chunk(*args)
+    assert ops.ssd_intra_chunk.launches == launches
+    with torch.no_grad():
+        got = ops.ssd_intra_chunk(*args)
+    assert ops.ssd_intra_chunk.launches == launches + 1
+    assert torch.equal(got, ref.ssd_intra_chunk(*[a.detach() for a in args]))
 
 
 @pytest.mark.gpu
