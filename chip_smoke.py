@@ -9,11 +9,12 @@ Phases, each printing its lines:
 2. build every CUDA kernel of the main paths from the sources in this
    checkout (one ``nvcc`` per source, all started together), with the
    registers and spills ptxas reports for each kernel instance (a
-   flash instance that spills fails the run);
+   flash or fp32 share-step instance that spills fails the run);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths and at edge cases, with its time beside the
    plain version's, a one-call PyTorch yardstick's and the least time
-   the card could take: the fp32 eq. 4 share step (both entries), the
+   the card could take: the fp32 eq. 4 share step (both entries,
+   bitwise, also at m = 1, 5, 33, 4096, n = 1 and in each instance), the
    gradient sketch (signs through the kernel bitwise, sketches within
    their gate, two launches bitwise equal, also at the row-block and
    chunk edges), the int8 share step (bitwise, also at m = 1, 5, 33,
@@ -183,6 +184,12 @@ def build_phase():
         for kernel, regs, stores, loads in report:
             print(f"[build]   ptxas {kernel}: {regs} registers, spill "
                   f"stores {stores} B, spill loads {loads} B")
+        if name == "ddal_wavg":
+            fp32 = [r for r in report if "wavg_kernel" in r[0]]
+            check(len(fp32) == 10 and all(st == ld == 0 for _, _, st, ld
+                                          in fp32),
+                  f"ddal_wavg: ptxas reports spills or not the 10 fp32 "
+                  f"instances (fused / wavg x 5 geometries): {fp32}")
         if name == "flash_attention":
             check(len(report) == 8 and all(st == ld == 0 for _, _, st, ld
                                            in report),
@@ -253,17 +260,32 @@ def errors(torch, got, want):
 
 
 def kernel_phase(torch):
-    """Kernel vs plain at the main path's share-step shapes and at edge
-    cases; returns the per-kernel numbers of the first shape."""
+    """Both fp32 share-step kernels against their plain versions,
+    bitwise for ḡ and Σw (and within the Pallas kernel's bounds), at the
+    main path's shapes and at edge cases: the batch edges m = 1, 5, 33
+    and MAX_PIECES, one agent, and each kernel instance. Returns the
+    per-kernel numbers of the first shape."""
     from repro_torch.kernels.ddal_wavg import ops, ref
-    cases = [("quickstart share step", 2, 32, 9155, "none"),
-             ("ring n=8 share step", 8, 32, 9155, "some"),
-             ("big ragged plane", 16, 8, 2 ** 20 + 37, "some"),
-             ("single element", 1, 1, 1, "none"),
-             ("some pieces invalid", 3, 32, 9155, "some"),
-             ("every piece invalid", 2, 32, 9155, "all")]
-    table = {}
-    for label, n, m, p, invalid in cases:
+    # (label, n, m, P, invalid pieces, timed)
+    cases = [("quickstart share step", 2, 32, 9155, "none", True),
+             ("ring n=8 share step", 8, 32, 9155, "some", True),
+             ("big ragged plane", 16, 8, 2 ** 20 + 37, "some", True),
+             ("single element", 1, 1, 1, "none", False),
+             ("some pieces invalid", 3, 32, 9155, "some", False),
+             ("every piece invalid", 2, 32, 9155, "all", False),
+             # across the kernel's batches, one agent, each instance
+             ("one piece", 8, 1, 9155, "some", False),
+             ("5 pieces", 8, 5, 9155, "some", False),
+             ("33 pieces", 8, 33, 9155, "some", False),
+             (f"{ops.MAX_PIECES} pieces (the most)", 1, ops.MAX_PIECES,
+              9155, "some", False),
+             ("one agent", 1, 32, 9155, "some", False),
+             ("12 pieces, two agents", 2, 12, 9155, "some", False),
+             ("12 pieces", 8, 12, 9155, "some", False),
+             ("12 pieces, big ragged plane", 4, 12, 2 ** 20 + 37, "some",
+              False)]
+    table, instances = {}, set()
+    for label, n, m, p, invalid, timed in cases:
         G, T, R, valid = make_case(torch, n, m, p, seed=n * 31 + m,
                                    invalid=invalid)
         got_g, got_w = ops.fused_wavg(G, T, R, valid)
@@ -276,18 +298,29 @@ def kernel_phase(torch):
                 "ddal_wavg": errors(torch, got_u, want_u)}
         w_err = float(((got_w - want_w).abs()
                        / want_w.abs().clamp_min(1e-30)).max())
-        ok = (torch.allclose(got_g, want_g, **G_TOL)
+        bitwise = (torch.equal(got_g, want_g) and torch.equal(got_w, want_w)
+                   and torch.equal(got_u, want_u))
+        ok = (bitwise and torch.allclose(got_g, want_g, **G_TOL)
               and torch.allclose(got_u, want_u, **G_TOL)
               and torch.allclose(got_w, want_w, rtol=W_RTOL, atol=0.0))
         if invalid == "all":
             ok = ok and not bool(got_g.any()) and not bool(got_w.any())
-        print(f"[kernel] {label} (n, m, P) = ({n}, {m}, {p}): "
+        geo = ops.wavg_geometry(n, m, p)
+        instances.add((geo.batch, geo.items))
+        print(f"[kernel] {label} (n, m, P) = ({n}, {m}, {p}), grid "
+              f"{geo.blocks} x {n} = {geo.blocks * n} blocks of "
+              f"{ops.F32_THREADS} folding threads x {geo.items} positions "
+              f"(the fused entry's blocks add a weighing warp), "
+              f"{geo.batch}-piece batches: "
               f"fused max abs {errs['ddal_fused_wavg'][0]:.3e} "
               f"rel {errs['ddal_fused_wavg'][1]:.3e}, Σw rel {w_err:.3e}; "
               f"wavg max abs {errs['ddal_wavg'][0]:.3e} "
-              f"rel {errs['ddal_wavg'][1]:.3e}; tolerance ḡ rtol=atol=2e-5, "
-              f"Σw rtol 1e-6 -> {'ok' if ok else 'FAIL'}")
+              f"rel {errs['ddal_wavg'][1]:.3e}; ḡ and Σw bitwise {bitwise}, "
+              f"tolerance ḡ rtol=atol=2e-5, Σw rtol 1e-6 -> "
+              f"{'ok' if ok else 'FAIL'}")
         check(ok, f"kernel disagrees with its plain version: {label}")
+        if not timed:
+            continue
         iters = 200 if n * m * p < 1e8 else 20
         rows = {
             "ddal_fused_wavg": (
@@ -306,13 +339,19 @@ def kernel_phase(torch):
             print(f"[kernel] {label} {name}: device {ms:.5f} ms "
                   f"({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, "
                   f"{b_by}), plain {plain_ms:.5f} ms, einsum "
-                  f"{lib_ms:.5f} ms; host per call: kernel {host:.5f} "
-                  f"ms, plain {plain_host:.5f} ms, einsum "
-                  f"{lib_host:.5f} ms")
+                  f"{lib_ms:.5f} ms ({ms / lib_ms:.2f}x); host per call: "
+                  f"kernel {host:.5f} ms, plain {plain_host:.5f} ms, "
+                  f"einsum {lib_host:.5f} ms")
             if label == "quickstart share step":
                 table[name] = dict(max_abs_err=errs[name][0], ms=ms,
                                    plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=lib_ms)
+    want = {(32, 1), (16, 1), (16, 2), (8, 1), (8, 4)}
+    print(f"[kernel] ddal_fused_wavg / ddal_wavg instances (batch, "
+          f"positions per thread) run: {sorted(instances)} of "
+          f"{sorted(want)}")
+    check(instances == want, "not every fp32 kernel instance was held "
+                             "against the plain version")
     return table
 
 

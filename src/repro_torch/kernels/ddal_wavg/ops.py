@@ -7,9 +7,9 @@ given) take the whole group's stores at once: G (n, m, P). Each runs
 its CUDA kernel on CUDA tensors and its plain version (``ref``) on CPU
 tensors, and nothing else: the tensors' device is the only switch.
 Each wrapper counts its kernel launches in ``<wrapper>.launches``, so a
-run can show that its share steps went through the kernel. The int8
-kernel's launch geometry is computed here (``wavg_q_geometry``), where
-the CPU tests can hold it.
+run can show that its share steps went through the kernel. The
+kernels' launch geometry is computed here (``wavg_geometry``,
+``wavg_q_geometry``), where the CPU tests can hold it.
 
 Unlike the reference's ``tree_fused_wavg`` / ``tree_fused_wavg_q``,
 there is no small-leaf branch: an agent's parameters are one flat row
@@ -29,14 +29,19 @@ import torch
 from repro_torch.common.pytree import BlockLayout
 from repro_torch.kernels.ddal_wavg import ref
 
-MAX_PIECES = 4096           # the kernels stage up to 2·m floats in smem
+MAX_PIECES = 4096           # the kernels stage m weights in smem
 MAX_AGENTS = 65535          # grid y
 SMS = 132                   # the H100 SXM's streaming multiprocessors
 MAX_GRID_X = 2 ** 31 - 1
-# int8 kernel: Q_THREADS threads per block, BATCH pieces held in
-# registers at a time (the least of Q_BATCHES that covers m), and
+# Each kernel: *_THREADS threads per block, BATCH pieces held in
+# registers at a time (the least of *_BATCHES that covers m), and
 # ITEMS = 32 / BATCH positions per thread where the grid keeps
-# Q_MIN_BLOCKS_PER_SM blocks per SM (else 1)
+# *_MIN_BLOCKS_PER_SM blocks per SM (else 1). fp32 kernel:
+F32_THREADS = 64
+F32_BATCHES = (8, 16, 32)
+F32_MIN_BLOCKS_PER_SM = 4
+# int8 kernel (a position's q bytes and scales take twice the registers
+# of its fp32 values):
 Q_THREADS = 64
 Q_BATCHES = (8, 16, 32)
 Q_MIN_BLOCKS_PER_SM = 4
@@ -49,9 +54,10 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import cuda_build
     lib, _ = cuda_build.load("ddal_wavg")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ddal_fused_wavg.argtypes = [p, p, p, p, p, p, i, i, ll, i, p]
+    lib.ddal_fused_wavg.argtypes = [p, p, p, p, p, p, i, i, ll, i, i, i,
+                                    i, p]
     lib.ddal_fused_wavg.restype = i
-    lib.ddal_wavg.argtypes = [p, p, p, i, i, ll, i, p]
+    lib.ddal_wavg.argtypes = [p, p, p, i, i, ll, i, i, i, i, p]
     lib.ddal_wavg.restype = i
     lib.ddal_fused_wavg_q.argtypes = [p, p, p, p, p, p, p, p, i, i, ll, i,
                                       i, i, i, i, p]
@@ -82,30 +88,42 @@ def _check(G: torch.Tensor, meta: dict, dtype=torch.float32
     return n, m, p
 
 
-class WavgQGeometry(NamedTuple):
-    """The int8 kernel's grid (blocks, n) of ``Q_THREADS``-thread
-    blocks: block b of an agent takes positions b·span .. b·span + span
-    - 1 (span = Q_THREADS·items; the last block masks the ragged end),
-    thread t of it positions t, t + Q_THREADS, ...; ``batch`` pieces are
-    held in registers at a time."""
+class WavgGeometry(NamedTuple):
+    """A share-step kernel's grid (blocks, n) of blocks of ``threads``:
+    block b of an agent takes positions b·span .. b·span + span - 1
+    (span = threads·items; the last block masks the ragged end), thread
+    t of it positions t, t + threads, ...; ``batch`` pieces are held in
+    registers at a time."""
     items: int
     batch: int
     blocks: int
 
 
-def wavg_q_geometry(n: int, m: int, P: int) -> WavgQGeometry:
-    """32 / batch positions per thread where that grid still holds
-    ``Q_MIN_BLOCKS_PER_SM`` blocks per SM (long planes), else one
-    (the paper's P = 9155)."""
-    batch = next(b for b in Q_BATCHES if b >= min(m, Q_BATCHES[-1]))
-    items = Q_BATCHES[-1] // batch
-    blocks = -(-P // (Q_THREADS * items))
-    if n * blocks < Q_MIN_BLOCKS_PER_SM * SMS:
-        items, blocks = 1, -(-P // Q_THREADS)
+def _geometry(n: int, m: int, P: int, threads: int, batches, min_blocks
+              ) -> WavgGeometry:
+    """batches[-1] / batch positions per thread where that grid still
+    holds ``min_blocks`` blocks per SM (long planes), else one (the
+    paper's P = 9155)."""
+    batch = next(b for b in batches if b >= min(m, batches[-1]))
+    items = batches[-1] // batch
+    blocks = -(-P // (threads * items))
+    if n * blocks < min_blocks * SMS:
+        items, blocks = 1, -(-P // threads)
     if blocks > MAX_GRID_X:
         raise ValueError(f"P = {P} needs {blocks} blocks per agent, more "
                          f"than the grid's {MAX_GRID_X}")
-    return WavgQGeometry(items, batch, blocks)
+    return WavgGeometry(items, batch, blocks)
+
+
+def wavg_geometry(n: int, m: int, P: int) -> WavgGeometry:
+    """The fp32 kernel's geometry (``fused_wavg`` and ``wavg``)."""
+    return _geometry(n, m, P, F32_THREADS, F32_BATCHES,
+                     F32_MIN_BLOCKS_PER_SM)
+
+
+def wavg_q_geometry(n: int, m: int, P: int) -> WavgGeometry:
+    """The int8 kernel's geometry (``fused_wavg_q``)."""
+    return _geometry(n, m, P, Q_THREADS, Q_BATCHES, Q_MIN_BLOCKS_PER_SM)
 
 
 def _raise_on(lib, status: int, what: str):
@@ -124,10 +142,12 @@ def fused_wavg(G: torch.Tensor, T: torch.Tensor, R: torch.Tensor,
                          "valid": (valid, torch.bool)})
     out = torch.empty((n, p), dtype=torch.float32, device=G.device)
     wsum = torch.empty((n,), dtype=torch.float32, device=G.device)
+    geo = wavg_geometry(n, m, p)
     lib = _lib()
     status = lib.ddal_fused_wavg(
         G.data_ptr(), T.data_ptr(), R.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), wsum.data_ptr(), n, m, p, G.device.index,
+        out.data_ptr(), wsum.data_ptr(), n, m, p, geo.items, geo.batch,
+        geo.blocks, G.device.index,
         torch.cuda.current_stream(G.device).cuda_stream)
     _raise_on(lib, status, "ddal_fused_wavg")
     fused_wavg.launches += 1
@@ -177,10 +197,12 @@ def wavg(G: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return ref.wavg(G, w)
     n, m, p = _check(G, {"w": (w, torch.float32)})
     out = torch.empty((n, p), dtype=torch.float32, device=G.device)
+    geo = wavg_geometry(n, m, p)
     lib = _lib()
     status = lib.ddal_wavg(
-        G.data_ptr(), w.data_ptr(), out.data_ptr(), n, m, p,
-        G.device.index, torch.cuda.current_stream(G.device).cuda_stream)
+        G.data_ptr(), w.data_ptr(), out.data_ptr(), n, m, p, geo.items,
+        geo.batch, geo.blocks, G.device.index,
+        torch.cuda.current_stream(G.device).cuda_stream)
     _raise_on(lib, status, "ddal_wavg")
     wavg.launches += 1
     return out

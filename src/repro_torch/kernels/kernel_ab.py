@@ -12,9 +12,10 @@ launches queued behind a spin kernel), the int8 share step
 (``fused_wavg_q``) at the main path's (8, 32, 9155), q_block 128, and on
 the big ragged plane (16, 8, 2^20 + 37); the gradient sketch
 (``sketch_flat``) at the main path's (8, 9155, 256) and on the
-LLM-scale plane (16, 2^22 + 37, 256); the fp32 share step
-(``fused_wavg``) at (2, 32, 9155) and (8, 32, 9155) as a control; and
-the yardsticks (``einsum`` over dequantised planes, ``matmul(G, S)``).
+LLM-scale plane (16, 2^22 + 37, 256); both fp32 share steps
+(``fused_wavg`` and ``wavg``) at (2, 32, 9155), (8, 32, 9155) and on the
+big ragged plane (16, 8, 2^20 + 37); and the yardsticks (``einsum``,
+over dequantised planes for int8, and ``matmul(G, S)``).
 The inputs come from seeded ``torch.Generator``s, so both checkouts
 time the same data. Needs a CUDA card.
 """
@@ -69,10 +70,19 @@ def worker(root: Path) -> dict:
         out[label + " matmul"] = smoke.time_ms(
             torch, lambda: torch.matmul(G, S), iters)[0]
         del G, S
-    for n in (2, 8):
-        G, T, R, valid = smoke.make_case(torch, n, 32, 9155, seed=n)
-        out[f"fp32 fused ({n}, 32, 9155)"] = smoke.time_ms(
-            torch, lambda: wops.fused_wavg(G, T, R, valid), 200)[0]
+    for label, n, m, p, iters in (("(2, 32, 9155)", 2, 32, 9155, 200),
+                                  ("(8, 32, 9155)", 8, 32, 9155, 200),
+                                  ("(16, 8, 2^20+37)", 16, 8, 2 ** 20 + 37,
+                                   20)):
+        G, T, R, valid = smoke.make_case(torch, n, m, p, seed=n)
+        w = wref.eq4_weights(T, R, valid)
+        out[f"fp32 fused {label}"] = smoke.time_ms(
+            torch, lambda: wops.fused_wavg(G, T, R, valid), iters)[0]
+        out[f"fp32 wavg {label}"] = smoke.time_ms(
+            torch, lambda: wops.wavg(G, w), iters)[0]
+        out[f"fp32 {label} einsum"] = smoke.time_ms(
+            torch, lambda: torch.einsum("nm,nmp->np", w, G), iters)[0]
+        del G
     return out
 
 

@@ -1,7 +1,7 @@
 """What the compiler made of a kernel source: its SASS, per kernel.
 
     python -m repro_torch.kernels.sass SRC.cu [SRC.cu ...] \\
-        [--kernels NAME,NAME] [--out DIR]
+        [--kernels NAME,NAME] [--out DIR] [--against OLD.sass]
 
 compiles each CUDA source to a cubin for sm_90a with the flags
 ``cuda_build`` uses (ptxas's register and spill report included),
@@ -11,8 +11,10 @@ opcode and, for each loop (a backward branch), the loop body as a run
 of opcodes with repeats folded (``LDG.E.S8 x8 I2F x8 ...``) and its
 global loads before the first floating-point add. The full listing of
 each source goes to ``DIR/<source>.sass`` (give two versions of one
-source two ``--out`` directories). Needs ``nvcc`` and
-``cuobjdump``, so it runs on the machine with the card.
+source two ``--out`` directories). ``--against`` names such a listing
+of another version of the source (the parent's, say) and prints, for
+each chosen kernel, whether its instructions are the same there. Needs
+``nvcc`` and ``cuobjdump``, so it runs on the machine with the card.
 """
 from __future__ import annotations
 
@@ -115,6 +117,46 @@ def report(kernels, wanted: List[str]) -> List[str]:
     return lines
 
 
+_WHOLE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);")
+
+
+def instructions(listing: str) -> Dict[str, List[str]]:
+    """{kernel: its instructions as written, predicates included}, the
+    kernel's mangled name without the anonymous namespace's per-file
+    hash, so two versions of one source name a kernel alike."""
+    kernels: Dict[str, List[str]] = {}
+    current = None
+    for line in listing.splitlines():
+        func = _FUNC.search(line)
+        if func:
+            name = re.sub(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}",
+                          "", func.group(1))
+            current = kernels.setdefault(name, [])
+            continue
+        insn = _WHOLE.search(line)
+        if insn and current is not None:
+            current.append(" ".join(insn.group(1).split()))
+    return kernels
+
+
+def same_code(listing: str, old_listing: str, wanted: List[str]
+              ) -> List[str]:
+    """For each chosen kernel of ``listing``: are its instructions the
+    same as those of the kernel of that name in ``old_listing``?"""
+    old = instructions(old_listing)
+    lines = []
+    for name, insns in instructions(listing).items():
+        if wanted and not any(w in name for w in wanted):
+            continue
+        before = old.get(name)
+        verdict = ("absent there" if before is None else
+                   f"the same {len(insns)} instructions" if before == insns
+                   else f"different ({len(before)} -> {len(insns)} "
+                        f"instructions)")
+        lines.append(f"[sass] {name}: {verdict}")
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="+", type=Path)
@@ -122,6 +164,8 @@ def main(argv=None) -> int:
                     help="comma-separated substrings of kernel names")
     ap.add_argument("--out", type=Path,
                     default=cuda_build.BUILD_DIR / "sass")
+    ap.add_argument("--against", type=Path,
+                    help="a listing of another version to compare with")
     args = ap.parse_args(argv)
     wanted = [w for w in args.kernels.split(",") if w]
     for src in args.sources:
@@ -135,6 +179,11 @@ def main(argv=None) -> int:
                   f"stores {stores} B, spill loads {loads} B")
         for line in report(kernels, wanted):
             print(line)
+        if args.against:
+            print(f"[sass] against {args.against}:")
+            for line in same_code(listing, args.against.read_text(),
+                                  wanted):
+                print(line)
     return 0
 
 

@@ -1,7 +1,7 @@
-"""The launch geometry of the gradient-sketch and int8 share-step
+"""The launch geometry of the gradient-sketch, fp32 and int8 share-step
 kernels, which their wrappers compute in Python
-(``grad_sketch.ops.sketch_geometry``, ``ddal_wavg.ops.wavg_q_geometry``)
-and pass to the CUDA entry points, held here on the CPU: every position
+(``grad_sketch.ops.sketch_geometry``, ``ddal_wavg.ops.wavg_geometry``,
+``ddal_wavg.ops.wavg_q_geometry``) and pass to the CUDA entry points, held here on the CPU: every position
 falls in exactly one chunk or block, in order; the main path's grids
 hold at least two blocks per SM of the H100 (132 SMs); every grid stays
 within CUDA's limits. Also on the CPU: the sketch kernel's sign
@@ -10,8 +10,8 @@ of adds (chunks, then a strided sum and a fixed tree) against the plain
 version within the sketch's gate.
 
 This file imports only torch; the kernels themselves are held against
-their plain versions on the card by ``tests/test_torch_grad_sketch_gpu.py``
-and ``chip_smoke.py``."""
+their plain versions on the card by ``tests/test_torch_grad_sketch_gpu.py``,
+``tests/test_torch_ddal_wavg_gpu.py`` and ``chip_smoke.py``."""
 from __future__ import annotations
 
 import numpy as np
@@ -116,6 +116,63 @@ def test_int8_geometry_refuses_a_grid_past_cuda_limits():
     assert wavg_ops.wavg_q_geometry(1, 32, MAX_X * 64) == (1, 32, MAX_X)
 
 
+@pytest.mark.parametrize("m", [1, 5, 8, 9, 12, 16, 32, 33,
+                               wavg_ops.MAX_PIECES])
+@pytest.mark.parametrize("n,P", INT8_SHAPES)
+def test_fp32_geometry_covers_each_position_once(n, P, m):
+    geo = wavg_ops.wavg_geometry(n, m, P)
+    threads = wavg_ops.F32_THREADS
+    assert threads % 32 == 0 and threads <= MAX_THREADS
+    # the kernel's instances: the least batch that covers m (32 past
+    # that), and 32 / batch positions per thread or one, so a thread
+    # holds at most 32 G values
+    assert (geo.batch, geo.items) in {(32, 1), (16, 1), (16, 2), (8, 1),
+                                      (8, 4)}
+    assert geo.batch * geo.items <= 32
+    assert geo.batch >= min(m, 32) and (geo.batch == 8
+                                        or geo.batch // 2 < min(m, 32))
+    span = threads * geo.items
+    assert (geo.blocks - 1) * span < P <= geo.blocks * span
+    if P <= 1_000_000:
+        # block b, thread t: positions b·span + t + i·threads, i < items,
+        # in order along each block and across blocks
+        pos = (np.arange(geo.blocks)[:, None, None] * span
+               + np.arange(geo.items)[None, :, None] * threads
+               + np.arange(threads)[None, None, :]).reshape(-1)
+        assert np.array_equal(pos[pos < P], np.arange(P))
+    assert 1 <= geo.blocks <= MAX_X and 1 <= n <= MAX_YZ
+    # the fused entry's m weights fit the 48 KB of shared memory a block
+    # gets without opting in
+    assert wavg_ops.MAX_PIECES * 4 <= 48 * 1024
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_fp32_main_path_grids_hold_two_blocks_per_sm(n):
+    """(n, 32, 9155): one position per thread, 144 blocks per agent, at
+    least two blocks per SM of the card."""
+    geo = wavg_ops.wavg_geometry(n, 32, 9155)
+    assert (geo.batch, geo.items, geo.blocks) == (32, 1, 144)
+    assert n * geo.blocks >= 2 * SMS
+
+
+def test_fp32_big_plane_takes_several_positions_per_thread():
+    geo = wavg_ops.wavg_geometry(16, 8, 2 ** 20 + 37)
+    assert (geo.items, geo.batch) == (4, 8)
+    assert 16 * geo.blocks >= wavg_ops.F32_MIN_BLOCKS_PER_SM * SMS
+    # a long plane with 12 pieces: two positions per thread
+    assert wavg_ops.wavg_geometry(4, 12, 2 ** 20 + 37)[:2] == (2, 16)
+
+
+def test_fp32_geometry_refuses_a_grid_past_cuda_limits():
+    with pytest.raises(ValueError, match="grid"):
+        wavg_ops.wavg_geometry(1, 32, MAX_X * 64 + 1)
+    assert wavg_ops.wavg_geometry(1, 32, MAX_X * 64) == (1, 32, MAX_X)
+    # with four positions per thread the grid reaches four times as far
+    assert wavg_ops.wavg_geometry(1, 8, MAX_X * 256) == (4, 8, MAX_X)
+    with pytest.raises(ValueError, match="grid"):
+        wavg_ops.wavg_geometry(1, 8, MAX_X * 256 + 1)
+
+
 # ---------------------------------------------------------------------
 # the sketch kernel's arithmetic, emulated on the CPU
 # ---------------------------------------------------------------------
@@ -206,6 +263,34 @@ def test_sass_report_folds_loops():
     assert lines[0].startswith("[sass] _Z13wavg_q_kernelv: 9 instructions")
     assert "3 global loads (3 before the first fp add)" in lines[1]
     assert sass.report({"_Z3foov": insns}, ["wavg_q"]) == []
+
+
+def test_sass_comparison_names_kernels_alike_across_versions():
+    """Two listings of one source name a kernel with different per-file
+    hashes; the comparison matches the kernels by name without them and
+    compares every instruction, predicates included."""
+    from repro_torch.kernels import sass
+
+    def listing(hash_, insns):
+        return "\n".join(
+            [f"\t\tFunction : _ZN45_GLOBAL__N__{hash_}_12_ddal_wavg_cu_"
+             f"3e6f299613wavg_q_kernelILi8ELi4EEEvPKa"]
+            + [f"        /*{16 * k:04x}*/                   {ins} ;"
+               f"  /* 0x000fe20000000f00 */"
+               for k, ins in enumerate(insns)])
+    old = listing("bc6fc148", ["LDC R1, c[0x0][0x28]", "@!P0 LDG.E R2, "
+                               "desc[UR4][R4.64]", "EXIT"])
+    same = listing("21a44289", ["LDC R1, c[0x0][0x28]", "@!P0 LDG.E R2, "
+                                "desc[UR4][R4.64]", "EXIT"])
+    other = listing("21a44289", ["LDC R1, c[0x0][0x28]", "@P0 LDG.E R2, "
+                                 "desc[UR4][R4.64]", "EXIT"])
+    assert list(sass.instructions(old)) == [
+        "_ZN13wavg_q_kernelILi8ELi4EEEvPKa"]
+    assert sass.same_code(same, old, ["wavg_q"])[0].endswith(
+        "the same 3 instructions")
+    assert sass.same_code(other, old, ["wavg_q"])[0].endswith(
+        "different (3 -> 3 instructions)")
+    assert sass.same_code(other, old, ["flash"]) == []
 
 
 def test_ptxas_report_pairs_each_instance_with_its_counts():
