@@ -9,7 +9,7 @@ Phases, each printing its lines:
 2. build every CUDA kernel of the main paths from the sources in this
    checkout (one ``nvcc`` per source, all started together), with the
    registers and spills ptxas reports for each kernel instance (a
-   flash or fp32 share-step instance that spills fails the run);
+   flash, SSD or fp32 share-step instance that spills fails the run);
 3. each kernel against its plain PyTorch version on the card, at the
    shapes of the main paths and at edge cases, with its time beside the
    plain version's, a one-call PyTorch yardstick's and the least time
@@ -18,8 +18,10 @@ Phases, each printing its lines:
    gradient sketch (signs through the kernel bitwise, sketches within
    their gate, two launches bitwise equal, also at the row-block and
    chunk edges), the int8 share step (bitwise, also at m = 1, 5, 33,
-   4096 and n = 1), the SSD intra-chunk dual form (which must refuse
-   inputs that require grad) and the flash attention
+   4096 and n = 1), the SSD intra-chunk dual form (bf16 on the tensor
+   cores at the tile, group and window edges, fp32 on the CUDA cores;
+   each within its gate, two launches bitwise equal, both kernels run;
+   inputs that require grad refused) and the flash attention
    (bf16 on the tensor cores, fp32 on the CUDA cores; each within its
    gate, two launches bitwise equal, with its TFLOP/s over the tiles
    it visits and the blocks per SM of every flash instance);
@@ -41,7 +43,8 @@ Phases, each printing its lines:
 6. a profile of a few main-path epochs of the quickstart group and of
    the fourth run's configuration (the device's busy share, the ops
    that take the time and the host-clock split of an epoch), and of
-   one full-width mamba2-780m prefill and 4 decode steps.
+   one full-width mamba2-780m prefill and 4 decode steps (the SSD
+   library's kernels' share of the prefill).
 
 It prints one JSON line of per-kernel numbers (``launches`` is the
 count of the first path that drives the kernel, ``launches_by_path``
@@ -72,6 +75,26 @@ EPOCHS = 300                           # of each main-path run
 SKETCH_DIM, QUANT_BLOCK = 256, 128      # the fourth main-path run's
 SOURCES = ("ddal_wavg", "grad_sketch", "ssd_scan", "flash_attention")
 SSD_GATE = 1e-5        # × Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|, per element
+# bf16 SSD cases at the edges of the kernel's 64-row tiles, its windows of
+# 4 column tiles for dt and cs (l > 256), its 16-byte copies (p, n not
+# multiples of 8), and its head sets (g > 1 with several sets per group;
+# every instance, 1, 2 and 3 heads a block): (label, (b, nc, l, h, p, n, g))
+SSD_BF16_EDGES = [
+    ("l = 1", (1, 2, 1, 4, 64, 128, 1)),
+    ("l = 63", (1, 2, 63, 4, 64, 128, 1)),
+    ("l = 65", (1, 2, 65, 4, 64, 128, 1)),
+    ("l = 100, p = 40, n = 48, 3 groups", (1, 3, 100, 6, 40, 48, 3)),
+    ("p = 1, n = 16", (1, 2, 256, 4, 1, 16, 1)),
+    ("n = 100, p = 40, 2 groups", (1, 2, 256, 4, 40, 100, 2)),
+    ("l = 129, p = 33, n = 24, 3 groups", (1, 1, 129, 18, 33, 24, 3)),
+    ("l = 300: two windows, 2 groups", (1, 1, 300, 4, 64, 128, 2)),
+    ("l = 600: three windows", (1, 1, 600, 2, 64, 64, 1)),
+    ("2 groups of 6 heads", (4, 8, 256, 12, 64, 128, 2)),
+    ("3 groups of 12 heads", (2, 8, 256, 36, 64, 128, 3)),
+    ("3 groups of 4 heads", (8, 8, 256, 12, 64, 128, 3)),
+    ("48 heads, two waves", (4, 16, 256, 48, 64, 128, 1)),
+    ("l = 300, 3 heads a block: two windows", (16, 8, 300, 6, 64, 128, 2)),
+    ("l = 600, 2 heads a block: three windows", (16, 8, 600, 4, 64, 64, 1))]
 # the serving path: mamba2-780m at its published widths and depth
 SERVE_ARGV = ["--arch", "mamba2-780m", "--full", "--serve", "engine=batch",
               "--serve", "slots=2", "--requests", "4", "--prompt-len",
@@ -190,6 +213,12 @@ def build_phase():
                                           in fp32),
                   f"ddal_wavg: ptxas reports spills or not the 10 fp32 "
                   f"instances (fused / wavg x 5 geometries): {fp32}")
+        if name == "ssd_scan":
+            check(len(report) == 4 and all(st == ld == 0 for _, _, st, ld
+                                           in report),
+                  f"ssd_scan: ptxas reports spills or not the 4 instances "
+                  f"(fp32 CUDA cores, bf16 tensor cores x 1, 2, 3 heads a "
+                  f"block): {report}")
         if name == "flash_attention":
             check(len(report) == 8 and all(st == ld == 0 for _, _, st, ld
                                            in report),
@@ -225,6 +254,27 @@ def time_ms(torch, fn, iters):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters, host_s * 1e3
+
+
+def time_cold_ms(torch, fn, iters):
+    """Device ms of one call that finds the L2 cache cold: a 256 MiB
+    write (five times the H100's 50 MB L2) before each call, and CUDA
+    events around the call alone, averaged over ``iters`` calls."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    del flush
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
 def bound(n, m, p, fused):
@@ -554,6 +604,14 @@ def wavg_q_phase(torch):
     return row
 
 
+def ssd_instance(dtype, heads):
+    """The name ptxas reports for the SSD kernel instance that takes
+    ``dtype`` inputs with ``heads`` heads per block."""
+    if str(dtype) == "torch.float32":
+        return "fp32::ssd_chunk_fp32_kernel"
+    return f"tc::ssd_chunk_bf16_mma_kernel<{heads}>"
+
+
 def _ssd_case(torch, seed, b, nc, l, h, p, n, g, dtype, pad=0):
     """Chunked SSD inputs on the card, drawn as the reference's kernel
     test draws them (x, B, C normal, dt = softplus(normal), A =
@@ -576,39 +634,51 @@ def _ssd_case(torch, seed, b, nc, l, h, p, n, g, dtype, pad=0):
     return [xc.to(dtype), dtc, cs, Bc.to(dtype), Cc.to(dtype)]
 
 
-def ssd_bound(bn, l, h, p, n, g, esize):
+def ssd_bound(bn, l, h, p, n, g, esize, split_sx=True):
     """Least time (ms), the larger of operations and bytes, and which
     one it is. Over the l(l+1)/2 causal (i, j) pairs of a chunk: the
     score C_i·B_j, 2n operations once per (chunk, group), since B and C
-    are shared by the heads of a group; per (chunk, head) the decay
-    exp(cs_i − cs_j) and its product with the score (3) and the product
-    with x_j (2p), plus l·p to fold dt_j into x_j. With bf16 B and C the
-    score runs at the bf16 tensor-core rate (bf16 products are exact in
-    fp32, and the sums stay fp32), with fp32 ones at the fp32 rate (tf32
-    would round them); the rest is fp32 at the fp32 rate, since S·x
-    takes fp32 scores. Bytes: each input read once, the fp32 output
-    written once, at the HBM rate."""
+    are shared by the heads of a group; per (chunk, head) the product
+    with x_j (2p), and the decay exp(cs_i − cs_j) and its products (3),
+    plus l·p to fold dt_j into x_j. With bf16 inputs the score is one
+    bf16 product (bf16 products are exact in fp32, the sums stay fp32)
+    and S·x two, S_hi·x + S_lo·x (S is fp32 in the reference, and one
+    bf16 S leaves the gate), at the bf16 tensor-core rate; the decay at
+    the fp32 rate. ``split_sx=False`` prices a bf16 S·x at the fp32
+    rate instead, the pricing of an S·x on the CUDA cores. With fp32
+    inputs everything runs at the fp32 rate (TF32 would round them).
+    Bytes: each input read once, the fp32 output written once, at the
+    HBM rate."""
     pairs = l * (l + 1) // 2
     score = bn * g * pairs * 2 * n
-    rest = bn * h * (pairs * (3 + 2 * p) + l * p)
-    score_rate = BF16_FLOP_PER_S if esize == 2 else FP32_FLOP_PER_S
+    sx = bn * h * pairs * 2 * p
+    decay = bn * h * (pairs * 3 + l * p)
     nbytes = (bn * l * h * p * esize + 2 * bn * l * g * n * esize
               + 2 * bn * l * h * 4 + bn * l * h * p * 4)
-    ops_ms = (score / score_rate + rest / FP32_FLOP_PER_S) * 1e3
+    if esize == 2 and split_sx:
+        ops_ms = ((score + 2 * sx) / BF16_FLOP_PER_S
+                  + decay / FP32_FLOP_PER_S) * 1e3
+    elif esize == 2:
+        ops_ms = (score / BF16_FLOP_PER_S
+                  + (sx + decay) / FP32_FLOP_PER_S) * 1e3
+    else:
+        ops_ms = (score + sx + decay) / FP32_FLOP_PER_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
 
 
-def ssd_kernel_phase(torch):
-    """The SSD intra-chunk kernel against its plain version: the
+def ssd_kernel_phase(torch, built):
+    """The SSD intra-chunk kernels against their plain version: the
     reference's three test shapes within its rtol = atol = 2e-5; the
-    main path's shape in fp32 and bf16, ragged shapes and a dt = 0
-    padded chunk within SSD_GATE · Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|
-    per element (the plain version on |x|, |B|, |C|: the sum of the
-    absolute values of the terms both add, in other orders); every case
-    launched twice, bitwise equal. Returns the numbers at the main
-    path's (bn, h, l, p, n) = (8, 48, 256, 64, 128) in bf16."""
+    main path's shape in fp32 and bf16, ragged shapes, a dt = 0 padded
+    chunk and the bf16 kernel's edges (SSD_BF16_EDGES) within SSD_GATE ·
+    Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp| per element (the plain version on
+    |x|, |B|, |C|: the sum of the absolute values of the terms both add,
+    in other orders); every case launched twice, bitwise equal; every
+    kernel instance ptxas reported (``built``) run. Returns the numbers
+    at the main path's (bn, h, l, p, n) = (8, 48, 256, 64, 128) in
+    bf16."""
     from repro_torch.configs.base import NotPortedError
     from repro_torch.kernels.ssd_scan import ops, ref
     f32, bf16 = torch.float32, torch.bfloat16
@@ -651,8 +721,13 @@ def ssd_kernel_phase(torch):
                                                    1), bf16, 70, False,
               False),
              ("ragged l, p, n; 3 groups", (1, 3, 100, 6, 40, 48, 3), f32,
-              0, False, False)]
-    row = {}
+              0, False, False),
+             ("dt = 0 padding at the main path's shape", (2, 4, 256, 48, 64,
+                                                         128, 1), bf16, 70,
+              False, False)] + [
+        (f"bf16 {label}", shape, bf16, 0, False, False)
+        for label, shape in SSD_BF16_EDGES]
+    row, instances_run = {}, set()
     for seed, (label, shape, dtype, pad, ref_gate, timed) in enumerate(
             cases):
         b, nc, l, h, p, n, g = shape
@@ -672,10 +747,14 @@ def ssd_kernel_phase(torch):
         if pad:
             ok = ok and not bool(got[:, :, l - pad:].any())
         err = float(diff.max())
+        geo = ops.ssd_geometry(b * nc, l, h, g, dtype)
+        instances_run.add(ssd_instance(dtype, geo.heads))
+        gx, gy, gz = geo.grid
         print(f"[kernel] ssd_intra_chunk {label} (b·nc, h, l, p, n, g) = "
-              f"({b * nc}, {h}, {l}, {p}, {n}, {g}) {str(dtype)[6:]}: max "
-              f"abs {err:.3e}, worst share of the {SSD_GATE:g}·Σ|terms| "
-              f"gate {share:.4f}"
+              f"({b * nc}, {h}, {l}, {p}, {n}, {g}) {str(dtype)[6:]}, "
+              f"{ssd_instance(dtype, geo.heads)} grid {gx} x {gy} x {gz}: "
+              f"max abs {err:.3e}, worst share of the "
+              f"{SSD_GATE:g}·Σ|terms| gate {share:.4f}"
               f"{', reference gate rtol=atol=2e-5' if ref_gate else ''}"
               f"{', padded rows exactly 0' if pad else ''}, two launches "
               f"bitwise {bitwise} -> {'ok' if ok else 'FAIL'}")
@@ -703,21 +782,41 @@ def ssd_kernel_phase(torch):
         lib_ms, lib_host = time_ms(
             torch, lambda: torch.matmul(torch.matmul(Ch, BhT) * M, Xh), 50)
         del Ch, BhT, Xh, M
-        b_ms, b_by = ssd_bound(bn, l, h, p, n, g, xc.element_size())
-        score_rate = ("989 TFLOP/s bf16" if xc.element_size() == 2
-                      else "67 TFLOP/s fp32")
+        esize = xc.element_size()
+        b_ms, b_by = ssd_bound(bn, l, h, p, n, g, esize)
+        if esize == 2:
+            cold = time_cold_ms(torch, lambda: ops.ssd_intra_chunk(*args),
+                                50)
+            old_ms, old_by = ssd_bound(bn, l, h, p, n, g, esize,
+                                       split_sx=False)
+            pricing = (f"C·Bᵀ once per (chunk, group) and S_hi·x + S_lo·x "
+                       f"at 989 TFLOP/s bf16, the decay at 67 TFLOP/s "
+                       f"fp32; priced with S·x at the fp32 rate, as for the "
+                       f"CUDA-core kernel: {old_ms:.5f} ms, {old_by}); with "
+                       f"the L2 flushed before each launch {cold:.5f} ms "
+                       f"({b_ms / cold:.1%} of the bound")
+        else:
+            pricing = "every product at 67 TFLOP/s fp32"
         print(f"[kernel] ssd_intra_chunk {label}: device {ms:.5f} ms "
               f"({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, {b_by}: on the "
-              f"causal half, C·Bᵀ once per (chunk, group) at "
-              f"{score_rate}, decay and S·x per (chunk, head) at 67 "
-              f"TFLOP/s fp32), plain {plain_ms:.5f} ms, the plain "
+              f"causal half, {pricing}), plain {plain_ms:.5f} ms, the plain "
               f"version's two torch.matmuls per head, fp32, mask built "
-              f"outside the timing {lib_ms:.5f} ms; host per call: kernel "
-              f"{host:.5f} ms, plain {plain_host:.5f} ms, matmuls "
-              f"{lib_host:.5f} ms")
+              f"outside the timing {lib_ms:.5f} ms ({ms / lib_ms:.2f}x); "
+              f"host per call: kernel {host:.5f} ms, plain "
+              f"{plain_host:.5f} ms, matmuls {lib_host:.5f} ms")
         if not row:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    per_sm = {k: ops.blocks_per_sm(k) for k in range(1, ops.MAX_HEADS + 1)}
+    print(f"[kernel] ssd_intra_chunk instances run: "
+          f"{sorted(instances_run)}; bf16 blocks one SM holds, by heads a "
+          f"block: {per_sm}")
+    check(instances_run == built,
+          f"not every SSD kernel instance was held against the plain "
+          f"version: ran {sorted(instances_run)}, built {sorted(built)}")
+    check(all(per_sm[k] >= ops.BLOCKS_PER_SM[k] for k in per_sm),
+          f"an SM holds fewer bf16 SSD blocks than ssd_geometry plans "
+          f"({ops.BLOCKS_PER_SM}): {per_sm}")
     return row
 
 
@@ -1088,7 +1187,7 @@ def profile_phase(torch):
         rows.sort(key=lambda r: -r[2])
         ours = [(r[0][:40], r[1], round(r[2]), round(r[3])) for r in rows
                 if "wavg_kernel" in r[0] or "wavg_q_kernel" in r[0]
-                or "sketch_" in r[0] or "ssd_chunk_kernel" in r[0]]
+                or "sketch_" in r[0] or "ssd_chunk_" in r[0]]
 
         def wall_of(fn, reps=10):
             torch.cuda.synchronize()
@@ -1365,14 +1464,17 @@ def equiv_score_phase(torch, cut):
     check(ok, "card and CPU scoring paths disagree")
 
 
-def profile_serve_phase(torch, prompts):
+def profile_serve_phase(torch, prompts, ssd_kernels):
     """The device's busy share and the ops that take the time at full
     width, after a warm-up: one prefill of the first [serve] batch in
-    one profiler window, 4 decode steps in another; then the same split
-    on the host clock with the profiler off."""
+    one profiler window, with the time of every kernel of the SSD
+    library (``ssd_kernels``: the instances ptxas reported when it was
+    built), 4 decode steps in another; then the same split on the host
+    clock with the profiler off."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_arch_config
+    from repro_torch.kernels.cuda_build import short_name
     from repro_torch.models import get_model
     from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
 
@@ -1408,12 +1510,19 @@ def profile_serve_phase(torch, prompts):
                          getattr(ev, "cuda_time_total", 0.0)),
                  getattr(ev, "self_cpu_time_total", 0.0))
                 for ev in prof.key_averages()]
-        ssd_us = sum(r[2] for r in rows if "ssd_chunk_kernel" in r[0])
+        ssd = [r for r in rows if short_name(r[0]) in ssd_kernels]
+        ssd_us = sum(r[2] for r in ssd)
         print(f"[profile] serve mamba2-780m {label}, batch of "
               f"{toks.shape[0]} x {toks.shape[1]} prompt tokens: wall "
               f"{wall * 1e3:.1f} ms, device busy {busy_us / 1e3:.2f} ms "
               f"({busy_us / (wall * 1e6):.1%}), {len(kernels)} device "
-              f"kernels, ssd_chunk_kernel {ssd_us / 1e3:.3f} ms")
+              f"kernels, the SSD library's kernels {ssd_us / 1e3:.3f} ms "
+              f"({ssd_us / max(busy_us, 1e-9):.1%} of the busy time) in "
+              f"{sum(r[1] for r in ssd)} calls of "
+              f"{sorted(short_name(r[0]) for r in ssd)}")
+        if label == "prefill":
+            check(bool(ssd), f"no kernel of the SSD library in the prefill "
+                             f"profile (its kernels: {sorted(ssd_kernels)})")
         for what, col in (("device", 2), ("self host", 3)):
             for key, count, dev_us, cpu_us in sorted(
                     rows, key=lambda r: -r[col])[:6]:
@@ -1509,7 +1618,8 @@ def main() -> int:
         table = kernel_phase(torch)
         table["grad_sketch"] = sketch_phase(torch)
         table["ddal_fused_wavg_q"] = wavg_q_phase(torch)
-        table["ssd_intra_chunk"] = ssd_kernel_phase(torch)
+        table["ssd_intra_chunk"] = ssd_kernel_phase(torch,
+                                                    instances["ssd_scan"])
         table["flash_attention"] = flash_kernel_phase(torch)
         launches = main_path_phase(torch)
         serve_launches, prompts = serve_phase(torch, SERVE_ARGV,
@@ -1535,7 +1645,7 @@ def main() -> int:
         equiv_serve_phase(torch, LLAMA, prompts, cut)
         del cut
         profile_phase(torch)
-        profile_serve_phase(torch, prompts)
+        profile_serve_phase(torch, prompts, instances["ssd_scan"])
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,5 +1,5 @@
-"""Two checkouts' share-step and sketch kernels, timed in turns on one
-card.
+"""Two checkouts' share-step, sketch and SSD kernels, timed in turns on
+one card.
 
     python src/repro_torch/kernels/kernel_ab.py --old DIR --new DIR
 
@@ -14,8 +14,13 @@ the big ragged plane (16, 8, 2^20 + 37); the gradient sketch
 (``sketch_flat``) at the main path's (8, 9155, 256) and on the
 LLM-scale plane (16, 2^22 + 37, 256); both fp32 share steps
 (``fused_wavg`` and ``wavg``) at (2, 32, 9155), (8, 32, 9155) and on the
-big ragged plane (16, 8, 2^20 + 37); and the yardsticks (``einsum``,
-over dequantised planes for int8, and ``matmul(G, S)``).
+big ragged plane (16, 8, 2^20 + 37); the SSD intra-chunk kernel at
+mamba2-780m's prefill shape (b, nc, l, h, p, n, g) = (2, 4, 256, 48,
+64, 128, 1), in bf16 and in fp32, from the checkout's own
+``chip_smoke._ssd_case``; and the yardsticks (``einsum``, over
+dequantised planes for int8, ``matmul(G, S)``, and for the SSD the
+plain version's two fp32 ``torch.matmul``s per head with the mask
+built outside the timing).
 The inputs come from seeded ``torch.Generator``s, so both checkouts
 time the same data. Needs a CUDA card.
 """
@@ -38,6 +43,7 @@ def worker(root: Path) -> dict:
     from repro_torch.common.pytree import PlaneLayout
     from repro_torch.kernels.ddal_wavg import ops as wops, ref as wref
     from repro_torch.kernels.grad_sketch import ops as sops, ref as sref
+    from repro_torch.kernels.ssd_scan import ops as dops, ref as dref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
@@ -83,7 +89,35 @@ def worker(root: Path) -> dict:
         out[f"fp32 {label} einsum"] = smoke.time_ms(
             torch, lambda: torch.einsum("nm,nmp->np", w, G), iters)[0]
         del G
+    shape = (2, 4, 256, 48, 64, 128, 1)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = smoke._ssd_case(torch, 3, *shape, dtype)
+        out[f"ssd {str(dtype)[6:]} {shape}"] = smoke.time_ms(
+            torch, lambda: dops.ssd_intra_chunk(*args), 50)[0]
+    yard = _ssd_matmuls(torch, dref, args)
+    out[f"ssd {shape} two matmuls"] = smoke.time_ms(torch, yard, 50)[0]
     return out
+
+
+def _ssd_matmuls(torch, ref, args):
+    """The plain SSD's two matmuls per head, fp32, with the operands laid
+    out and the mask L·dt built here, outside the timing."""
+    xc, dtc, cs, Bc, Cc = args
+    b, nc, l, h, p = xc.shape
+    bn = b * nc
+
+    def per_head(t):
+        return ref.heads_of(t, h).float().movedim(3, 2).reshape(
+            bn, h, l, t.shape[-1])
+
+    Ch = per_head(Cc).contiguous()
+    BhT = per_head(Bc).transpose(-1, -2).contiguous()
+    Xh = per_head(xc).contiguous()
+    csh = cs.movedim(3, 2).reshape(bn, h, l)
+    L = torch.where(torch.ones(l, l, dtype=torch.bool, device="cuda").tril(),
+                    torch.exp(csh[..., :, None] - csh[..., None, :]), 0.0)
+    M = L * dtc.movedim(3, 2).reshape(bn, h, l)[..., None, :]
+    return lambda: torch.matmul(torch.matmul(Ch, BhT) * M, Xh)
 
 
 def main(argv=None) -> int:

@@ -15,13 +15,30 @@ B and C may carry g groups instead of h heads (g dividing h): the
 kernel then reads head k's projections from group k // (h / g), and
 the plain version repeats them onto the heads first, the copy the
 reference makes with ``jnp.repeat`` — the same values either way.
-The kernel reads x, B and C in fp32 or bf16 (the three in one dtype)
-and widens them to fp32; dt and cs are fp32.
+x, B and C come in fp32 or bf16 (the three in one dtype); dt and cs
+are fp32. On the card the dtype picks the kernel of
+``csrc/ssd_scan.cu``, and nothing falls back from one to the other:
+
+- **bf16** takes the tensor-core kernel: C·Bᵀ by bf16 ``mma.sync``
+  into fp32, per column tile once for a block's 1 to 3 heads (all in
+  one group), kept in registers; per head S = (C·Bᵀ)·exp(cs_i −
+  cs_j)·dt_j in fp32, then S·x as two bf16 products, S_hi·x + S_lo·x
+  with S_hi = bf16(S) and S_lo = bf16(S − S_hi) (one bf16 S leaves the
+  1e-5·Σ|terms| gate ~120-fold). Its ``cp.async`` copies need x, B
+  and C 16-byte aligned (``data_ptr``); every tensor the model builds
+  is, and one that is not raises ``ValueError``.
+- **fp32** takes the CUDA-core kernel (IEEE fp32 FMAs): the tensor
+  cores would round fp32 inputs to TF32.
+
+The launch geometry (``ssd_geometry``) is computed here, where the
+CPU tests can hold it, and the kernel refuses one that does not cover
+every (chunk, row tile, head) once.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -29,8 +46,51 @@ from repro_torch.configs.base import NotPortedError
 from repro_torch.kernels.ssd_scan import ref
 
 MAX_P = 64                   # the kernel's output tile is 64 columns wide
-MAX_BN = 65535               # grid z
+MAX_BN = 65535               # grid y (heads) and z (chunks)
+TILE = 64                    # rows and columns of a tile, both kernels
+MAX_HEADS = 3                # bf16 heads per block (tc::MAX_HB)
+SMS = 132                    # H100 SXM
+# bf16 blocks of each head count that one SM holds (registers and shared
+# memory; chip_smoke.py checks them on the card)
+BLOCKS_PER_SM = {1: 3, 2: 3, 3: 2}
+ALIGN = 16                   # bytes, for the bf16 kernel's cp.async
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+class SsdGeometry(NamedTuple):
+    heads: int                       # heads per block, all in one group
+    grid: Tuple[int, int, int]       # (x, y, z) blocks
+
+
+def ssd_geometry(bn: int, l: int, h: int, g: int,
+                 dtype: torch.dtype) -> SsdGeometry:
+    """fp32: one block per (row tile, head, chunk). bf16: one block per
+    (pair of row tiles it and tiles − 1 − it, set of heads, chunk), so
+    every block walks tiles + 1 column tiles (an odd count leaves the
+    middle tile alone). The heads per block (at most ``MAX_HEADS``)
+    divide h / g, so a set never straddles a group: the most whose grid
+    has a block for each of the ``SMS`` SMs and fits in one wave of
+    ``BLOCKS_PER_SM`` blocks on each (C·Bᵀ is formed once per block and
+    shared by its heads); a grid too small to fill the SMs takes one
+    head a block, one past a wave whatever the heads the most. A grid
+    past CUDA's limits raises ``ValueError``."""
+    if not (1 <= bn <= MAX_BN and 1 <= h <= MAX_BN and l >= 1 and g >= 1
+            and h % g == 0):
+        raise ValueError(f"no grid for (b·nc, l, h, g) = {(bn, l, h, g)}: "
+                         f"the kernel takes 1 <= b·nc <= {MAX_BN}, l >= 1, "
+                         f"h <= {MAX_BN} and g dividing h")
+    tiles = -(-l // TILE)
+    if dtype == torch.float32:
+        return SsdGeometry(1, (tiles, h, bn))
+    pairs = -(-tiles // 2)
+    sizes = [k for k in range(1, MAX_HEADS + 1) if (h // g) % k == 0]
+    fill = [k for k in sizes
+            if SMS <= bn * pairs * (h // k) <= SMS * BLOCKS_PER_SM[k]]
+    if fill:
+        heads = fill[-1]
+    else:
+        heads = 1 if bn * pairs * h < SMS else sizes[-1]
+    return SsdGeometry(heads, (pairs, h // heads, bn))
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,9 +100,10 @@ def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import cuda_build
     lib, _ = cuda_build.load("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_intra_chunk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
-                                    i, p]
+    lib.ssd_intra_chunk.argtypes = [p] * 6 + [i] * 11 + [p]
     lib.ssd_intra_chunk.restype = i
+    lib.ssd_bf16_blocks_per_sm.argtypes = [i, i, p]
+    lib.ssd_bf16_blocks_per_sm.restype = i
     lib.ssd_scan_error_string.argtypes = [i]
     lib.ssd_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -80,6 +141,13 @@ def _check(xc, dtc, cs, Bc, Cc):
             f"kernel takes 1 <= p <= {MAX_P}, n >= 1, l >= 1, "
             f"1 <= b·nc <= {MAX_BN}, h <= 65535; got (b·nc, l, h, p, n) "
             f"= {(b * nc, l, h, p, n)}")
+    if xc.dtype == torch.bfloat16:
+        for name, t in (("x", xc), ("B", Bc), ("C", Cc)):
+            if t.data_ptr() % ALIGN:
+                raise ValueError(
+                    f"the bf16 kernel needs {name} {ALIGN}-byte aligned "
+                    f"(cp.async): data_ptr % {ALIGN} = "
+                    f"{t.data_ptr() % ALIGN}")
 
 
 def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
@@ -96,20 +164,36 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
     _check(xc, dtc, cs, Bc, Cc)
     b, nc, l, h, p = xc.shape
     g, n = Bc.shape[3], Bc.shape[4]
+    geo = ssd_geometry(b * nc, l, h, g, xc.dtype)
     out = torch.empty((b, nc, l, h, p), dtype=torch.float32,
                       device=xc.device)
     lib = _lib()
     status = lib.ssd_intra_chunk(
         xc.data_ptr(), dtc.data_ptr(), cs.data_ptr(), Bc.data_ptr(),
-        Cc.data_ptr(), out.data_ptr(), b * nc, l, h, g, p, n,
-        _DTYPES[xc.dtype], xc.device.index,
+        Cc.data_ptr(), out.data_ptr(), b * nc, l, h, g, p, n, geo.heads,
+        geo.grid[0], geo.grid[1], _DTYPES[xc.dtype], xc.device.index,
         torch.cuda.current_stream(xc.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(
-            f"ssd_intra_chunk launch failed: "
-            f"{lib.ssd_scan_error_string(status).decode()}")
+    _raise_on(lib, status, "launch")
     ssd_intra_chunk.launches += 1
     return out
 
 
 ssd_intra_chunk.launches = 0
+
+
+def _raise_on(lib, status, what):
+    if status != 0:
+        raise RuntimeError(f"ssd_intra_chunk {what} failed: "
+                           f"{lib.ssd_scan_error_string(status).decode()}")
+
+
+def blocks_per_sm(heads: int, device: int = 0) -> int:
+    """Blocks of the bf16 kernel with ``heads`` heads per block that one
+    SM of card ``device`` holds at once (registers, shared memory and
+    threads)."""
+    lib = _lib()
+    blocks = ctypes.c_int(0)
+    _raise_on(lib, lib.ssd_bf16_blocks_per_sm(heads, device,
+                                              ctypes.byref(blocks)),
+              "occupancy query")
+    return blocks.value

@@ -1,10 +1,13 @@
 """The launch geometry of the gradient-sketch, fp32 and int8 share-step
-kernels, which their wrappers compute in Python
+and SSD kernels, which their wrappers compute in Python
 (``grad_sketch.ops.sketch_geometry``, ``ddal_wavg.ops.wavg_geometry``,
-``ddal_wavg.ops.wavg_q_geometry``) and pass to the CUDA entry points, held here on the CPU: every position
-falls in exactly one chunk or block, in order; the main path's grids
-hold at least two blocks per SM of the H100 (132 SMs); every grid stays
-within CUDA's limits. Also on the CPU: the sketch kernel's sign
+``ddal_wavg.ops.wavg_q_geometry``, ``ssd_scan.ops.ssd_geometry``) and
+pass to the CUDA entry points, held here on the CPU: every position
+falls in exactly one chunk or block, in order, and every (chunk, row
+tile, head) of the SSD in exactly one block, whose heads share a group;
+the main path's grids hold at least two blocks per SM of the H100 (132
+SMs; the SSD's at least one, in one wave); every grid stays within
+CUDA's limits. Also on the CPU: the sketch kernel's sign
 shortcut against the reference's hash, bitwise, and the kernel's order
 of adds (chunks, then a strided sum and a fixed tree) against the plain
 version within the sketch's gate.
@@ -22,6 +25,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.ddal_wavg import ops as wavg_ops  # noqa: E402
 from repro_torch.kernels.grad_sketch import ops, ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 
 SMS = 132
 MAX_X, MAX_YZ, MAX_THREADS = 2 ** 31 - 1, 65535, 1024
@@ -307,3 +311,84 @@ def test_ptxas_report_pairs_each_instance_with_its_counts():
     (first, *rest), second = cuda_build.ptxas_report(log)
     assert "wavg_q_kernel" in first and rest == [96, 24, 28]
     assert second[1:] == (40, 0, 0)
+
+
+# (b·nc, l, h, g): the serving path, the edge cases of the card's checks,
+# grids that take 1, 2 and 3 heads per bf16 block
+SSD_SHAPES = [(8, 256, 48, 1), (8, 1, 2, 1), (8, 63, 4, 1), (3, 65, 4, 2),
+              (3, 100, 6, 3), (2, 300, 8, 2), (32, 256, 12, 2),
+              (64, 256, 12, 3), (16, 256, 48, 1), (64, 256, 48, 1),
+              (4, 256, 48, 1), (1, 1024, 24, 1), (9, 129, 18, 3),
+              (ssd_ops.MAX_BN, 64, 2, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bn,l,h,g", SSD_SHAPES)
+def test_ssd_geometry_covers_each_chunk_row_tile_and_head_once(bn, l, h, g,
+                                                               dtype):
+    """Each block (x, y, z) owns row tiles x and tiles − 1 − x (bf16;
+    fp32: x alone), heads y·hb .. y·hb + hb − 1 and chunk z: together
+    every (chunk, row tile, head) once, no head set across a group."""
+    geo = ssd_ops.ssd_geometry(bn, l, h, g, dtype)
+    x, y, z = geo.grid
+    tiles = -(-l // ssd_ops.TILE)
+    assert z == bn and y * geo.heads == h and 1 <= y <= MAX_YZ
+    assert 1 <= geo.heads <= ssd_ops.MAX_HEADS and (h // g) % geo.heads == 0
+    heads_of = [range(b * geo.heads, (b + 1) * geo.heads) for b in range(y)]
+    assert all(len({k // (h // g) for k in hs}) == 1 for hs in heads_of)
+    if dtype == torch.float32:
+        assert geo.heads == 1 and x == tiles
+        rows_of = [{b} for b in range(x)]
+    else:
+        assert x == -(-tiles // 2)
+        rows_of = [{b, tiles - 1 - b} for b in range(x)]
+        # every block walks tiles + 1 column tiles, but the middle row
+        # tile of an odd count, alone in the last block
+        for b, rows in enumerate(rows_of):
+            alone = tiles % 2 == 1 and b == x - 1
+            assert sum(it + 1 for it in rows) == (tiles // 2 + 1 if alone
+                                                  else tiles + 1)
+    count = np.zeros((min(z, 3), tiles, h), dtype=int)
+    for bz in range(min(z, 3)):
+        for bx in range(x):
+            for by in range(y):
+                for it in rows_of[bx]:
+                    count[bz, it, list(heads_of[by])] += 1
+    assert (count == 1).all()
+
+
+def test_ssd_main_path_grid_fills_the_card_in_one_wave():
+    """mamba2-780m's prefill, (b·nc, l, h, g) = (8, 256, 48, 1): 3 heads
+    a block, 256 blocks of 5 column tiles each, at least one per SM and
+    within the two an SM holds; the fp32 grid is (row tile, head,
+    chunk)."""
+    geo = ssd_ops.ssd_geometry(8, 256, 48, 1, torch.bfloat16)
+    x, y, z = geo.grid
+    assert geo == (3, (2, 16, 8))
+    assert SMS <= x * y * z <= ssd_ops.BLOCKS_PER_SM[3] * SMS
+    assert ssd_ops.ssd_geometry(8, 256, 48, 1, torch.float32) == (
+        1, (4, 48, 8))
+
+
+@pytest.mark.parametrize("bn,h,g,heads", [
+    (8, 48, 1, 3),           # the main path: 3 heads fill one wave
+    (2, 48, 1, 1),           # 3 heads would leave SMs idle
+    (1, 4, 1, 1),            # too small to fill the card at all
+    (64, 48, 1, 3),          # past one wave whatever the heads
+    (64, 12, 3, 2),          # groups of 4 heads: 3 do not divide them
+    (32, 12, 2, 3)])
+def test_ssd_heads_per_block(bn, h, g, heads):
+    """The most heads a block whose grid fills the SMs within one wave;
+    a grid too small for that takes one head, one past a wave the most
+    that divide the group."""
+    assert ssd_ops.ssd_geometry(bn, 256, h, g, torch.bfloat16).heads == heads
+
+
+@pytest.mark.parametrize("bn,l,h,g", [(ssd_ops.MAX_BN + 1, 256, 48, 1),
+                                      (1, 256, ssd_ops.MAX_BN + 1, 1),
+                                      (0, 256, 48, 1), (8, 0, 48, 1),
+                                      (8, 256, 48, 5)])
+def test_ssd_geometry_refuses_a_grid_past_cuda_limits(bn, l, h, g):
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="grid"):
+            ssd_ops.ssd_geometry(bn, l, h, g, dtype)

@@ -6,7 +6,10 @@
 The plain version is held to the Pallas kernel (run in interpret mode,
 as ``tests/test_kernels.py`` runs it) and to the reference's oracle at
 the reference's three test shapes, with the reference's own rtol =
-atol = 2e-5. ``ssd_chunked`` carries the chunk states from chunk to
+atol = 2e-5. The bf16 kernel's tensor-core arithmetic (C·Bᵀ from bf16
+values, S split into bf16 hi and lo terms) is emulated step by step and
+held within the 1e-5·Σ|terms| gate the card is held to, and one bf16
+rounding of S shown to leave it. ``ssd_chunked`` carries the chunk states from chunk to
 chunk in a sequential loop where the reference runs
 ``lax.associative_scan``, the same products and sums in another fp32
 order: its outputs and final states are held at rtol = atol = 2e-4,
@@ -131,6 +134,97 @@ def test_kernel_argument_checks(change, match):
     args = _torch(*chunk_inputs(2, 1, 1, 32, 4, 16, 16))
     with pytest.raises(ValueError, match=match):
         ops._check(*change(list(args)))
+
+
+GATE = 1e-5      # × Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|, as chip_smoke.py
+
+
+def tensor_core_emulation(xc, dtc, cs, Bc, Cc, terms=2):
+    """The bf16 kernel's arithmetic on the CPU, step by step: C·Bᵀ from
+    the bf16 values, 16 state dims per m16n8k16 step (the products
+    exact, each step's sum added to an fp32 accumulator); S = (C·Bᵀ ·
+    exp(cs_i − cs_j)) · dt_j in fp32 on j ≤ i, 0 above; S split into
+    ``terms`` bf16 parts (S_hi, S_lo, ...); per 16-column step, each
+    part's product with x added to the fp32 accumulator in turn."""
+    f32, f64 = torch.float32, torch.float64
+    h, n = xc.shape[3], Bc.shape[4]
+    l = cs.shape[2]
+    Ch = ref.heads_of(Cc, h).to(f64).movedim(3, 2)       # (b,nc,h,l,n)
+    Bh = ref.heads_of(Bc, h).to(f64).movedim(3, 2)
+    cb = torch.zeros(Ch.shape[:3] + (l, l), dtype=f32)
+    for k in range(0, n, 16):
+        cb = (cb + Ch[..., k:k + 16] @ Bh[..., k:k + 16].transpose(-1, -2)
+              ).to(f32)
+    csh = cs.movedim(3, 2)
+    s = (cb * torch.exp(csh[..., :, None] - csh[..., None, :])
+         ) * torch.movedim(dtc, 3, 2)[..., None, :]
+    s = torch.where(torch.ones(l, l, dtype=torch.bool).tril(), s,
+                    torch.zeros((), dtype=f32))
+    parts = []
+    for _ in range(terms):
+        parts.append(s.to(torch.bfloat16).to(f32))
+        s = s - parts[-1]
+    xh = xc.to(f64).movedim(3, 2)                         # (b,nc,h,l,p)
+    acc = torch.zeros(xh.shape, dtype=f32)
+    for k in range(0, l, 16):
+        for part in parts:
+            acc = (acc + part[..., k:k + 16].to(f64) @ xh[..., k:k + 16, :]
+                   ).to(f32)
+    return acc.movedim(2, 3)
+
+
+def _gate_share(got, args):
+    """Worst |got − plain| / (GATE · Σ|terms|) over the elements."""
+    xc, dtc, cs, Bc, Cc = args
+    want = ref.ssd_intra_chunk(*args)
+    scale = ref.ssd_intra_chunk(xc.abs(), dtc, cs, Bc.abs(), Cc.abs())
+    return float(((got - want).abs() / (GATE * scale)).max())
+
+
+def _bf16(args):
+    return [a.to(torch.bfloat16) if k in (0, 3, 4) else a
+            for k, a in enumerate(args)]
+
+
+# (b, nc, l, h, p, n, g): mamba2-780m's chunk at 8 heads, 3 groups of 2
+# heads, a ragged chunk
+EMULATED = [(1, 1, 256, 8, 64, 128, 1), (1, 2, 256, 6, 64, 128, 3),
+            (1, 1, 100, 4, 40, 48, 2)]
+
+
+@pytest.mark.parametrize("b,nc,l,h,p,n,g", EMULATED)
+def test_tensor_core_arithmetic_is_within_the_gate(b, nc, l, h, p, n, g):
+    """S_hi·x + S_lo·x, as the bf16 kernel computes it, stays within
+    the 1e-5·Σ|terms| gate that chip_smoke.py holds the kernel to."""
+    args = _bf16(_torch(*chunk_inputs(l + g, b, nc, l, h, n, p, g=g)))
+    got = tensor_core_emulation(*args)
+    assert got.shape == (b, nc, l, h, p)
+    assert _gate_share(got, args) <= 1.0
+
+
+def test_one_bf16_rounding_of_the_scores_leaves_the_gate():
+    """The counter-case: S rounded once to bf16 moves outputs far past
+    the gate (~100-fold here), which is why the kernel takes two terms."""
+    args = _bf16(_torch(*chunk_inputs(257, 1, 1, 256, 8, 128, 64, g=1)))
+    assert _gate_share(tensor_core_emulation(*args, terms=1), args) > 10.0
+    assert _gate_share(tensor_core_emulation(*args, terms=2), args) <= 1.0
+
+
+def test_bf16_kernel_needs_16_byte_aligned_inputs():
+    """The bf16 kernel's cp.async copies need x, B and C 16-byte aligned;
+    an input that is not raises (checked on CPU tensors, where the same
+    checks run); fp32 inputs take no such check."""
+    args = _bf16(_torch(*chunk_inputs(2, 1, 1, 32, 4, 16, 16)))
+    ops._check(*args)
+    for k in (0, 3, 4):
+        flat = torch.zeros(args[k].numel() + 1, dtype=torch.bfloat16)
+        moved = list(args)
+        moved[k] = flat[1:].view(args[k].shape)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            ops._check(*moved)
+    fp32 = _torch(*chunk_inputs(2, 1, 1, 32, 4, 16, 16))
+    flat = torch.zeros(fp32[0].numel() + 1)
+    ops._check(flat[1:].view(fp32[0].shape), *fp32[1:])
 
 
 def ssd_inputs(seed, b, s, h, p, g, n):

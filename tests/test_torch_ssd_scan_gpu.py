@@ -9,6 +9,9 @@ runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu \\
         tests/test_torch_ssd_scan_gpu.py
 
+bf16 inputs take the tensor-core kernel, fp32 inputs the CUDA-core
+kernel; both are held here at their edges.
+
 Tolerances. At the reference's test shapes the kernel is held to the
 reference's rtol = atol = 2e-5. Elsewhere each element is held to
 1e-5 · Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|, the sum of the absolute
@@ -117,6 +120,68 @@ def test_kernel_within_gate_and_repeatable(shape, dtype):
     assert got.dtype == torch.float32 and got.shape == (b, nc, l, h, p)
     assert torch.equal(got, again)
     assert _within_gate(got, args)
+
+
+# bf16 at the edges of the tensor-core kernel's 64-row tiles, its windows
+# of 4 column tiles for dt and cs (l > 256), its 16-byte copies (p, n not
+# multiples of 8) and its head sets (every instance, 1, 2 and 3 heads a
+# block; g > 1 with several sets per group): (b, nc, l, h, p, n, g)
+BF16_EDGES = [
+    (1, 2, 1, 4, 64, 128, 1), (1, 2, 63, 4, 64, 128, 1),
+    (1, 2, 65, 4, 64, 128, 1), (1, 3, 100, 6, 40, 48, 3),
+    (1, 2, 256, 4, 1, 16, 1), (1, 2, 256, 4, 40, 100, 2),
+    (1, 1, 129, 18, 33, 24, 3), (1, 1, 300, 4, 64, 128, 2),
+    (1, 1, 600, 2, 64, 64, 1), (4, 8, 256, 12, 64, 128, 2),
+    (2, 8, 256, 36, 64, 128, 3), (8, 8, 256, 12, 64, 128, 3),
+    (4, 16, 256, 48, 64, 128, 1), (16, 8, 300, 6, 64, 128, 2),
+    (16, 8, 600, 4, 64, 64, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", BF16_EDGES)
+def test_bf16_kernel_at_tile_window_and_group_edges(shape):
+    dev = _card()
+    b, nc, l, h, p, n, g = shape
+    args = chunk_inputs(sum(shape), b, nc, l, h, n, p, g=g, device=dev,
+                        dtype=torch.bfloat16)
+    launches = ops.ssd_intra_chunk.launches
+    got = ops.ssd_intra_chunk(*args)
+    again = ops.ssd_intra_chunk(*args)
+    assert ops.ssd_intra_chunk.launches == launches + 2
+    assert got.dtype == torch.float32 and got.shape == (b, nc, l, h, p)
+    assert torch.equal(got, again)
+    assert _within_gate(got, args)
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_on_a_dt_zero_padded_chunk():
+    """As below, in bf16 at mamba2-780m's prefill shape (3 heads a
+    block): the padded rows are exactly 0."""
+    dev = _card()
+    xc, dtc, cs, Bc, Cc = chunk_inputs(12, 2, 4, 256, 48, 128, 64, g=1,
+                                       device=dev)
+    for t in (xc, dtc, Bc, Cc):
+        t[:, :, 186:] = 0
+    cs = torch.cumsum(dtc * -0.5, dim=2)
+    args = [xc.bfloat16(), dtc, cs, Bc.bfloat16(), Cc.bfloat16()]
+    got = ops.ssd_intra_chunk(*args)
+    assert _within_gate(got, args)
+    assert not bool(got[:, :, 186:].any())
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refuses_an_unaligned_input():
+    """cp.async needs x, B and C 16-byte aligned: a view 2 bytes off
+    raises before any launch."""
+    dev = _card()
+    args = chunk_inputs(3, 1, 1, 64, 4, 16, 16, device=dev,
+                        dtype=torch.bfloat16)
+    flat = torch.zeros(args[0].numel() + 1, dtype=torch.bfloat16,
+                       device=dev)
+    launches = ops.ssd_intra_chunk.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.ssd_intra_chunk(flat[1:].view(args[0].shape), *args[1:])
+    assert ops.ssd_intra_chunk.launches == launches
 
 
 @pytest.mark.gpu
