@@ -29,7 +29,10 @@ Phases, each printing its lines:
    the kernels' launch counts zeroed just before it and read just
    after: DDA3C groups at the paper's width (A2C, hidden 64,
    CartPole-v0) trained for a few hundred epochs, the fourth with
-   learned sketched relevance and int8 knowledge planes; mamba2-780m
+   learned sketched relevance and int8 knowledge planes; DDADQN groups
+   (dueling double DQN, hidden 64, P = 8835) through ``make_dqn_group``,
+   n = 2 ``full`` and n = 8 ``ring`` with sketches and int8 planes, each
+   ending with every replay ring above one minibatch; mamba2-780m
    and llama3.2-3b at their published widths and depth served by
    ``repro_torch.launch.serve`` (``[serve]``: 4 requests of up to 1023
    prompt tokens, prefill and 32 greedy tokens each); and llama3.2-3b
@@ -37,12 +40,15 @@ Phases, each printing its lines:
    without a cache (``[score]``: the flash kernel in every layer), with
    a profile of one scoring pass;
 5. the card against the port's CPU path: small DDA3C groups with seeded
-   gradients, fp32 and int8 + learned relevance; the serving paths at
+   gradients, fp32 and int8 + learned relevance; a small DDADQN group
+   with seeded gradients (target syncs included) and ``dqn_loss`` with
+   its gradient on one seeded batch; the serving paths at
    mamba2-780m's and llama3.2-3b's widths cut to 2 layers with fp32
    compute; the llama scoring pass at the same cut;
-6. a profile of a few main-path epochs of the quickstart group and of
-   the fourth run's configuration (the device's busy share, the ops
-   that take the time and the host-clock split of an epoch), and of
+6. a profile of a few main-path epochs of the quickstart group, of
+   the fourth run's configuration and of the DDADQN n = 2 group (the
+   device's busy share, the ops that take the time and the host-clock
+   split of an epoch), and of
    one full-width mamba2-780m prefill and 4 decode steps (the SSD
    library's kernels' share of the prefill).
 
@@ -73,6 +79,7 @@ W_RTOL = 1e-6                          # Σw
 EPOCHS = 300                           # of each main-path run
 
 SKETCH_DIM, QUANT_BLOCK = 256, 128      # the fourth main-path run's
+DQN_EPS_DECAY = 500                     # the DDADQN runs' ε anneal
 SOURCES = ("ddal_wavg", "grad_sketch", "ssd_scan", "flash_attention")
 SSD_GATE = 1e-5        # × Σ_j (|C_i|·|B_j|)·L_ij·dt_j·|x_jp|, per element
 # bf16 SSD cases at the edges of the kernel's 64-row tiles, its windows of
@@ -318,6 +325,7 @@ def kernel_phase(torch):
     from repro_torch.kernels.ddal_wavg import ops, ref
     # (label, n, m, P, invalid pieces, timed)
     cases = [("quickstart share step", 2, 32, 9155, "none", True),
+             ("DDADQN share step", 2, 32, 8835, "none", True),
              ("ring n=8 share step", 8, 32, 9155, "some", True),
              ("big ragged plane", 16, 8, 2 ** 20 + 37, "some", True),
              ("single element", 1, 1, 1, "none", False),
@@ -414,6 +422,16 @@ def _a2c_layout(torch):
     return PlaneLayout.from_tree(tree, lead=1)
 
 
+def _dueling_layout(torch):
+    """DDADQN's dueling network on CartPole (hidden 64): P = 8835 in 10
+    leaves."""
+    from repro_torch.common.pytree import PlaneLayout
+    from repro_torch.rl import networks
+    tree = networks.init_dueling_q(torch.Generator().manual_seed(0), 1, 4,
+                                   2, 64)
+    return PlaneLayout.from_tree(tree, lead=1)
+
+
 def sketch_phase(torch):
     """The gradient-sketch kernel against its plain version: signs
     through the kernel (one-hot rows of G give exact rows of S) bitwise,
@@ -443,6 +461,8 @@ def sketch_phase(torch):
     # (label, n, P, d, offset, seed, reference gate, timed)
     cases = [("main path: n=8 agents' rows", 8, p, SKETCH_DIM, 0, seed,
               False, True),
+             ("DDADQN main path: n=8 agents' dueling rows", 8, 8835,
+              SKETCH_DIM, 0, seed, False, True),
              ("reference test shape", 8, 1024, 128, 11, 7, True, True),
              ("reference test shape", 3, 4097, 256, 11, 7, True, True),
              ("reference test shape", 8, 1000, 128, 11, 7, True, True),
@@ -529,6 +549,9 @@ def wavg_q_phase(torch):
     # (label, layout, n, m, q_block, invalid pieces, timed)
     cases = [("main path: n=8 ring share step, q_block 128", a2c, 8, 32,
               128, "some", True),
+             ("DDADQN main path: n=8 ring share step over the dueling "
+              "layout, q_block 128", _dueling_layout(torch), 8, 32, 128,
+              "some", True),
              ("q_block 1024", a2c, 8, 32, 1024, "some", True),
              ("every piece invalid", a2c, 8, 32, 128, "all", True),
              ("big ragged plane, q_block 128", ragged, 16, 8, 128, "some",
@@ -983,44 +1006,63 @@ SLICE2_SPEC = dict(relevance_mode="grad_cos", relevance_ema=0.9,
                    knowledge_quant_block=QUANT_BLOCK)
 
 
+def _dqn_config():
+    from repro_torch.rl.dqn import DQNConfig
+    return DQNConfig(eps_decay=DQN_EPS_DECAY)
+
+
 def main_path_phase(torch, epochs=EPOCHS):
-    """The DDA3C main path at the paper's width, through the entry
-    points a user calls. Each path's launch counts are zeroed just
-    before its run and read just after; returns {kernel: {path:
-    launches}} over the paths that drive each kernel."""
+    """The main path at the paper's width, through the entry points a
+    user calls: DDA3C (A2C) and DDADQN (dueling double DQN) groups on
+    CartPole-v0. Each path's launch counts are zeroed just before its
+    run and read just after; returns {kernel: {path: launches}} over the
+    paths that drive each kernel."""
     from repro_torch import optim
     from repro_torch.configs.base import GroupSpec
     from repro_torch.core.ddal import DDAL
     from repro_torch.rl.a2c import init_a2c, make_a2c_callbacks, \
         make_a2c_group
+    from repro_torch.rl.dqn import make_dqn_group
     from repro_torch.rl.envs import CartPole
 
     env = CartPole()
     ring = dict(n_agents=8, threshold=epochs // 3, minibatch=50,
                 m_pieces=32, topology="ring", exchange_delay="uniform",
                 max_delay=2)
+    full2 = dict(n_agents=2, threshold=epochs // 3, minibatch=50,
+                 m_pieces=32, topology="full")
+    cfg = _dqn_config()
+
+    def a2c(spec, gen):
+        return make_a2c_group(env, optim.adamw(3e-3), spec, gen)
+
+    def legacy(spec, gen):
+        opt = optim.adamw(3e-3)
+        astates, layout = init_a2c(gen, spec.n_agents, env, opt)
+        ddal = DDAL(spec, *make_a2c_callbacks(env, opt, layout),
+                    use_wavg_kernel=True)
+        return ddal, ddal.init(astates)
+
+    def dqn(spec, gen):
+        return make_dqn_group(env, optim.adamw(1e-3), spec, gen, cfg)
+
+    # (label, spec, epochs, group constructor, P)
     runs = [
-        ("n=2 full", GroupSpec(
-            n_agents=2, threshold=epochs // 3, minibatch=50, m_pieces=32,
-            topology="full"), epochs, False),
-        ("n=8 ring, uniform delay 2", GroupSpec(**ring), epochs, False),
+        ("n=2 full", GroupSpec(**full2), epochs, a2c, 9155),
+        ("n=8 ring, uniform delay 2", GroupSpec(**ring), epochs, a2c, 9155),
         ("n=2 full, legacy wavg", GroupSpec(
             n_agents=2, threshold=epochs // 6, minibatch=25, m_pieces=32,
-            topology="full"), epochs // 2, True),
+            topology="full"), epochs // 2, legacy, 9155),
         ("n=8 ring, uniform delay 2, sketch 256, int8 128",
-         GroupSpec(**ring, **SLICE2_SPEC), epochs, False),
+         GroupSpec(**ring, **SLICE2_SPEC), epochs, a2c, 9155),
+        ("dqn n=2 full", GroupSpec(**full2), epochs, dqn, 8835),
+        ("dqn n=8 ring, uniform delay 2, sketch 256, int8 128",
+         GroupSpec(**ring, **SLICE2_SPEC), epochs, dqn, 8835),
     ]
     by_path = {name: {} for name in KERNELS}
-    for label, spec, n_epochs, legacy in runs:
+    for label, spec, n_epochs, build, p in runs:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        opt = optim.adamw(3e-3)
-        if legacy:
-            astates, layout = init_a2c(gen, spec.n_agents, env, opt)
-            cbs = make_a2c_callbacks(env, opt, layout)
-            ddal = DDAL(spec, *cbs, use_wavg_kernel=True)
-            gs = ddal.init(astates)
-        else:
-            ddal, gs = make_a2c_group(env, opt, spec, gen)
+        ddal, gs = build(spec, gen)
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
@@ -1043,7 +1085,7 @@ def main_path_phase(torch, epochs=EPOCHS):
               + f", mean return {_mean(pre):.2f} before sharing -> "
               f"{_mean(post):.2f} after (last 100: {_mean(ret[-100:]):.2f})"
               f", params {tuple(params.shape)}")
-        if legacy:
+        if build is legacy:
             want = {"ddal_wavg": shares}
         elif spec.knowledge_quant_block:
             want = {"ddal_fused_wavg_q": shares, "grad_sketch": sharing}
@@ -1055,8 +1097,20 @@ def main_path_phase(torch, epochs=EPOCHS):
               f"share steps and {sharing} sharing epochs")
         check(bool(torch.isfinite(ret).all())
               and bool(torch.isfinite(params).all())
-              and params.shape == (spec.n_agents, 9155),
+              and params.shape == (spec.n_agents, p),
               f"{label}: non-finite returns / params or wrong shape")
+        if build is dqn:
+            st = gs.agent_states
+            size = st.replay.size
+            print(f"[main] {label}: replay sizes {size.tolist()} "
+                  f"(minibatch {cfg.batch}), updates {st.step.tolist()}, "
+                  f"ε {float(metrics['epsilon'][-1, 0]):.4f} at the end, "
+                  f"target params finite "
+                  f"{bool(torch.isfinite(st.target_params).all())}")
+            check(bool(torch.isfinite(st.target_params).all())
+                  and bool((size >= cfg.batch).all()),
+                  f"{label}: non-finite target params, or a replay ring "
+                  f"below one minibatch (no real gradient)")
         if spec.relevance_sketch_dim:
             rel = gs.relevance
             off = rel[~torch.eye(spec.n_agents, dtype=torch.bool,
@@ -1145,28 +1199,129 @@ def equivalence_phase(torch):
         check(ok, f"card and CPU paths disagree on a small group: {label}")
 
 
+def _to(x, dev):
+    """A nest of tensors, dicts and NamedTuples moved to ``dev``."""
+    if hasattr(x, "_fields"):
+        return type(x)(*(_to(v, dev) for v in x))
+    if isinstance(x, dict):
+        return {k: _to(v, dev) for k, v in x.items()}
+    return x.to(dev)
+
+
+def dqn_equivalence_phase(torch):
+    """DDADQN, the card against the port's CPU path on the same inputs:
+    a small ring group (n = 4, delay 1, ``target_period=2``, 9 epochs)
+    fed seeded gradients through DQN's ``apply_grads`` and DDAL, with
+    parameters and target parameters within rtol 1e-5 and the stores
+    bitwise; and ``dqn_loss`` with its gradient on one seeded replay
+    batch within rtol 1e-5."""
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.configs.base import GroupSpec
+    from repro_torch.core.ddal import DDAL
+    from repro_torch.rl import dqn
+    from repro_torch.rl.envs import CartPole
+
+    spec = GroupSpec(n_agents=4, threshold=2, minibatch=2, m_pieces=4,
+                     topology="ring", exchange_delay="uniform", max_delay=1)
+    cfg = dqn.DQNConfig(capacity=256, target_period=2)
+    env = CartPole()
+    rng = np.random.default_rng(1)
+    grads = rng.normal(size=(12, 4, 8835)).astype(np.float32)
+    astates, layout = dqn.init_dqn(torch.Generator().manual_seed(0), 4, env,
+                                   optim.adamw(1e-3), cfg)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        _, apply_grads, params_of = dqn.make_dqn_callbacks(
+            env, optim.adamw(1e-3), cfg, layout)
+        calls = []
+
+        def gen_grads(state, gen, dev=dev, calls=calls):
+            g = torch.from_numpy(grads[len(calls) % 12]).to(dev)
+            calls.append(1)
+            return g, {"return": g.sum(-1)}, state
+
+        ddal = DDAL(spec, gen_grads, apply_grads, params_of, device=dev,
+                    layout=layout)
+        gs, _ = ddal.run(ddal.init(_to(astates, dev)), None, 9)
+        st = gs.agent_states
+        results[dev] = [st.params.cpu(), st.target_params.cpu(),
+                        gs.stores.grads.cpu(), st.step.cpu()]
+    (p_g, t_g, s_g, n_g), (p_c, t_c, s_c, n_c) = results["cuda"], \
+        results["cpu"]
+    err = max(float((p_g - p_c).abs().max()), float((t_g - t_c).abs().max()))
+    ok = (torch.allclose(p_g, p_c, rtol=1e-5, atol=1e-6)
+          and torch.allclose(t_g, t_c, rtol=1e-5, atol=1e-6)
+          and torch.equal(s_g, s_c) and torch.equal(n_g, n_c)
+          and not torch.equal(t_c, astates.target_params))
+    print(f"[equiv] dqn ring n=4, delay 1, target period 2, 9 epochs, card "
+          f"vs CPU: params and target params max abs {err:.3e} (rtol 1e-5), "
+          f"updates {n_c.tolist()}, stores bitwise {torch.equal(s_g, s_c)} "
+          f"-> {'ok' if ok else 'FAIL'}")
+    check(ok, "card and CPU paths disagree on a small DDADQN group")
+
+    # dqn_loss and its gradient on one seeded batch
+    B = 64
+    batch = (rng.normal(size=(4, B, 4)).astype(np.float32),
+             rng.integers(0, 2, (4, B)),
+             rng.normal(size=(4, B)).astype(np.float32),
+             rng.normal(size=(4, B, 4)).astype(np.float32),
+             rng.random((4, B)) < 0.2)
+    target = astates.params + 0.01 * torch.from_numpy(
+        rng.normal(size=astates.params.shape).astype(np.float32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        flat = astates.params.to(dev).requires_grad_(True)
+        loss = dqn.dqn_loss(layout.unflatten(flat),
+                            layout.unflatten(target.to(dev)),
+                            tuple(torch.from_numpy(np.asarray(x)).to(dev)
+                                  for x in batch), cfg.gamma)
+        (g,) = torch.autograd.grad(loss.sum(), flat)
+        out[dev] = (loss.detach().cpu(), g.cpu())
+    (l_g, g_g), (l_c, g_c) = out["cuda"], out["cpu"]
+    scale = float(g_c.abs().max())
+    ok = (torch.allclose(l_g, l_c, rtol=1e-5, atol=1e-6)
+          and torch.allclose(g_g, g_c, rtol=1e-5, atol=1e-6 * scale))
+    print(f"[equiv] dqn_loss, 4 agents x {B} steps, card vs CPU: loss max "
+          f"abs {float((l_g - l_c).abs().max()):.3e}, gradient max abs "
+          f"{float((g_g - g_c).abs().max()):.3e} of max {scale:.3e} "
+          f"(rtol 1e-5, atol 1e-6 of the max) -> {'ok' if ok else 'FAIL'}")
+    check(ok, "card and CPU disagree on dqn_loss or its gradient")
+
+
 def profile_phase(torch):
     """Device busy share and time by op over a few main-path epochs, for
-    the quickstart group and for the fourth main-path run's
-    configuration (learned sketched relevance, int8 planes)."""
+    the quickstart group, for the fourth main-path run's configuration
+    (learned sketched relevance, int8 planes) and for the DDADQN n = 2
+    group."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import optim
     from repro_torch.configs.base import GroupSpec
     from repro_torch.rl.a2c import make_a2c_group
+    from repro_torch.rl.dqn import make_dqn_group
     from repro_torch.rl.envs import CartPole
+
+    def a2c(spec, gen):
+        return make_a2c_group(CartPole(), optim.adamw(3e-3), spec, gen)
+
+    def dqn(spec, gen):
+        return make_dqn_group(CartPole(), optim.adamw(1e-3), spec, gen,
+                              _dqn_config())
 
     configs = [
         ("n=2 full", GroupSpec(n_agents=2, threshold=2, minibatch=2,
-                               m_pieces=32)),
+                               m_pieces=32), a2c),
         ("n=8 ring, delay 2, sketch 256, int8 128", GroupSpec(
             n_agents=8, threshold=2, minibatch=2, m_pieces=32,
             topology="ring", exchange_delay="uniform", max_delay=2,
-            **SLICE2_SPEC)),
+            **SLICE2_SPEC), a2c),
+        ("dqn n=2 full", GroupSpec(n_agents=2, threshold=2, minibatch=2,
+                                   m_pieces=32), dqn),
     ]
-    for label, spec in configs:
+    for label, spec, build in configs:
         gen = torch.Generator(device="cuda").manual_seed(0)
-        ddal, gs = make_a2c_group(CartPole(), optim.adamw(3e-3), spec, gen)
+        ddal, gs = build(spec, gen)
         gs, _ = ddal.run(gs, gen, 4)                   # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1220,6 +1375,9 @@ def profile_phase(torch):
         for key, count, dev_us, cpu_us in host_rows[:10]:
             print(f"[profile]   {key[:60]}: {count} calls, device "
                   f"{dev_us:.0f} us, host {cpu_us:.0f} us")
+        for key, count, dev_us, cpu_us in [r for r in rows if r[2] > 0][:8]:
+            print(f"[profile]   by device time: {key[:60]}: {count} calls, "
+                  f"device {dev_us:.0f} us, host {cpu_us:.0f} us")
 
 
 def _llama_batch(torch, cfg, B, S, seed=0):
@@ -1639,6 +1797,7 @@ def main() -> int:
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)
+        dqn_equivalence_phase(torch)
         equiv_serve_phase(torch, "mamba2-780m", prompts)
         cut = _cut_to_two_layers(torch, LLAMA)
         equiv_score_phase(torch, cut)

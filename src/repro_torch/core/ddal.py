@@ -27,7 +27,7 @@ relevance state lives on the device and rides on every sent piece's R.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -165,10 +165,15 @@ class DDAL:
             ) -> Tuple[GroupState, Dict[str, torch.Tensor]]:
         """``n_epochs`` epochs; returns per-epoch metrics stacked as
         (n_epochs, n)."""
-        history: List[Dict[str, torch.Tensor]] = []
-        for _ in range(n_epochs):
+        # each epoch's metrics are copied into rows preallocated at the
+        # first epoch: thousands of small tensors kept alive between the
+        # epochs' large temporaries fragment the host heap on the CPU
+        stacked: Dict[str, torch.Tensor] = {}
+        for e in range(n_epochs):
             gs, metrics = self.epoch_step(gs, gen)
-            history.append(metrics)
-        stacked = {key: torch.stack([h[key] for h in history])
-                   for key in history[0]} if history else {}
+            if e == 0:
+                stacked = {key: v.new_empty((n_epochs,) + v.shape)
+                           for key, v in metrics.items()}
+            for key, v in metrics.items():
+                stacked[key][e] = v
         return gs, stacked

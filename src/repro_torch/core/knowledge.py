@@ -34,6 +34,11 @@ R: a host table for a static prior, a device tensor when an estimator
 learns it (gathered on the card with the send's edge indices, never
 copied to the host).
 
+The dense all-to-all ``InFlight`` (``make_inflight``, ``send``,
+``deliver``) is the reference's equivalence oracle for the sparse
+delay line at the ``full`` topology, kept for tests; DDAL never runs
+it.
+
 The transport checksums (``chk``), the send epochs (``born``) and
 elastic membership (``alive``) of the reference wait for a later
 slice.
@@ -324,3 +329,72 @@ def sparse_deliver(flight: SparseInFlight, stores: KnowledgeStore,
         new_stores = append_many(stores, pieces, Tm, Rm, Vm, scales=Sm)
     flight.valid[:, :, slot] = False
     return flight, new_stores
+
+
+# ---------------------------------------------------------------------
+# dense all-to-all delay line (reference / equivalence oracle)
+# ---------------------------------------------------------------------
+class InFlight(NamedTuple):
+    """Delay line simulating asynchronous delivery. Slot layout
+    (dst, delay_slot, src, P): a piece from src→dst sent at epoch t
+    sits in slot (t + delay[src, dst]) % (D+1) until epoch
+    t + delay[src, dst] pops it."""
+    grads: torch.Tensor      # (n_dst, D+1, n_src, P) fp32
+    T: torch.Tensor          # (n_dst, D+1, n_src)
+    R: torch.Tensor
+    valid: torch.Tensor      # bool
+
+
+def make_inflight(n: int, max_delay: int, p: int, device) -> InFlight:
+    D1 = max_delay + 1
+    z = torch.zeros((n, D1, n), dtype=torch.float32, device=device)
+    return InFlight(
+        grads=torch.zeros((n, D1, n, p), dtype=torch.float32,
+                          device=device),
+        T=z, R=z.clone(), valid=torch.zeros_like(z, dtype=torch.bool))
+
+
+def send(flight: InFlight, pieces, T, R, delay, epoch: int,
+         enabled: bool) -> InFlight:
+    """Every agent broadcasts its piece to every destination.
+
+    pieces: (n_src, P); T: (n_src,); R: (n_src, n_dst) relevance of
+    src's knowledge to dst; delay: (n_src, n_dst) int; ``enabled``
+    (sharing started) a host bool, ``epoch`` a host int. Returns a new
+    delay line; a disabled send returns ``flight`` unchanged."""
+    if not enabled:
+        return flight
+    n, D1 = flight.T.shape[:2]
+    dev = flight.T.device
+    slot = (epoch + torch.as_tensor(delay, dtype=torch.int64,
+                                    device=dev)) % D1       # (src, dst)
+    src = torch.arange(n, device=dev)[:, None].expand(n, n)
+    dst = torch.arange(n, device=dev)[None, :].expand(n, n)
+    T = torch.as_tensor(T, dtype=torch.float32, device=dev)
+    R = torch.as_tensor(R, dtype=torch.float32, device=dev)
+
+    def put(buf, x):
+        out = buf.clone()
+        out[dst, slot, src] = x.to(buf.dtype)
+        return out
+
+    return InFlight(
+        grads=put(flight.grads, pieces[src]),
+        T=put(flight.T, T[src]),
+        R=put(flight.R, R),
+        valid=put(flight.valid, torch.ones((n, n), dtype=torch.bool,
+                                           device=dev)))
+
+
+def deliver(flight: InFlight, stores: KnowledgeStore, epoch: int
+            ) -> Tuple[InFlight, KnowledgeStore]:
+    """Pop the epoch's arrival slot for every destination and append
+    its valid pieces into the stores (fp32)."""
+    slot = epoch % flight.T.shape[1]
+    new_stores = append_many(stores, flight.grads[:, slot],
+                             flight.T[:, slot], flight.R[:, slot],
+                             flight.valid[:, slot])
+    valid = flight.valid.clone()
+    valid[:, slot] = False
+    # stale slots are overwritten by the next send
+    return flight._replace(valid=valid), new_stores

@@ -25,6 +25,7 @@ from repro_torch.common.pytree import (PlaneLayout, tree_leaves_with_paths,
                                        tree_map)
 from repro_torch.core.knowledge import KnowledgeStore, SparseInFlight
 from repro_torch.rl.a2c import A2CState
+from repro_torch.rl.dqn import DQNState, Replay
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -89,6 +90,34 @@ def a2c_state(state, layout: PlaneLayout, device="cpu") -> A2CState:
         params=flat_params(state.params, layout=layout, device=device)[0],
         opt_state=adamw_state(state.opt_state, layout, device),
         step=_t(state.step, device, torch.int32))
+
+
+def replay(rep, device="cpu") -> Replay:
+    """A reference replay ring stacked over agents (``Replay`` leaves
+    (n, C, …), int32 actions, (n,) ``ptr`` and ``size``) → the port's,
+    whose actions take its index dtype (int64)."""
+    return Replay(
+        obs=_t(rep.obs, device, torch.float32),
+        actions=_t(rep.actions, device, torch.int64),
+        rewards=_t(rep.rewards, device, torch.float32),
+        next_obs=_t(rep.next_obs, device, torch.float32),
+        dones=_t(rep.dones, device, torch.bool),
+        ptr=_t(rep.ptr, device, torch.int32),
+        size=_t(rep.size, device, torch.int32))
+
+
+def dqn_state(state, layout: PlaneLayout, device="cpu") -> DQNState:
+    """A reference ``DQNState`` stacked over agents (AdamW optimiser):
+    params, target params, moments, the replay rings and the step and
+    ε counters."""
+    return DQNState(
+        params=flat_params(state.params, layout=layout, device=device)[0],
+        target_params=flat_params(state.target_params, layout=layout,
+                                  device=device)[0],
+        opt_state=adamw_state(state.opt_state, layout, device),
+        replay=replay(state.replay, device),
+        step=_t(state.step, device, torch.int32),
+        eps_t=_t(state.eps_t, device, torch.int32))
 
 
 def knowledge_store(store, layout: PlaneLayout, device="cpu",

@@ -1,12 +1,16 @@
-"""CartPole-v0 batched over a leading agent axis — the port of
-``repro.rl.envs.CartPole``.
+"""The paper's environments batched over a leading agent axis — the
+port of ``repro.rl.envs``.
 
 Every agent plays its own environment; the state fields are (n,)
-tensors and one ``step`` advances all of them. The dynamics, constants
-and reward are the reference's (gym's classic-control CartPole with
-Euler integration, episodes capped at 100 steps as in the paper's §6).
-Python-float constants meet fp32 tensors as in the reference, so the
-arithmetic stays fp32.
+tensors and one ``step`` advances all of them.
+
+* ``CartPole``: the reference's dynamics, constants and reward (gym's
+  classic-control CartPole-v0 with Euler integration, episodes capped
+  at 100 steps as in the paper's §6). Python-float constants meet fp32
+  tensors as in the reference, so the arithmetic stays fp32.
+* ``GridWorld``: an N×N grid, start top-left, goal bottom-right, step
+  cost -0.01, goal +1, one-hot observations; the reference's second,
+  different task for heterogeneous groups.
 """
 from __future__ import annotations
 
@@ -81,4 +85,56 @@ class CartPole:
         # once an episode was already done, further steps score 0
         reward = torch.where(s.done, 0.0, 1.0).to(torch.float32)
         ns = CartPoleState(x, x_dot, theta, theta_dot, t, done)
+        return ns, self.obs(ns), reward, done
+
+
+class GridState(NamedTuple):
+    pos: torch.Tensor        # (n,) int32 — flattened cell index
+    t: torch.Tensor          # (n,) int32 — step count
+    done: torch.Tensor       # (n,) bool
+
+
+@dataclasses.dataclass(frozen=True)
+class GridWorld:
+    """N×N gridworld: start top-left, goal bottom-right, step cost
+    -0.01, goal +1. The observation is the one-hot cell."""
+    size: int = 5
+    max_steps: int = 50
+
+    @property
+    def obs_dim(self) -> int:
+        return self.size * self.size
+
+    n_actions: int = 4      # up / down / left / right
+
+    def reset(self, gen: torch.Generator, n: int) -> GridState:
+        """n agents at the start cell, on ``gen``'s device; nothing is
+        drawn, as the reference ignores its key."""
+        zeros = torch.zeros((n,), dtype=torch.int32, device=gen.device)
+        return GridState(zeros, zeros.clone(), zeros.to(torch.bool))
+
+    def obs(self, s: GridState) -> torch.Tensor:
+        """The one-hot cell, (n, obs_dim) fp32 (a compare, which reads
+        nothing back to the host)."""
+        cells = torch.arange(self.obs_dim, dtype=torch.int32,
+                             device=s.pos.device)
+        return (s.pos.unsqueeze(-1) == cells).to(torch.float32)
+
+    def step(self, s: GridState, action: torch.Tensor):
+        n = self.size
+        r, c = s.pos // n, s.pos % n
+        # the reference's tables dr = [-1, 1, 0, 0], dc = [0, 0, -1, 1],
+        # computed from the action so that no step uploads a table
+        i32 = torch.int32
+        dr = (action == 1).to(i32) - (action == 0).to(i32)
+        dc = (action == 3).to(i32) - (action == 2).to(i32)
+        r = torch.clamp(r + dr, 0, n - 1)
+        c = torch.clamp(c + dc, 0, n - 1)
+        pos = r * n + c
+        t = s.t + 1
+        at_goal = pos == (n * n - 1)
+        done = at_goal | (t >= self.max_steps) | s.done
+        reward = torch.where(s.done, 0.0, torch.where(at_goal, 1.0, -0.01)
+                             ).to(torch.float32)
+        ns = GridState(pos, t, done)
         return ns, self.obs(ns), reward, done

@@ -37,7 +37,8 @@ def _case(n, m, p, dev, all_invalid_row=False):
     return [x.to(dev) for x in (G, T, R, valid)]
 
 
-# (n, m, P, a row of only invalid pieces): the main path's shapes, the
+# (n, m, P, a row of only invalid pieces): the main paths' shapes (DDA3C
+# P = 9155, DDADQN on CartPole P = 8835 and on GridWorld(5) P = 10309), the
 # big ragged plane, the edges of the kernel's batches (m = 1, 5, 33 and
 # MAX_PIECES), one agent, and one case per kernel instance (batch,
 # positions per thread): (32, 1), (16, 1), (16, 2), (8, 1), (8, 4)
@@ -46,7 +47,8 @@ FP32_CASES = [
     (3, 5, 1000, True), (8, 32, 9155, True), (8, 1, 9155, False),
     (8, 5, 9155, False), (8, 33, 9155, True), (1, ops.MAX_PIECES, 1000, True),
     (1, 32, 9155, False), (2, 12, 9155, False), (8, 12, 9155, True),
-    (4, 12, 2 ** 20 + 37, False)]
+    (4, 12, 2 ** 20 + 37, False), (2, 32, 8835, False), (8, 32, 8835, True),
+    (3, 32, 10309, True)]
 FP32_INSTANCES = {(32, 1), (16, 1), (16, 2), (8, 1), (8, 4)}
 
 

@@ -49,7 +49,9 @@ def _a2c_layout():
     # the row-block instances' edges: 1 row, 9 of 16, 17 over two blocks
     (1, A2C_P, 256, 0), (9, A2C_P, 256, 5), (17, A2C_P, 256, 5),
     # shorter than one chunk; one chunk and one position
-    (8, ops.MIN_CHUNK - 12, 256, 3), (8, ops.MIN_CHUNK + 1, 256, 3)])
+    (8, ops.MIN_CHUNK - 12, 256, 3), (8, ops.MIN_CHUNK + 1, 256, 3),
+    # DDADQN's rows: the dueling network on CartPole and on GridWorld(5)
+    (8, 8835, 256, 0), (4, 10309, 256, 0)])
 def test_sketch_kernel_matches_plain(n, p, d, offset):
     """|got − want| ≤ 1e-5·Σ_p |G[r, p]| per element (the two sum in
     other orders; ±1 products are exact); two launches bitwise equal."""
@@ -133,6 +135,24 @@ def test_int8_share_step_matches_plain_bitwise(case):
     assert torch.equal(got_g, want_g) and torch.equal(got_w, want_w)
     if case == "all-invalid":
         assert not bool(got_g.any()) and not bool(got_w.any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("obs_dim,n_actions,p", [(4, 2, 8835),
+                                                 (25, 4, 10309)])
+def test_int8_share_step_on_the_dueling_layout(obs_dim, n_actions, p):
+    """ḡ and Σw bitwise over DDADQN's int8 planes, whose blocks restart
+    at each of the dueling network's 10 leaves (the 1-element ``val``
+    output bias is a block of its own)."""
+    dev = _card()
+    tree = networks.init_dueling_q(torch.Generator().manual_seed(0), 1,
+                                   obs_dim, n_actions, 64)
+    layout = PlaneLayout.from_tree(tree, lead=1)
+    assert layout.size == p and len(layout.paths) == 10
+    Q, S, T, R, valid, blocks = _q_case(dev, 8, 32, layout, 128, seed=p)
+    got_g, got_w = wavg_ops.fused_wavg_q(Q, S, T, R, valid, blocks)
+    want_g, want_w = wavg_ref.fused_wavg_q(Q, S, T, R, valid, blocks)
+    assert torch.equal(got_g, want_g) and torch.equal(got_w, want_w)
 
 
 @pytest.mark.gpu

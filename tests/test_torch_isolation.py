@@ -35,7 +35,13 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.kernels.flash_attention.ref",
              "repro_torch.configs.llama3_2_3b", "repro_torch.models.rope",
              "repro_torch.models.mlp", "repro_torch.models.attention",
-             "repro_torch.models.transformer"):
+             "repro_torch.models.transformer", "repro_torch.rl.dqn",
+             "repro_torch.benchmarks.common",
+             "repro_torch.benchmarks.group_outcomes",
+             "repro_torch.benchmarks.paper_fig2_a2c",
+             "repro_torch.benchmarks.paper_fig5_dqn",
+             "repro_torch.benchmarks.paper_fig34_scaling",
+             "repro_torch.examples.quickstart"):
     assert name in names, name
 print(len(names))
 """
