@@ -24,7 +24,10 @@ Phases, each printing its lines:
    inputs that require grad refused) and the flash attention
    (bf16 on the tensor cores, fp32 on the CUDA cores; each within its
    gate, two launches bitwise equal, with its TFLOP/s over the tiles
-   it visits and the blocks per SM of every flash instance);
+   it visits and the blocks per SM of every flash instance); and both
+   share steps on the robustness paths' inputs (T and R discounted by
+   0.95**age, pieces past the staleness cutoff, quarantined pieces,
+   an agent with no valid piece), bitwise;
 4. the main paths, through the entry points a user calls, each run with
    the kernels' launch counts zeroed just before it and read just
    after: DDA3C groups at the paper's width (A2C, hidden 64,
@@ -32,7 +35,13 @@ Phases, each printing its lines:
    learned sketched relevance and int8 knowledge planes; DDADQN groups
    (dueling double DQN, hidden 64, P = 8835) through ``make_dqn_group``,
    n = 2 ``full`` and n = 8 ``ring`` with sketches and int8 planes, each
-   ending with every replay ring above one minibatch; mamba2-780m
+   ending with every replay ring above one minibatch; the robustness
+   paths: (a) DDA3C n = 8 on ``relevance_topk`` gossip (k = 4, every 10
+   epochs, ε 0.1) with sketched relevance and int8 planes, (b) DDA3C
+   n = 8 ring with elastic membership on a ``chaos_schedule`` over a
+   faulty transport (loss, corruption, retransmit, jitter, duplicates)
+   with ``max_staleness`` 8 and decay 0.95, (c) DDADQN n = 4 with
+   ``obs_stats`` relevance on ``dynamic`` gossip; mamba2-780m
    and llama3.2-3b at their published widths and depth served by
    ``repro_torch.launch.serve`` (``[serve]``: 4 requests of up to 1023
    prompt tokens, prefill and 32 greedy tokens each); and llama3.2-3b
@@ -42,7 +51,9 @@ Phases, each printing its lines:
 5. the card against the port's CPU path: small DDA3C groups with seeded
    gradients, fp32 and int8 + learned relevance; a small DDADQN group
    with seeded gradients (target syncs included) and ``dqn_loss`` with
-   its gradient on one seeded batch; the serving paths at
+   its gradient on one seeded batch; the robustness paths (a) and (b)
+   cut to n = 6 on seeded gradients, and a checkpoint written on the
+   card restored on the CPU; the serving paths at
    mamba2-780m's and llama3.2-3b's widths cut to 2 layers with fp32
    compute; the llama scoring pass at the same cut;
 6. a profile of a few main-path epochs of the quickstart group, of
@@ -627,6 +638,59 @@ def wavg_q_phase(torch):
     return row
 
 
+def stale_kernel_phase(torch):
+    """The fused fp32 and int8 share steps on the inputs the robustness
+    paths give them, bitwise against their plain versions: T and R
+    discounted by 0.95**age (ages 0–8) with pieces past max_staleness 6
+    cut (``combiners.age_gate``), quarantined pieces (int8: payload and
+    scales zeroed, valid cleared), and agents whose every piece is
+    invalid (Σw = 0)."""
+    from repro_torch.core import knowledge as K
+    from repro_torch.core.exchange.combiners import age_gate
+    from repro_torch.kernels.ddal_wavg import ops, ref
+
+    a2c = _a2c_layout(torch)
+    n, m, p = 8, 32, a2c.size
+    for label in ("fp32", "int8"):
+        G, T, R, valid = make_case(torch, n, m, p, seed=71)
+        g = torch.Generator(device="cuda").manual_seed(72)
+        born = 100 - torch.randint(0, 9, (n, m), generator=g, device="cuda",
+                                   dtype=torch.int32)
+        quar = torch.rand((n, m), generator=g, device="cuda") < 0.1
+        valid = valid & ~quar
+        valid[3] = False                                 # an empty store
+        scale, blocks = None, None
+        if label == "int8":
+            blocks = a2c.blocks(QUANT_BLOCK)
+            G, scale = ref.quantize_flat(G, blocks)
+            scale = torch.where(quar[..., None], 0.0, scale)
+        G = torch.where(quar[..., None], torch.zeros((), dtype=G.dtype,
+                                                     device="cuda"), G)
+        st = K.KnowledgeStore(G, T, R, valid, torch.zeros(
+            (n,), dtype=torch.int32, device="cuda"), scale, blocks, born)
+        gated = age_gate(st, 100, 6, 0.95)
+        cut = int((st.valid & ~gated.valid).sum())
+        if label == "int8":
+            got = ops.fused_wavg_q(gated.grads, gated.scale, gated.T,
+                                   gated.R, gated.valid, blocks)
+            want = ref.fused_wavg_q(gated.grads, gated.scale, gated.T,
+                                    gated.R, gated.valid, blocks)
+        else:
+            got = ops.fused_wavg(gated.grads, gated.T, gated.R, gated.valid)
+            want = ref.fused_wavg(gated.grads, gated.T, gated.R, gated.valid)
+        torch.cuda.synchronize()
+        ok = (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+              and not bool(got[0][3].any()) and float(got[1][3]) == 0.0)
+        print(f"[kernel] stale {label} share step (n, m, P) = ({n}, {m}, "
+              f"{p}): T, R × 0.95**age (ages 0–8), {cut} pieces past "
+              f"max_staleness 6 cut, {int(quar.sum())} quarantined, agent "
+              f"3 all invalid: ḡ and Σw bitwise against the plain version "
+              f"{ok}, Σw of the empty store {float(got[1][3])} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{label} share step disagrees with its plain version on "
+                  f"discounted / quarantined / empty stores")
+
+
 def ssd_instance(dtype, heads):
     """The name ptxas reports for the SSD kernel instance that takes
     ``dtype`` inputs with ``heads`` heads per block."""
@@ -1004,11 +1068,66 @@ def _mean(x):
 SLICE2_SPEC = dict(relevance_mode="grad_cos", relevance_ema=0.9,
                    relevance_sketch_dim=SKETCH_DIM,
                    knowledge_quant_block=QUANT_BLOCK)
+# the robustness paths: relevance-aware gossip; elastic membership over a
+# faulty transport with a staleness cutoff; DDADQN with obs_stats
+# relevance on resampled gossip
+TOPK_SPEC = dict(topology="random_k", degree=4, resample_every=10,
+                 exchange_schedule="relevance_topk", explore_eps=0.1,
+                 **SLICE2_SPEC)
+FAULTY_SPEC = dict(topology="ring", elastic=True, transport_loss=0.2,
+                   transport_corrupt=0.05, transport_retransmit=2,
+                   transport_jitter=1, transport_dup=0.05, max_staleness=8,
+                   transport_decay=0.95)
+CHAOS = dict(kill_prob=0.05, revive_after=3)
+OBS_SPEC = dict(topology="random_k", degree=3, resample_every=10,
+                exchange_estimator="obs_stats")
 
 
 def _dqn_config():
     from repro_torch.rl.dqn import DQNConfig
     return DQNConfig(eps_decay=DQN_EPS_DECAY)
+
+
+def _watch_combine(torch, ddal):
+    """Counts, on the device, the agents of each update epoch whose
+    store weighed nothing (Σw = 0: the local fallback, or a hold),
+    alive agents only; returns the counters."""
+    seen = {"updates": 0, "local": torch.zeros((), dtype=torch.int64,
+                                               device="cuda")}
+    combine = ddal.exchange.combine
+
+    def watched(stores, rel, step):
+        gbar, wsum = combine(stores, rel, step)
+        alive = ddal._alive_dev[1] if ddal.elastic else None
+        empty = wsum <= 0
+        if alive is not None:
+            empty = empty & alive
+        seen["updates"] += int(wsum.numel() if alive is None
+                               else ddal._alive_dev[0].sum())
+        seen["local"] += empty.sum()
+        return gbar, wsum
+
+    ddal.exchange.combine = watched
+    return seen
+
+
+def _run_chaos(ddal, gs, gen, epochs, plan):
+    """``epochs`` epochs with the membership events of ``plan`` applied
+    between them; returns (gs, {"return": (epochs, n)})."""
+    import torch
+    from repro_torch.core.chaos import membership_events
+    events = {e: (k, r) for e, k, r in membership_events(plan[:epochs])}
+    rets = []
+    for e in range(epochs):
+        if e in events:
+            kill, revive = events[e]
+            if kill.any():
+                gs = ddal.kill(gs, kill)
+            if revive.any():
+                gs = ddal.revive(gs, revive)
+        gs, m = ddal.epoch_step(gs, gen)
+        rets.append(m["return"])
+    return gs, {"return": torch.stack(rets)}
 
 
 def main_path_phase(torch, epochs=EPOCHS):
@@ -1019,6 +1138,8 @@ def main_path_phase(torch, epochs=EPOCHS):
     paths that drive each kernel."""
     from repro_torch import optim
     from repro_torch.configs.base import GroupSpec
+    from repro_torch.core import transport
+    from repro_torch.core.chaos import chaos_schedule
     from repro_torch.core.ddal import DDAL
     from repro_torch.rl.a2c import init_a2c, make_a2c_callbacks, \
         make_a2c_group
@@ -1029,6 +1150,8 @@ def main_path_phase(torch, epochs=EPOCHS):
     ring = dict(n_agents=8, threshold=epochs // 3, minibatch=50,
                 m_pieces=32, topology="ring", exchange_delay="uniform",
                 max_delay=2)
+    robust = dict(threshold=epochs // 3, minibatch=50, m_pieces=32)
+    plan = chaos_schedule(1, 8, epochs, **CHAOS)
     full2 = dict(n_agents=2, threshold=epochs // 3, minibatch=50,
                  m_pieces=32, topology="full")
     cfg = _dqn_config()
@@ -1046,28 +1169,65 @@ def main_path_phase(torch, epochs=EPOCHS):
     def dqn(spec, gen):
         return make_dqn_group(env, optim.adamw(1e-3), spec, gen, cfg)
 
-    # (label, spec, epochs, group constructor, P)
+    # (label, spec, epochs, group constructor, P, membership plan)
     runs = [
-        ("n=2 full", GroupSpec(**full2), epochs, a2c, 9155),
-        ("n=8 ring, uniform delay 2", GroupSpec(**ring), epochs, a2c, 9155),
+        ("n=2 full", GroupSpec(**full2), epochs, a2c, 9155, None),
+        ("n=8 ring, uniform delay 2", GroupSpec(**ring), epochs, a2c, 9155,
+         None),
         ("n=2 full, legacy wavg", GroupSpec(
             n_agents=2, threshold=epochs // 6, minibatch=25, m_pieces=32,
-            topology="full"), epochs // 2, legacy, 9155),
+            topology="full"), epochs // 2, legacy, 9155, None),
         ("n=8 ring, uniform delay 2, sketch 256, int8 128",
-         GroupSpec(**ring, **SLICE2_SPEC), epochs, a2c, 9155),
-        ("dqn n=2 full", GroupSpec(**full2), epochs, dqn, 8835),
+         GroupSpec(**ring, **SLICE2_SPEC), epochs, a2c, 9155, None),
+        ("dqn n=2 full", GroupSpec(**full2), epochs, dqn, 8835, None),
         ("dqn n=8 ring, uniform delay 2, sketch 256, int8 128",
-         GroupSpec(**ring, **SLICE2_SPEC), epochs, dqn, 8835),
+         GroupSpec(**ring, **SLICE2_SPEC), epochs, dqn, 8835, None),
+        ("(a) n=8 relevance_topk k=4 every 10, eps 0.1, sketch 256, "
+         "int8 128", GroupSpec(n_agents=8, **robust, **TOPK_SPEC), epochs,
+         a2c, 9155, None),
+        ("(b) n=8 ring, elastic (chaos 0.05, back after 3), faulty "
+         "transport, max_staleness 8, decay 0.95",
+         GroupSpec(n_agents=8, **robust, **FAULTY_SPEC), epochs, a2c, 9155,
+         plan),
+        ("(c) dqn n=4 obs_stats, dynamic k=3 every 10",
+         GroupSpec(n_agents=4, **robust, **OBS_SPEC), epochs, dqn, 8835,
+         None),
     ]
     by_path = {name: {} for name in KERNELS}
-    for label, spec, n_epochs, build, p in runs:
+    for label, spec, n_epochs, build, p, chaos in runs:
         gen = torch.Generator(device="cuda").manual_seed(0)
         ddal, gs = build(spec, gen)
+        seen = _watch_combine(torch, ddal)
+        mismatches = torch.zeros((), dtype=torch.int64, device="cuda")
+        checksum_ok = transport.checksum_ok
+
+        def counted_ok(carried, recomputed):
+            nonlocal mismatches
+            ok = checksum_ok(carried, recomputed)
+            mismatches = mismatches + (~ok).sum()
+            return ok
+
+        transport.checksum_ok = counted_ok
+        tables = set()
+        table_of = ddal.exchange.schedule.refresh
+
+        def refresh(step, nbr, rel, alive=None):
+            out = table_of(step, nbr, rel, alive)
+            tables.add(out.tobytes())
+            return out
+
+        ddal.exchange.schedule.refresh = refresh
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        gs, metrics = ddal.run(gs, gen, n_epochs)
-        torch.cuda.synchronize()
+        try:
+            if chaos is None:
+                gs, metrics = ddal.run(gs, gen, n_epochs)
+            else:
+                gs, metrics = _run_chaos(ddal, gs, gen, n_epochs, chaos)
+            torch.cuda.synchronize()
+        finally:
+            transport.checksum_ok = checksum_ok
         secs = time.perf_counter() - t0
         launched = launch_counts()
         shares = sum(1 for e in range(spec.threshold, n_epochs)
@@ -1084,7 +1244,11 @@ def main_path_phase(torch, epochs=EPOCHS):
               + ", ".join(f"{k} {v}" for k, v in launched.items())
               + f", mean return {_mean(pre):.2f} before sharing -> "
               f"{_mean(post):.2f} after (last 100: {_mean(ret[-100:]):.2f})"
-              f", params {tuple(params.shape)}")
+              f", params {tuple(params.shape)}; update epochs whose store "
+              f"weighed nothing (alive agents): {int(seen['local'])} of "
+              f"{seen['updates']} agent updates "
+              f"({int(seen['local']) / max(seen['updates'], 1):.1%}, "
+              f"{'local fallback' if ddal.local_fallback else 'held'})")
         if build is legacy:
             want = {"ddal_wavg": shares}
         elif spec.knowledge_quant_block:
@@ -1124,6 +1288,52 @@ def main_path_phase(torch, epochs=EPOCHS):
                   and bool((off < 1).any()),
                   f"{label}: learned relevance not finite, outside "
                   f"[1e-3, 1], or never learned")
+        if ddal.exchange.schedule.resamples:
+            nbr = gs.nbr
+            rows_ok = all(len(set(r)) == len(r) for r in nbr.tolist())
+            rounds = -(-n_epochs // spec.resample_every)
+            print(f"[main] {label}: {len(tables)} distinct gossip tables "
+                  f"over {rounds} resample rounds; last table "
+                  f"{nbr.tolist()}")
+            check(rows_ok and bool((nbr[:, 0] == range(len(nbr))).all())
+                  and len(tables) > 1,
+                  f"{label}: a gossip table repeats a source, loses its "
+                  f"self-loop, or never moved")
+        if spec.exchange_estimator == "obs_stats":
+            st = gs.relevance
+            rel = st.rel
+            off = rel[~torch.eye(spec.n_agents, dtype=torch.bool,
+                                 device=rel.device)]
+            print(f"[main] {label}: obs_stats relevance off the diagonal "
+                  f"min {float(off.min()):.4f} max {float(off.max()):.4f}, "
+                  f"observations per agent {st.count.tolist()}")
+            check(bool(torch.isfinite(rel).all()) and bool((off > 0).all())
+                  and bool((off <= 1).all())
+                  and bool((st.count > 0).all()),
+                  f"{label}: obs_stats relevance not finite or outside "
+                  f"(0, 1], or no observation counted")
+        if ddal.transport is not None:
+            from repro_torch.core.transport import CORRUPT_BIAS
+            tp = ddal.transport
+            import numpy as np
+            foreign = gs.nbr != np.arange(spec.n_agents)[:, None]
+            corrupt = sum(int((tp.at(e).corrupt & foreign).sum())
+                          for e in range(spec.threshold, n_epochs))
+            kills = int((chaos[:-1] & ~chaos[1:]).sum())
+            revives = int((~chaos[:-1] & chaos[1:]).sum())
+            big = float(gs.stores.grads.abs().max())
+            print(f"[main] {label}: {kills} kills and {revives} revivals "
+                  f"({int((~chaos).sum())} dead agent-epochs), "
+                  f"{corrupt} corrupted sends planned over the sharing "
+                  f"epochs (self-loops exempt, dead agents' included), "
+                  f"{int(mismatches)} checksum mismatches at delivery "
+                  f"(quarantined), delay line of {tp.extra_delay} extra "
+                  f"planes; largest |piece| in a store {big:.3e}; alive "
+                  f"at the end {gs.alive.astype(int).tolist()}")
+            check(big < CORRUPT_BIAS / 2 and int(mismatches) > 0
+                  and bool((gs.alive == chaos[n_epochs - 1]).all()),
+                  f"{label}: a corrupted piece reached a store, nothing "
+                  f"was quarantined, or membership drifted from the plan")
         for name, count in want.items():
             if count:
                 by_path[name][label] = launched[name]
@@ -1197,6 +1407,106 @@ def equivalence_phase(torch):
               f"(atol 1e-6), stores {s_gpu.dtype} bitwise {stores_eq} -> "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"card and CPU paths disagree on a small group: {label}")
+
+
+def robust_equivalence_phase(torch):
+    """The robustness paths, the card against the port's CPU path on
+    seeded gradients (the same table on both): (a) relevance-aware
+    gossip with sketched relevance and int8 planes, and (b) elastic
+    membership (a kill at epoch 3, the revival at 6) over the faulty
+    transport with staleness. Stores (payloads, scales, T, valid, ptr,
+    send epochs) and gossip tables bitwise, parameters rtol 1e-5. Then
+    a checkpoint of (b) written on the card is restored into the CPU
+    state and both continue 3 epochs: equal again."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from repro_torch import optim
+    from repro_torch.checkpoint import npz
+    from repro_torch.configs.base import GroupSpec
+    from repro_torch.core.ddal import DDAL
+    from repro_torch.rl.a2c import init_a2c, make_a2c_callbacks
+    from repro_torch.rl.envs import CartPole
+
+    n = 6
+    base = dict(n_agents=n, threshold=2, minibatch=2, m_pieces=6)
+    rng = np.random.default_rng(2)
+    grads = rng.normal(size=(12, n, 9155)).astype(np.float32)
+    cases = [
+        ("(a) n=6 relevance_topk k=3 every 2, eps 0.3, sketch 256, int8 "
+         "128", GroupSpec(**base, **dict(TOPK_SPEC, degree=3,
+                                         resample_every=2,
+                                         explore_eps=0.3)), None),
+        ("(b) n=6 ring, elastic, faulty transport, max_staleness 8, decay "
+         "0.95", GroupSpec(**base, **dict(FAULTY_SPEC, transport_seed=4,
+                                          transport_corrupt=0.2)),
+         {3: (np.eye(n, dtype=bool)[1], None),
+          6: (None, np.eye(n, dtype=bool)[1])}),
+    ]
+    for label, spec, events in cases:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            opt = optim.adamw(3e-3)
+            astates, layout = init_a2c(torch.Generator().manual_seed(0), n,
+                                       CartPole(), opt)
+            astates = _to(astates, dev)
+            _, apply_grads, params_of = make_a2c_callbacks(CartPole(), opt,
+                                                           layout)
+
+            def gen_grads(state, e, dev=dev):
+                g = torch.from_numpy(grads[e % 12]).to(dev)
+                return g, {"return": g.sum(-1)}, state
+
+            ddal = DDAL(spec, gen_grads, apply_grads, params_of, device=dev,
+                        layout=layout)
+            gs = ddal.init(astates)
+            for e in range(9):
+                kill, revive = (events or {}).get(e, (None, None))
+                if kill is not None:
+                    gs = ddal.kill(gs, kill)
+                if revive is not None:
+                    gs = ddal.revive(gs, revive)
+                gs, _ = ddal.epoch_step(gs, e)
+            out[dev] = (ddal, gs, layout)
+        (_, g_cpu, layout), (d_gpu, g_gpu, _) = out["cpu"], out["cuda"]
+
+        def same(a, b):
+            names = ("grads", "scale", "T", "valid", "ptr", "born")
+            st = all(getattr(a.stores, k) is None or torch.equal(
+                getattr(a.stores, k).cpu(), getattr(b.stores, k))
+                for k in names)
+            return (st and np.array_equal(a.nbr, b.nbr)
+                    and torch.allclose(a.agent_states.params.cpu(),
+                                       b.agent_states.params, rtol=1e-5,
+                                       atol=1e-6))
+
+        err = float((g_gpu.agent_states.params.cpu()
+                     - g_cpu.agent_states.params).abs().max())
+        ok = same(g_gpu, g_cpu)
+        print(f"[equiv] {label}, 9 epochs, card vs CPU: stores and gossip "
+              f"tables bitwise, params max abs {err:.3e} (rtol 1e-5) -> "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"card and CPU paths disagree: {label}")
+        if events is None:
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "group.npz")
+            npz.save_group(path, g_gpu, layout, step=9)
+            back = npz.restore_group(path, g_cpu, layout)
+        d_cpu = out["cpu"][0]
+        for e in range(9, 12):
+            back, _ = d_cpu.epoch_step(back, e)
+            g_gpu, _ = d_gpu.epoch_step(g_gpu, e)
+        ok = back.epoch == 12 and same(g_gpu, back)
+        err = float((g_gpu.agent_states.params.cpu()
+                     - back.agent_states.params).abs().max())
+        print(f"[equiv] {label}: checkpoint written on the card at epoch 9, "
+              f"restored on the CPU, both continued 3 epochs: stores "
+              f"bitwise, params max abs {err:.3e} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, "a checkpoint written on the card does not continue "
+                  "equal on the CPU")
 
 
 def _to(x, dev):
@@ -1318,6 +1628,9 @@ def profile_phase(torch):
             **SLICE2_SPEC), a2c),
         ("dqn n=2 full", GroupSpec(n_agents=2, threshold=2, minibatch=2,
                                    m_pieces=32), dqn),
+        ("(b) n=8 ring, elastic, faulty transport, max_staleness 8",
+         GroupSpec(n_agents=8, threshold=2, minibatch=2, m_pieces=32,
+                   **FAULTY_SPEC), a2c),
     ]
     for label, spec, build in configs:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1776,6 +2089,7 @@ def main() -> int:
         table = kernel_phase(torch)
         table["grad_sketch"] = sketch_phase(torch)
         table["ddal_fused_wavg_q"] = wavg_q_phase(torch)
+        stale_kernel_phase(torch)
         table["ssd_intra_chunk"] = ssd_kernel_phase(torch,
                                                     instances["ssd_scan"])
         table["flash_attention"] = flash_kernel_phase(torch)
@@ -1798,6 +2112,7 @@ def main() -> int:
                 launches[name].update(by_path)
         equivalence_phase(torch)
         dqn_equivalence_phase(torch)
+        robust_equivalence_phase(torch)
         equiv_serve_phase(torch, "mamba2-780m", prompts)
         cut = _cut_to_two_layers(torch, LLAMA)
         equiv_score_phase(torch, cut)

@@ -1,0 +1,9 @@
+"""Checkpoints in one ``.npz`` under the reference's key paths (port of
+``repro.checkpoint``)."""
+from repro_torch.checkpoint.npz import (  # noqa: F401
+    restore,
+    restore_group,
+    restore_step,
+    save,
+    save_group,
+)

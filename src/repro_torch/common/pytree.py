@@ -135,6 +135,14 @@ class PlaneLayout:
             parts.append(x.reshape(x.shape[:lead] + (-1,)))
         return torch.cat(parts, dim=-1)
 
+    def build(self, leaves: Sequence[Any]):
+        """The tree of this layout's skeleton holding ``leaves``, one per
+        leaf in layout order (any array type, any leading axes)."""
+        if len(leaves) != len(self.paths):
+            raise ValueError(f"{len(leaves)} leaves for a layout of "
+                             f"{len(self.paths)}")
+        return _build(self.skeleton, dict(zip(self.paths, leaves)))
+
     def blocks(self, q_block: int) -> "BlockLayout":
         """The int8 block layout of a row of this layout: ``q_block``
         consecutive elements of each leaf share one fp32 scale, and

@@ -7,7 +7,9 @@ that the reference rejects is rejected here with the same
 ``ValueError``. On top of that, a field whose behaviour the port does
 not implement yet is refused at construction with a
 :class:`NotPortedError` naming the field, so an unported option is
-never silently ignored. ``ArchConfig`` and ``SSMConfig`` (the model
+never silently ignored: only the streaming trainer's settings remain
+(``knowledge_mode="streaming"``, ``pods > 0`` and the ``flat`` and
+``pod`` combiners). ``ArchConfig`` and ``SSMConfig`` (the model
 zoo) are copied for the SSM and dense families only; the other
 families raise :class:`NotPortedError`.
 """
@@ -249,18 +251,10 @@ class GroupSpec:
                 raise NotPortedError(
                     f"exchange_{family}={key!r} is not ported yet; the "
                     f"port has {REGISTRIES[family].choices}")
+        # the streaming trainer's settings (Slices D and E)
         unported = [
             ("knowledge_mode", self.knowledge_mode != "buffer"),
-            ("resample_every", self.resample_every > 0),
             ("pods", self.pods > 0),
-            ("elastic", self.elastic),
-            ("transport_loss", self.transport_loss > 0),
-            ("transport_dup", self.transport_dup > 0),
-            ("transport_corrupt", self.transport_corrupt > 0),
-            ("transport_jitter", self.transport_jitter > 0),
-            ("transport_retransmit", self.transport_retransmit > 0),
-            ("transport_decay", self.transport_decay < 1.0),
-            ("max_staleness", self.max_staleness is not None),
         ]
         for field, asked in unported:
             if asked:

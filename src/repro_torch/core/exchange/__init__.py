@@ -14,3 +14,6 @@ from repro_torch.core.exchange.registry import (  # noqa: F401
     TRANSPORTS,
     Registry,
 )
+
+# registers the "none" and "faulty" transport strategies
+import repro_torch.core.transport  # noqa: E402,F401

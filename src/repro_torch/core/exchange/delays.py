@@ -9,6 +9,10 @@ onto the static schedule's topology at build time.
 ``hops``
     Graph-distance staleness: an edge from a distance-d source
     delivers d·latency epochs late, latency = ``max(max_delay, 1)``.
+    Static schedules only.
+
+``dense_scalar`` is the uniform delay a resampling schedule carries
+across table swaps (``None`` for ``none``); ``hops`` raises there.
 """
 from __future__ import annotations
 
@@ -23,6 +27,9 @@ class NoDelay:
     def attach(self, topo: Topology) -> Topology:
         return topo
 
+    def dense_scalar(self) -> Optional[int]:
+        return None
+
 
 @DELAYS.register("uniform")
 class UniformDelay:
@@ -34,6 +41,9 @@ class UniformDelay:
     def attach(self, topo: Topology) -> Topology:
         return topo.with_delay(self.delay)
 
+    def dense_scalar(self) -> int:
+        return self.delay
+
 
 @DELAYS.register("hops")
 class HopDelay:
@@ -43,3 +53,9 @@ class HopDelay:
 
     def attach(self, topo: Topology) -> Topology:
         return delay_from_hops(topo, self.latency, graph=self.graph)
+
+    def dense_scalar(self) -> Optional[int]:
+        raise ValueError(
+            "the 'hops' delay model measures distances on a fixed "
+            "graph and cannot follow a resampling schedule — use "
+            "delay='uniform' (or 'none') with dynamic/relevance_topk")

@@ -14,12 +14,23 @@ the port of ``repro.core.exchange.estimators`` for the buffer trainer.
     ``GroupSpec.topology_seed`` and the epoch, so a replay gives the
     same bits.
 
-Each learning estimator's state is the dense (n, n) ``R[src, dst]`` on
-the trainer's device. ``obs_stats`` (observation statistics) waits for
-a later slice, and so does the streaming trainer's carried window
-sketch (``sketch=`` in the reference's ``observe``).
+``obs_stats``
+    Observation-statistics relevance: per-agent running observation
+    moments, streamed from the agents' episodes
+    (:func:`repro_torch.rl.rollout.obs_moments`, ``metrics
+    ["obs_moments"]``) and merged by Chan's parallel rule, feed
+    :func:`repro_torch.core.relevance.obs_overlap`, EMA-smoothed.
+
+The gradient estimators' state is the dense (n, n) ``R[src, dst]`` on
+the trainer's device, ``obs_stats``'s an :class:`ObsStatsState`. Every
+``observe`` takes ``alive`` ((n,) bool on the device, elastic
+membership): entries touching a dead agent hold. The streaming
+trainer's carried window sketch (``sketch=`` in the reference's
+``observe``) waits for its slice.
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -32,9 +43,10 @@ class UniformEstimator:
     """R ≡ 1; ``observe`` returns the state untouched."""
 
     learns = False
+    wants_obs = False
 
     @classmethod
-    def from_spec(cls, spec) -> "UniformEstimator":
+    def from_spec(cls, spec, obs_dim=None) -> "UniformEstimator":
         return cls()
 
     def init(self, n: int, device=None) -> torch.Tensor:
@@ -52,12 +64,13 @@ class GradCosEstimator:
     """Exact pairwise gradient cosines → ``to_relevance`` → EMA."""
 
     learns = True
+    wants_obs = False
 
     def __init__(self, ema: float):
         self.ema = ema
 
     @classmethod
-    def from_spec(cls, spec) -> "GradCosEstimator":
+    def from_spec(cls, spec, obs_dim=None) -> "GradCosEstimator":
         return cls(spec.relevance_ema)
 
     def init(self, n: int, device=None) -> torch.Tensor:
@@ -67,14 +80,16 @@ class GradCosEstimator:
         return REL.grad_cosine(grads)
 
     def observe(self, state: torch.Tensor, *, grads: torch.Tensor,
-                rnd: int = 0, enabled: bool = True) -> torch.Tensor:
+                aux=None, rnd: int = 0, enabled: bool = True,
+                alive=None) -> torch.Tensor:
         # the reference computes the observation on warm-up epochs too
         # and then discards it (``ema_update`` with enabled=False);
         # skipping it gives the same state and spends no card time
+        del aux
         if not enabled:
             return state
         return REL.ema_update(state, REL.to_relevance(
-            self._cosine(grads, rnd)), self.ema)
+            self._cosine(grads, rnd)), self.ema, alive=alive)
 
     def matrix(self, state: torch.Tensor) -> torch.Tensor:
         return state
@@ -96,10 +111,93 @@ class SketchedGradCosEstimator(GradCosEstimator):
         self.seed = seed
 
     @classmethod
-    def from_spec(cls, spec) -> "SketchedGradCosEstimator":
+    def from_spec(cls, spec, obs_dim=None) -> "SketchedGradCosEstimator":
         return cls(spec.relevance_ema, spec.relevance_sketch_dim,
                    spec.topology_seed)
 
     def _cosine(self, grads: torch.Tensor, rnd: int) -> torch.Tensor:
         return REL.sketch_cosine(grads, self.dim,
                                  REL.fold_seed(self.seed, rnd))
+
+
+class ObsStatsState(NamedTuple):
+    """Running per-agent observation moments and the derived relevance.
+
+    count: (n,)    — observations accumulated so far.
+    mean:  (n, d)  — running mean observation.
+    m2:    (n,)    — running sum of squared deviations (isotropic), so
+                     the scale is sqrt(m2 / (count·d)).
+    rel:   (n, n)  — EMA of the Gaussian-overlap relevance.
+    """
+    count: torch.Tensor
+    mean: torch.Tensor
+    m2: torch.Tensor
+    rel: torch.Tensor
+
+
+@ESTIMATORS.register("obs_stats")
+class ObsStatsEstimator:
+    """Relevance from observation-distribution overlap. ``aux`` is the
+    episode moment triple ``(obs_sum (n, d), sq_sum (n,), count (n,))``;
+    with no ``aux`` the state holds. Every op stays on the device: the
+    "any agent observed" gates are device selects, as in the
+    reference."""
+
+    learns = True
+    wants_obs = True
+
+    def __init__(self, ema: float, obs_dim: Optional[int]):
+        if obs_dim is None:
+            raise ValueError(
+                "obs_stats needs the observation dimension: pass "
+                "obs_dim= to build_exchange (the rl group entry "
+                "points forward env.obs_dim automatically)")
+        self.ema = ema
+        self.obs_dim = int(obs_dim)
+
+    @classmethod
+    def from_spec(cls, spec, obs_dim=None) -> "ObsStatsEstimator":
+        return cls(spec.relevance_ema, obs_dim)
+
+    def init(self, n: int, device=None) -> ObsStatsState:
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        return ObsStatsState(count=z(n), mean=z(n, self.obs_dim), m2=z(n),
+                             rel=REL.init_relevance(n, device))
+
+    def observe(self, state: ObsStatsState, *, grads=None, aux=None,
+                rnd: int = 0, enabled: bool = True,
+                alive=None) -> ObsStatsState:
+        del grads, rnd
+        if aux is None:
+            return state
+        obs_sum, sq_sum, cnt = (x.to(torch.float32) for x in aux)
+        if alive is not None:
+            # a corpse streams no observations: a zero batch count makes
+            # the Chan merge hold its running moments verbatim
+            cnt = torch.where(alive, cnt, 0.0)
+            obs_sum = torch.where(alive[:, None], obs_sum, 0.0)
+            sq_sum = torch.where(alive, sq_sum, 0.0)
+        safe = torch.clamp_min(cnt, 1.0)
+        batch_mean = obs_sum / safe[:, None]                  # (n, d)
+        batch_m2 = sq_sum - torch.sum(batch_mean * obs_sum, dim=1)
+        tot = state.count + cnt
+        tot_safe = torch.clamp_min(tot, 1.0)
+        delta = batch_mean - state.mean
+        mean = state.mean + delta * (cnt / tot_safe)[:, None]
+        m2 = (state.m2 + batch_m2
+              + torch.sum(delta * delta, dim=1) * state.count * cnt
+              / tot_safe)
+        scale = torch.sqrt(torch.clamp_min(m2, 0.0)
+                           / (tot_safe * self.obs_dim))
+        obs = REL.obs_overlap(mean, scale)
+        enabled = torch.as_tensor(enabled, device=tot.device)
+        rel = REL.ema_update(state.rel, obs, self.ema,
+                             enabled & torch.any(tot > 0), alive)
+        new = ObsStatsState(count=tot, mean=mean, m2=m2, rel=rel)
+        any_obs = torch.any(cnt > 0)               # else hold everything
+        return ObsStatsState(*(torch.where(any_obs, x, old)
+                               for x, old in zip(new, state)))
+
+    def matrix(self, state: ObsStatsState) -> torch.Tensor:
+        return state.rel

@@ -71,12 +71,19 @@ def to_relevance(cos: torch.Tensor, min_rel: float = 1e-3) -> torch.Tensor:
 
 
 def ema_update(prev: torch.Tensor, obs: torch.Tensor, decay: float,
-               enabled: bool = True) -> torch.Tensor:
+               enabled=True, alive=None) -> torch.Tensor:
     """``decay·prev + (1 − decay)·obs`` where ``enabled``, ``prev``
     otherwise (warm-up holds the estimate at its prior). ``enabled`` is
-    a host bool in the port."""
+    a host bool or a device bool scalar. ``alive`` ((n,) bool on the
+    device, elastic membership) holds every entry whose src or dst is
+    dead at its last live value."""
     new = decay * prev + (1.0 - decay) * obs
-    return new if enabled else prev
+    if alive is None and isinstance(enabled, bool):
+        return new if enabled else prev
+    upd = torch.as_tensor(enabled, device=prev.device)
+    if alive is not None:
+        upd = upd & alive[:, None] & alive[None, :]
+    return torch.where(upd, new, prev)
 
 
 def gather_edges(dense: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
@@ -85,6 +92,21 @@ def gather_edges(dense: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
     n = dense.shape[0]
     dst = torch.arange(n, device=dense.device)[:, None]
     return dense[nbr, dst]
+
+
+def obs_overlap(mean: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-6) -> torch.Tensor:
+    """Relevance prior from observation statistics: each agent's stream
+    as an isotropic Gaussian of ``mean`` (n, d) and std ``scale`` (n,),
+    ``R[i, j] = exp(−|μ_i − μ_j|² / (2 (σ_i² + σ_j²)))`` — symmetric,
+    unit diagonal."""
+    mean = torch.as_tensor(mean, dtype=torch.float32)
+    scale = torch.as_tensor(scale, dtype=torch.float32)
+    d2 = torch.sum(torch.square(mean[:, None, :] - mean[None, :, :]),
+                   dim=-1)
+    var = torch.square(scale)
+    denom = torch.clamp_min(2.0 * (var[:, None] + var[None, :]), eps)
+    return torch.exp(-d2 / denom)
 
 
 def init_relevance(n: int, device=None) -> torch.Tensor:

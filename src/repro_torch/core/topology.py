@@ -1,5 +1,5 @@
-"""Static communication topologies for DDAL — the port of the static
-part of ``repro.core.topology``.
+"""Communication topologies for DDAL — the port of
+``repro.core.topology`` without the pod placement helpers.
 
 A ``Topology`` is a neighbor index table: for every destination agent
 ``i``, ``nbr[i, j]`` names the source feeding its ``j``-th incoming
@@ -10,8 +10,15 @@ same code: the tables are bitwise-equal and stay numpy arrays, which
 the delay-line code reads on the host. Every constructor includes the
 self-loop edge.
 
-Time-varying gossip (``DynamicTopology``, ``sample_gossip``) and the
-pod placement helpers wait for later slices.
+Time-varying gossip (``DynamicTopology``) redraws a k-regular table
+every ``resample_every`` epochs with ``sample_gossip``. Torch cannot
+draw threefry's streams, so the round's uniforms come from the hook
+``gossip_uniforms`` (a test replaces it with the reference's recorded
+``jax.random.uniform(fold_in(PRNGKey(seed), round), (n, n))``); its
+default draws them from a CPU ``torch.Generator`` seeded by
+``(seed, round)``, so a run replays. The table stays a host array, as
+the delay line's send plan reads it there: resampling reads nothing
+back from the card.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import math
 from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
+import torch
 
 
 class Topology(NamedTuple):
@@ -216,6 +224,158 @@ def delay_from_hops(topo: Topology, latency: int = 1,
     return topo.with_delay((hops * latency).astype(np.int32))
 
 
+# ---------------------------------------------------------------------
+# dynamic gossip (time-varying random_k)
+# ---------------------------------------------------------------------
+def round_generator(seed: int, rnd: int, stream: int = 0) -> torch.Generator:
+    """A CPU generator seeded by ``(seed, rnd, stream)``: the default
+    source of a resample round's draws."""
+    state = np.random.SeedSequence(
+        [int(seed) % 2 ** 32, int(rnd) % 2 ** 32, stream]).generate_state(
+            1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) % 2 ** 63)
+
+
+def host_f32(x) -> torch.Tensor:
+    """A tensor or array → a CPU fp32 tensor of its own (arrays are
+    copied: a draw handed in may be read-only)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def gossip_uniforms(seed: int, rnd: int, n: int) -> torch.Tensor:
+    """Round ``rnd``'s (n, n) fp32 uniforms in [0, 1) of a
+    ``DynamicTopology`` seeded with ``seed`` (the hook tests replace
+    with the reference's draws)."""
+    return torch.rand((n, n), generator=round_generator(seed, rnd))
+
+
+def sample_gossip(u, k: int, alive=None) -> np.ndarray:
+    """The k-regular gossip table drawn from the uniforms ``u`` (n, n):
+    edge slot 0 of every destination is the self-loop and slots 1..k-1
+    are k−1 distinct other agents, the first k−1 columns of a stable
+    argsort of each row with the diagonal pushed past every real value
+    (``u + 2·eye``). ``alive`` ((n,) bool) then adds 3 to dead columns,
+    so a dead source is drawn only once fewer than k−1 live others
+    exist. The fp32 sums are the reference's, in its order, so the
+    same draws give the same table bit for bit. Returns (n, k) int32."""
+    u = host_f32(u)
+    n = u.shape[0]
+    if not 1 <= k <= n:
+        raise ValueError(f"sample_gossip needs 1 <= k <= n, got k={k}")
+    u = u + 2.0 * torch.eye(n, dtype=torch.float32)
+    if alive is not None:
+        dead = torch.from_numpy(~np.array(alive, bool)).to(torch.float32)
+        u = u + 3.0 * dead[None, :]
+    order = torch.argsort(u, dim=1, stable=True).numpy().astype(np.int32)
+    return np.concatenate([np.arange(n, dtype=np.int32)[:, None],
+                           order[:, :k - 1]], axis=1)
+
+
+class DynamicTopology(NamedTuple):
+    """Time-varying gossip graph: a static ``base`` (the
+    ``resample_every = 0`` limit, which also fixes every shape) and the
+    resampling schedule. Per-edge annotations cannot survive a resample,
+    so delays and relevance ride as dense (n, n) src→dst matrices
+    (``dense_delay`` / ``dense_relevance``), gathered onto each fresh
+    table; ``None`` means the base's uniform delay / unit relevance."""
+    base: Topology
+    resample_every: int
+    seed: int
+    dense_delay: Optional[np.ndarray] = None       # (n, n) src→dst
+    dense_relevance: Optional[np.ndarray] = None   # (n, n) src→dst
+
+    @property
+    def n_agents(self) -> int:
+        return self.base.n_agents
+
+    @property
+    def degree(self) -> int:
+        return self.base.degree
+
+    @property
+    def max_delay(self) -> int:
+        if self.dense_delay is not None:
+            return int(np.asarray(self.dense_delay).max())
+        return self.base.max_delay
+
+    def _uniform_base_delay(self) -> int:
+        d = np.asarray(self.base.delay)
+        if d.size and not (d == d.flat[0]).all():
+            raise ValueError(
+                "DynamicTopology needs a uniform base delay or a dense "
+                "(n, n) dense_delay matrix — per-edge delays cannot be "
+                "re-gathered after a resample")
+        return int(d.flat[0]) if d.size else 0
+
+    def with_dense(self, delay=None, relevance=None) -> "DynamicTopology":
+        """Attach a scalar or dense (n, n) delay and a dense (n, n)
+        relevance, the forms that survive a resample; also attached to
+        the base, so the static limit carries them."""
+        n = self.n_agents
+        out = self
+        if delay is not None:
+            d = np.asarray(delay)
+            if d.ndim == 0:
+                out = out._replace(base=out.base.with_delay(delay),
+                                   dense_delay=None)
+            elif d.shape == (n, n):
+                out = out._replace(base=out.base.with_delay(delay),
+                                   dense_delay=d.astype(np.int32))
+            else:
+                raise ValueError(
+                    f"dynamic topology delay must be scalar or "
+                    f"({n},{n}) dense, got {d.shape}")
+        if relevance is not None:
+            r = np.asarray(relevance)
+            if r.shape != (n, n):
+                raise ValueError(
+                    f"dynamic topology relevance must be ({n},{n}) "
+                    f"dense, got {r.shape}")
+            out = out._replace(base=out.base.with_relevance(relevance),
+                               dense_relevance=r.astype(np.float32))
+        return out
+
+    def round_table(self, epoch: int, alive=None) -> np.ndarray:
+        """The gossip table of ``epoch``'s resample round: a function of
+        ``(seed, epoch // resample_every, alive)``."""
+        n, k = self.base.nbr.shape
+        rnd = int(epoch) // self.resample_every
+        return sample_gossip(gossip_uniforms(self.seed, rnd, n), k, alive)
+
+    def refresh_table(self, epoch: int, nbr, alive=None) -> np.ndarray:
+        """The carried table after ``epoch``: redrawn at round
+        boundaries (``epoch % resample_every == 0``), else ``nbr``."""
+        if self.resample_every <= 0 or int(epoch) % self.resample_every:
+            return nbr
+        return self.round_table(epoch, alive)
+
+    def with_table(self, nbr) -> Topology:
+        """The epoch's ``Topology`` around a gossip table: all-True mask,
+        the dense annotations gathered onto the fresh edges."""
+        nbr = np.asarray(nbr, np.int32)
+        n, k = nbr.shape
+        dst = np.arange(n)[:, None]
+        if self.dense_delay is not None:
+            delay = np.asarray(self.dense_delay, np.int32)[nbr, dst]
+        else:
+            delay = np.full((n, k), self._uniform_base_delay(), np.int32)
+        if self.dense_relevance is not None:
+            rel = np.asarray(self.dense_relevance, np.float32)[nbr, dst]
+        else:
+            rel = np.ones((n, k), np.float32)
+        return Topology(nbr=nbr, mask=np.ones((n, k), bool), delay=delay,
+                        relevance=rel)
+
+    def at_epoch(self, epoch: int, alive=None) -> Topology:
+        """The graph in force at ``epoch``: the base itself when nothing
+        resamples."""
+        if self.resample_every <= 0:
+            return self.base
+        return self.with_table(self.round_table(epoch, alive))
+
+
 def _torus_dims(n: int):
     """Most-square rows × cols factorisation of n."""
     r = int(math.isqrt(n))
@@ -224,10 +384,12 @@ def _torus_dims(n: int):
     return r, n // r
 
 
-def make_topology(spec, delay=None, relevance=None) -> Topology:
-    """The static topology named by a ``GroupSpec`` (``topology``,
-    ``degree``, ``topology_seed``), with optional dense or per-edge
-    ``delay`` / ``relevance`` overrides attached."""
+def make_topology(spec, delay=None, relevance=None):
+    """The topology named by a ``GroupSpec`` (``topology``, ``degree``,
+    ``topology_seed``), with optional dense or per-edge ``delay`` /
+    ``relevance`` overrides attached. With ``resample_every > 0``
+    (random_k only) it is a ``DynamicTopology`` carrying dense
+    overrides."""
     n = spec.n_agents
     name = spec.topology
     if name == "full":
@@ -244,6 +406,16 @@ def make_topology(spec, delay=None, relevance=None) -> Topology:
         topo = hierarchical(n, pod_size=spec.degree)
     else:
         raise ValueError(f"unknown topology {name!r}")
+    resample = getattr(spec, "resample_every", 0)
+    if resample > 0:
+        if name != "random_k":
+            raise ValueError(
+                f"resample_every > 0 needs topology='random_k', "
+                f"got {name!r}")
+        return DynamicTopology(
+            base=topo, resample_every=resample,
+            seed=spec.topology_seed).with_dense(delay=delay,
+                                                relevance=relevance)
     if relevance is not None:
         topo = topo.with_relevance(relevance)
     if delay is not None:

@@ -1,10 +1,14 @@
-"""Reference state → port state, for holding the port against the JAX
-package on the same inputs.
+"""Reference state ↔ port state, for holding the port against the JAX
+package on the same inputs and for checkpoints both packages read.
 
 Every function takes the reference's structures with numpy leaves
 (``jax.tree.map(np.asarray, x)`` on the reference side) and returns the
-port's tensors. Parameter-shaped pytrees become flat rows through a
-:class:`~repro_torch.common.pytree.PlaneLayout`, in the reference's
+port's tensors; ``group_tree`` goes the other way, from a port
+``GroupState`` to the reference's nest with numpy leaves (the
+structure ``repro_torch.checkpoint.npz`` writes under the reference's
+key paths), and ``group_state`` back. Parameter-shaped pytrees become
+flat rows through a :class:`~repro_torch.common.pytree.PlaneLayout`, in
+the reference's
 leaf order, so both sides then compute the same thing. Int8 stores and
 delay lines keep their int8 planes, and their per-leaf scale leaves
 (…, ⌈size / q_block⌉) are laid side by side in leaf order into the
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.common.pytree import (PlaneLayout, tree_leaves_with_paths,
                                        tree_map)
+from repro_torch.core.exchange.estimators import ObsStatsState
 from repro_torch.core.knowledge import KnowledgeStore, SparseInFlight
 from repro_torch.rl.a2c import A2CState
 from repro_torch.rl.dqn import DQNState, Replay
@@ -127,34 +132,138 @@ def knowledge_store(store, layout: PlaneLayout, device="cpu",
     built with ``q_block``) → flat (n, m, P) planes."""
     grads, scale, blocks = _planes(store.grads, store.scale, layout,
                                    q_block, device)
+    born = getattr(store, "born", None)
     return KnowledgeStore(
         grads=grads,
         T=_t(store.T, device, torch.float32),
         R=_t(store.R, device, torch.float32),
         valid=_t(store.valid, device, torch.bool),
         ptr=_t(store.ptr, device, torch.int32),
-        scale=scale, blocks=blocks)
+        scale=scale, blocks=blocks,
+        born=None if born is None else _t(born, device, torch.int32))
 
 
 def sparse_inflight(flight, layout: PlaneLayout, device="cpu",
-                    q_block: int = 0) -> SparseInFlight:
+                    q_block: int = 0, leaves=None) -> SparseInFlight:
     """A reference ``SparseInFlight`` (leaves (n, k, D+2, *param), and
     for an int8 line scale leaves (n, k, D+2, nb_leaf)) → flat
-    (n, k, D+2, P) planes."""
+    (n, k, D+2, P) planes, with its ``chk`` and ``born`` planes when it
+    has them. A transport line needs ``leaves``, the rows'
+    ``repro_torch.core.transport.LeafTable`` (by default the layout's)."""
     grads, scale, blocks = _planes(flight.grads, flight.scale, layout,
                                    q_block, device)
+    chk, born = getattr(flight, "chk", None), getattr(flight, "born", None)
+    if chk is not None and leaves is None:
+        from repro_torch.core.transport import LeafTable
+        leaves = LeafTable.of(layout.size, layout, blocks)
     return SparseInFlight(
         grads=grads,
         T=_t(flight.T, device, torch.float32),
         R=_t(flight.R, device, torch.float32),
         valid=_t(flight.valid, device, torch.bool),
-        scale=scale, blocks=blocks)
+        scale=scale, blocks=blocks,
+        chk=None if chk is None else _t(chk, device, torch.float32),
+        born=None if born is None else _t(born, device, torch.int32),
+        leaves=None if chk is None else leaves)
 
 
-def relevance(state, device="cpu") -> torch.Tensor:
-    """The reference's (n, n) learned relevance state
-    (``GroupState.relevance`` of the gradient estimators)."""
+def relevance(state, device="cpu"):
+    """The reference's learned relevance state (``GroupState.relevance``):
+    the gradient estimators' (n, n) matrix, or ``obs_stats``'s moments
+    (``ObsStatsState``)."""
+    if hasattr(state, "_fields"):
+        return ObsStatsState(*(_t(x, device, torch.float32) for x in state))
     return _t(state, device, torch.float32)
+
+
+# ---------------------------------------------------------------------
+# a whole buffer-trainer GroupState, both ways
+# ---------------------------------------------------------------------
+def _np(x) -> np.ndarray:
+    return x.detach().to("cpu").numpy()
+
+
+def _rows_tree(flat: torch.Tensor, layout: PlaneLayout):
+    leaves = tree_leaves_with_paths(layout.unflatten(flat))
+    return layout.build([_np(x) for _, x in leaves])
+
+
+def _scale_tree(scale: torch.Tensor, layout: PlaneLayout, blocks):
+    cols = [scale[..., off:off + -(-size // blocks.q_block)]
+            for off, size in zip(blocks.scale_offsets, blocks.sizes)]
+    return layout.build([_np(c) for c in cols])
+
+
+def _planes_tree(x, layout: PlaneLayout):
+    """A port store or delay line → the reference's, numpy leaves."""
+    kw = {name: _np(getattr(x, name))
+          for name in ("T", "R", "valid", "ptr", "chk", "born")
+          if getattr(x, name, None) is not None}
+    kw["grads"] = _rows_tree(x.grads, layout)
+    if x.scale is not None:
+        kw["scale"] = _scale_tree(x.scale, layout, x.blocks)
+    return type(x)(**kw)
+
+
+def _agent_tree(state, layout: PlaneLayout):
+    """A port ``A2CState`` / ``DQNState`` → the reference's, numpy
+    leaves (replay actions as the reference's int32)."""
+    kw = {}
+    for name, v in zip(state._fields, state):
+        if name in ("params", "target_params"):
+            kw[name] = _rows_tree(v, layout)
+        elif name == "opt_state":
+            kw[name] = {k: (_rows_tree(x, layout) if k in ("m", "v")
+                            else _np(x)) for k, x in v.items()}
+        elif name == "replay":
+            kw[name] = Replay(*(_np(x).astype(np.int32) if f == "actions"
+                                else _np(x)
+                                for f, x in zip(v._fields, v)))
+        else:
+            kw[name] = _np(v)
+    return type(state)(**kw)
+
+
+def group_tree(gs, layout: PlaneLayout):
+    """A port ``GroupState`` → the reference's ``GroupState`` nest with
+    numpy leaves (parameter-shaped rows split into the layout's leaves,
+    int8 scale columns into per-leaf arrays), under the port's own
+    NamedTuple types, whose field names are the reference's."""
+    rel = gs.relevance
+    return type(gs)(
+        agent_states=_agent_tree(gs.agent_states, layout),
+        stores=_planes_tree(gs.stores, layout),
+        flight=_planes_tree(gs.flight, layout),
+        epoch=np.asarray(gs.epoch, np.int32),
+        relevance=(ObsStatsState(*(_np(x) for x in rel))
+                   if hasattr(rel, "_fields") else _np(rel)),
+        nbr=np.asarray(gs.nbr, np.int32),
+        alive=None if gs.alive is None else np.asarray(gs.alive, bool))
+
+
+def group_state(tree, layout: PlaneLayout, like):
+    """The inverse of ``group_tree``: a reference-shaped ``GroupState``
+    nest with numpy leaves → a port ``GroupState`` on the device of
+    ``like``, a port state of the same trainer (its agent-state type,
+    block and leaf tables)."""
+    dev = like.stores.T.device
+    blocks = like.stores.blocks
+    q_block = 0 if blocks is None else blocks.q_block
+    convert = {A2CState: a2c_state, DQNState: dqn_state}.get(
+        type(like.agent_states))
+    if convert is None:
+        raise ValueError(f"no conversion for agent state "
+                         f"{type(like.agent_states).__name__}")
+    return type(like)(
+        agent_states=convert(tree.agent_states, layout, dev),
+        stores=knowledge_store(tree.stores, layout, dev, q_block),
+        flight=sparse_inflight(tree.flight, layout, dev, q_block,
+                               like.flight.leaves),
+        epoch=int(tree.epoch),
+        relevance=relevance(tree.relevance, dev),
+        nbr=np.asarray(tree.nbr, np.int32),
+        alive=(None if getattr(tree, "alive", None) is None
+               else np.asarray(tree.alive, bool)))
 
 
 # ---------------------------------------------------------------------

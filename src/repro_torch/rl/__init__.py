@@ -1,7 +1,6 @@
 """RL substrate for the paper's experiments: CartPole-v0 and GridWorld,
 A2C and double-dueling-DQN agents exposing the DDAL callback protocol
-(port of ``repro.rl``; ``obs_moments`` waits for the ``obs_stats``
-estimator)."""
+(port of ``repro.rl``)."""
 from repro_torch.rl.a2c import (  # noqa: F401
     A2CState,
     a2c_loss,
@@ -21,5 +20,6 @@ from repro_torch.rl.envs import CartPole, GridWorld  # noqa: F401
 from repro_torch.rl.rollout import (  # noqa: F401
     Trajectory,
     episode_return,
+    obs_moments,
     run_episode,
 )

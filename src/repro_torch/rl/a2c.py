@@ -23,7 +23,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import PlaneLayout
 from repro_torch.optim import Optimizer
 from repro_torch.rl import networks as nets
-from repro_torch.rl.rollout import Trajectory, episode_return, run_episode
+from repro_torch.rl.rollout import (Trajectory, episode_return, obs_moments,
+                                    run_episode)
 
 
 class A2CState(NamedTuple):
@@ -77,9 +78,13 @@ def a2c_loss(params, traj: Trajectory, gamma: float,
 
 
 def make_a2c_callbacks(env, opt: Optimizer, layout: PlaneLayout,
-                       gamma: float = 0.99, entropy_coef: float = 0.01):
+                       gamma: float = 0.99, entropy_coef: float = 0.01,
+                       track_obs: bool = False):
     """(gen_grads, apply_grads, params_of) for
-    ``repro_torch.core.ddal.DDAL``, over the whole group at once."""
+    ``repro_torch.core.ddal.DDAL``, over the whole group at once. With
+    ``track_obs`` the metrics carry each episode's observation moments
+    (``obs_moments``), the side channel of the ``obs_stats``
+    estimator."""
 
     def gen_grads(state: A2CState, gen: torch.Generator):
         n = state.params.shape[0]
@@ -96,6 +101,8 @@ def make_a2c_callbacks(env, opt: Optimizer, layout: PlaneLayout,
                         entropy_coef=entropy_coef)
         (grads,) = torch.autograd.grad(loss.sum(), flat)
         metrics = {"loss": loss.detach(), "return": episode_return(traj)}
+        if track_obs:
+            metrics["obs_moments"] = obs_moments(traj)
         return grads, metrics, state
 
     def apply_grads(state: A2CState, grads: torch.Tensor) -> A2CState:
@@ -119,7 +126,9 @@ def make_a2c_group(env, opt: Optimizer, spec, gen: torch.Generator, *,
     Runs on the CUDA card unless ``device="cpu"``; ``gen`` draws the
     initial weights and must live on that device. ``topology`` /
     ``relevance`` / ``delay`` override the graph and its annotations
-    as in the reference. Returns (ddal, group_state)."""
+    as in the reference; with ``spec.exchange_estimator="obs_stats"``
+    the callbacks stream each episode's observation moments. Returns
+    (ddal, group_state)."""
     from repro_torch.core.ddal import DDAL
     from repro_torch.core.exchange import build_exchange
     dev = resolve_device(device)
@@ -127,10 +136,12 @@ def make_a2c_group(env, opt: Optimizer, spec, gen: torch.Generator, *,
         raise ValueError(
             f"generator lives on {gen.device}, the group on {dev}")
     exchange = build_exchange(spec, topology=topology,
-                              relevance=relevance, delay=delay)
+                              relevance=relevance, delay=delay,
+                              obs_dim=env.obs_dim)
     astates, layout = init_a2c(gen, spec.n_agents, env, opt, hidden)
     gen_g, app, pof = make_a2c_callbacks(env, opt, layout, gamma=gamma,
-                                         entropy_coef=entropy_coef)
+                                         entropy_coef=entropy_coef,
+                                         track_obs=exchange.wants_obs)
     ddal = DDAL(spec, gen_g, app, pof, exchange=exchange, device=dev,
                 layout=layout)
     return ddal, ddal.init(astates)

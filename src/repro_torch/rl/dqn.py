@@ -22,10 +22,9 @@ two hooks that a test replaces with the reference's recorded draws:
 ``explore_draws`` (each step's ε-greedy uniform and random action) and
 ``sample_indices`` (the replay minibatch).
 
-The reference's ``track_obs`` side channel (each episode's
-``obs_moments`` for the ``obs_stats`` relevance estimator) is not
-ported: that estimator still raises ``NotPortedError`` in
-``GroupSpec``.
+With ``track_obs`` the metrics carry each episode's observation
+moments (``rollout.obs_moments``) for the ``obs_stats`` relevance
+estimator, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +37,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import PlaneLayout
 from repro_torch.optim import Optimizer
 from repro_torch.rl import networks as nets
-from repro_torch.rl.rollout import Trajectory, episode_return, run_episode
+from repro_torch.rl.rollout import (Trajectory, episode_return, obs_moments,
+                                    run_episode)
 
 
 class Replay(NamedTuple):
@@ -234,9 +234,11 @@ def dqn_loss(params, target_params, batch, gamma: float) -> torch.Tensor:
 
 
 def make_dqn_callbacks(env, opt: Optimizer, cfg: DQNConfig,
-                       layout: PlaneLayout):
+                       layout: PlaneLayout, track_obs: bool = False):
     """(gen_grads, apply_grads, params_of) for
-    ``repro_torch.core.ddal.DDAL``, over the whole group at once."""
+    ``repro_torch.core.ddal.DDAL``, over the whole group at once. With
+    ``track_obs`` the metrics carry each episode's observation moments
+    (``obs_moments``)."""
 
     def gen_grads(state: DQNState, gen: torch.Generator):
         n = state.params.shape[0]
@@ -263,6 +265,8 @@ def make_dqn_callbacks(env, opt: Optimizer, cfg: DQNConfig,
         new_state = state._replace(replay=replay, eps_t=state.eps_t + 1)
         metrics = {"loss": loss.detach(), "return": episode_return(traj),
                    "epsilon": eps}
+        if track_obs:
+            metrics["obs_moments"] = obs_moments(traj)
         return grads, metrics, new_state
 
     def apply_grads(state: DQNState, grads: torch.Tensor) -> DQNState:
@@ -289,7 +293,9 @@ def make_dqn_group(env, opt: Optimizer, spec, gen: torch.Generator,
     Runs on the CUDA card unless ``device="cpu"``; ``gen`` draws the
     initial weights and must live on that device. ``topology`` /
     ``relevance`` / ``delay`` override the graph and its annotations
-    as in the reference. Returns (ddal, group_state)."""
+    as in the reference; with ``spec.exchange_estimator="obs_stats"``
+    the callbacks stream each episode's observation moments. Returns
+    (ddal, group_state)."""
     from repro_torch.core.ddal import DDAL
     from repro_torch.core.exchange import build_exchange
     cfg = cfg or DQNConfig()
@@ -298,9 +304,11 @@ def make_dqn_group(env, opt: Optimizer, spec, gen: torch.Generator,
         raise ValueError(
             f"generator lives on {gen.device}, the group on {dev}")
     exchange = build_exchange(spec, topology=topology,
-                              relevance=relevance, delay=delay)
+                              relevance=relevance, delay=delay,
+                              obs_dim=env.obs_dim)
     astates, layout = init_dqn(gen, spec.n_agents, env, opt, cfg)
-    gen_g, app, pof = make_dqn_callbacks(env, opt, cfg, layout)
+    gen_g, app, pof = make_dqn_callbacks(env, opt, cfg, layout,
+                                         track_obs=exchange.wants_obs)
     ddal = DDAL(spec, gen_g, app, pof, exchange=exchange, device=dev,
                 layout=layout)
     return ddal, ddal.init(astates)

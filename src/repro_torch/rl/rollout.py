@@ -8,7 +8,7 @@ are those of the reference's ``lax.scan``. Tensors are agent-major:
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Tuple
 
 import torch
 
@@ -41,3 +41,15 @@ def run_episode(env, select_action: Callable, gen: torch.Generator,
 
 def episode_return(traj: Trajectory) -> torch.Tensor:
     return torch.sum(traj.rewards, dim=-1)
+
+
+def obs_moments(traj: Trajectory
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each agent's masked moment contributions of one episode's
+    observations: ``(obs_sum (n, d), sq_sum (n,), count (n,))``, the
+    side channel the ``obs_stats`` relevance estimator merges
+    (``metrics["obs_moments"]``). Post-terminal steps are masked out."""
+    m = traj.mask[..., None]
+    obs_sum = torch.sum(traj.obs * m, dim=1)
+    sq_sum = torch.sum(torch.square(traj.obs) * m, dim=(1, 2))
+    return obs_sum, sq_sum, torch.sum(traj.mask, dim=1)

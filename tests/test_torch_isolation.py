@@ -41,7 +41,10 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.benchmarks.paper_fig2_a2c",
              "repro_torch.benchmarks.paper_fig5_dqn",
              "repro_torch.benchmarks.paper_fig34_scaling",
-             "repro_torch.examples.quickstart"):
+             "repro_torch.examples.quickstart",
+             "repro_torch.examples.heterogeneous_group",
+             "repro_torch.checkpoint.npz", "repro_torch.core.chaos",
+             "repro_torch.core.transport", "repro_torch.core.group_mdp"):
     assert name in names, name
 print(len(names))
 """
