@@ -44,10 +44,19 @@ Phases, each printing its lines:
    ``obs_stats`` relevance on ``dynamic`` gossip; mamba2-780m
    and llama3.2-3b at their published widths and depth served by
    ``repro_torch.launch.serve`` (``[serve]``: 4 requests of up to 1023
-   prompt tokens, prefill and 32 greedy tokens each); and llama3.2-3b
+   prompt tokens, prefill and 32 greedy tokens each); llama3.2-3b
    scoring 2 x 4096 ids through ``get_model(cfg).forward`` / ``.loss``
    without a cache (``[score]``: the flash kernel in every layer), with
-   a profile of one scoring pass;
+   a profile of one scoring pass, and its ``ServeEngine.decode`` under
+   ``torch.cuda.set_sync_debug_mode("error")`` (``[nosync]``); the slot
+   engines at full width and depth: ``[continuous] mamba2-780m`` (8
+   requests through 2 slots), ``[group] mamba2-780m`` (4 agents, 4
+   slots, 16 requests, a hot swap after 8) and ``[group] llama3.2-3b``
+   (2 agents, 2 slots, 4 requests), each request's first token against
+   the fixed-batch engine on its admitted planes and one synchronizing
+   call per step, ``[exact]`` the same engines in fp32 compute with
+   every token equal, and ``[load] mamba2-780m``, the load bench's twin
+   (open-loop Poisson arrivals, a hot swap, its three gates);
 5. the card against the port's CPU path: small DDA3C groups with seeded
    gradients, fp32 and int8 + learned relevance; a small DDADQN group
    with seeded gradients (target syncs included) and ``dqn_loss`` with
@@ -55,7 +64,8 @@ Phases, each printing its lines:
    cut to n = 6 on seeded gradients, and a checkpoint written on the
    card restored on the CPU; the serving paths at
    mamba2-780m's and llama3.2-3b's widths cut to 2 layers with fp32
-   compute; the llama scoring pass at the same cut;
+   compute; the llama scoring pass at the same cut; the continuous and
+   group engines at both cuts (step logits within 1e-4, tokens equal);
 6. a profile of a few main-path epochs of the quickstart group, of
    the fourth run's configuration and of the DDADQN n = 2 group (the
    device's busy share, the ops that take the time and the host-clock
@@ -71,6 +81,7 @@ does a machine with no CUDA card.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -811,6 +822,12 @@ def ssd_kernel_phase(torch, built):
               0, False, False),
              ("dt = 0 padding at the main path's shape", (2, 4, 256, 48, 64,
                                                          128, 1), bf16, 70,
+              False, False),
+             ("the slot engines' B = 1 prefill, nc = 1", (1, 1, 256, 48, 64,
+                                                         128, 1), bf16, 0,
+              False, False),
+             ("the slot engines' B = 1 prefill, nc = 4", (1, 4, 256, 48, 64,
+                                                         128, 1), bf16, 0,
               False, False)] + [
         (f"bf16 {label}", shape, bf16, 0, False, False)
         for label, shape in SSD_BF16_EDGES]
@@ -1870,8 +1887,8 @@ def equiv_serve_phase(torch, arch, prompts, cut=None):
         reset_launches()
         t0 = time.perf_counter()
         results[dev] = []
-        for toks, lens in serve_batches(prompts, 2, device=dev):
-            logits, cache = engine.prefill(toks, lens)
+        for toks, lens in serve_batches(prompts, 2, device="cpu"):
+            logits, cache = engine.prefill(toks.to(dev), lens)
             out = engine.decode(logits, cache, lens)
             results[dev].append((logits.cpu(), out.cpu()))
         secs[dev] = time.perf_counter() - t0
@@ -1954,7 +1971,8 @@ def profile_serve_phase(torch, prompts, ssd_kernels):
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
     engine = ServeEngine(cfg, params, ServeConfig(max_len=128,
                                                   max_new_tokens=5))
-    toks, lens = serve_batches(prompts[:2], 2, device="cuda")[0]
+    toks, lens = serve_batches(prompts[:2], 2, device="cpu")[0]
+    toks = toks.to("cuda")
     engine.generate(toks, lens)                       # warm-up
     torch.cuda.synchronize()
     state = {}
@@ -2064,6 +2082,584 @@ def profile_score_phase(torch, cfg, params, flash_kernels):
                   f"device {dev_us:.0f} us, self host {cpu_us:.0f} us")
 
 
+# ---------------------------------------------------------------------
+# continuous batching and multi-tenant group serving
+# ---------------------------------------------------------------------
+SLOT_ARCH = "mamba2-780m"
+
+
+class _StepClock:
+    """Host ms of every ``SlotBatch.step`` while installed: each step
+    ends with its one device→host copy, so its host time is the step's
+    time."""
+
+    def __init__(self):
+        from repro_torch.serving import continuous
+        self._cls, self.ms = continuous.SlotBatch, []
+        self._orig = self._cls.step
+
+    def __enter__(self):
+        orig, ms = self._orig, self.ms
+
+        def timed(slots, *args, **kw):
+            t0 = time.perf_counter()
+            out = orig(slots, *args, **kw)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        self._cls.step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.step = self._orig
+
+    def summary(self) -> str:
+        ms = sorted(self.ms)
+        return (f"{len(ms)} steps, ms per step median "
+                f"{ms[len(ms) // 2]:.2f}, min {ms[0]:.2f}, max {ms[-1]:.2f}")
+
+
+def _padded_prompt(torch, cfg, prompt, prompt_pad, max_len):
+    """(1, W) ids on the card and host lengths of ``prompt`` padded to
+    the width the slot engines prefill it at."""
+    from repro_torch.serving.continuous import prefill_width
+    toks = torch.zeros((1, prefill_width(cfg, prompt_pad, len(prompt),
+                                         max_len)), dtype=torch.int32)
+    toks[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+    return toks.to("cuda"), [len(prompt)]
+
+
+def _alone(torch, cfg, params, serve, prompt, prompt_pad):
+    """The fixed-batch ServeEngine's greedy tokens for ``prompt`` alone
+    (B = 1), padded as the slot engines pad it, and the logits (V,) of
+    each decode step, on the host."""
+    import dataclasses
+
+    from repro_torch.serving import ServeEngine
+    toks, lens = _padded_prompt(torch, cfg, prompt, prompt_pad,
+                                serve.max_len)
+    engine = ServeEngine(cfg, params, serve)
+    rows = []
+
+    def decode(*args):
+        logits, cache = model_decode(*args)
+        rows.append(logits[0, -1].float().clone())
+        return logits, cache
+
+    model_decode = engine.model.decode
+    engine.model = dataclasses.replace(engine.model, decode=decode)
+    logits, cache = engine.prefill(toks, lens)
+    out = engine.decode(logits, cache, lens)[0].tolist()
+    return out, [r.cpu() for r in rows]
+
+
+class _SlotLogits:
+    """Each request's decode-step logits (V,) in a slot engine: wraps
+    the engine's decode (``attr``) and keeps the rows on the card until
+    :meth:`rows` (no copy inside a step)."""
+
+    def __init__(self, engine, attr, slots_of):
+        self.engine, self.attr, self._slots_of = engine, attr, slots_of
+        self._orig = getattr(engine, attr)
+        self._steps = []
+        assert attr not in vars(engine)        # a method of the class
+
+        def wrapped(*args):
+            live = {i: s.request_id for i, s in
+                    enumerate(self._slots_of()) if not s.done}
+            logits, cache = self._orig(*args)
+            self._steps.append((live, logits[:, -1].float().clone()))
+            return logits, cache
+
+        setattr(engine, attr, wrapped)
+
+    def remove(self):
+        # back to the class's method: no engine → wrapper → engine cycle
+        # keeps the engine's planes alive past the phase
+        delattr(self.engine, self.attr)
+
+    def rows(self):
+        out = {}
+        for live, logits in self._steps:
+            host = logits.cpu()
+            for i, rid in live.items():
+                out.setdefault(rid, []).append(host[i])
+        self._steps = []
+        return out
+
+
+def _first_diff(a, b):
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                None if len(a) == len(b) else min(len(a), len(b)))
+
+
+FP32_LOGITS = 1e-3     # × max|logit|, full depth in fp32 compute
+
+
+def _agree(got, want, got_rows, want_rows, gate=None):
+    """Whether a slot engine's greedy tokens agree with the fixed-batch
+    engine's on the same prompt and weights. The first token comes from
+    the same B = 1 prefill and must be equal. The slot engines' decode
+    products run other cuBLAS kernels (per-slot weights as a batched
+    product, B rows instead of 1), which sum in other orders; with
+    ``gate`` (× max|logit|) every decode step's logits up to the first
+    token that differs must lie within it of the fixed-batch engine's,
+    and a differing token must be a near tie: the fixed-batch engine's
+    logit for the slot engine's token within twice that step's largest
+    logit difference of its best. Returns (ok, what, the largest step
+    difference over max|logit| before the tokens part)."""
+    t = _first_diff(got, want)
+    n = len(want) - 1 if t is None else t
+    if t == 0 or len(got_rows) < n or len(want_rows) < n:
+        return False, f"first token or step count differs (at {t})", 1.0
+    share = 0.0
+    for s in range(n):
+        d = float((got_rows[s] - want_rows[s]).abs().max())
+        share = max(share, d / float(want_rows[s].abs().max()))
+        if gate is not None and share > gate:
+            return False, f"step {s + 1} logits apart by {d:.3e}", share
+    if t is None:
+        return True, "equal", share
+    w = want_rows[t - 1]
+    gap = float(w[want[t]] - w[got[t]])
+    d = float((got_rows[t - 1] - w).abs().max())
+    return (gate is None or gap <= 2 * d,
+            f"from token {t} (gap {gap:.3e}, logits apart by {d:.3e})",
+            share)
+
+
+def _agreement(results, rows, alone, gate=None):
+    """``_agree`` for every request ({rid: (tokens, rows)} of the
+    fixed-batch engine in ``alone``) → (summary, the requests that
+    disagree)."""
+    verdicts = {rid: _agree(results.get(rid, []), alone[rid][0],
+                            rows.get(rid, []), alone[rid][1], gate)
+                for rid in alone}
+    equal = sum(v[1] == "equal" for v in verdicts.values())
+    apart = {rid: v[1] for rid, v in verdicts.items()
+             if v[0] and v[1] != "equal"}
+    bad = {rid: v[1] for rid, v in verdicts.items() if not v[0]}
+    text = (f"first tokens equal in {len(alone) - len(bad)} of "
+            f"{len(alone)}, all tokens in {equal}"
+            + (f", apart {apart}" if apart else "")
+            + f"; step logits apart by at most "
+              f"{max(v[2] for v in verdicts.values()):.2e} of max|logit| "
+              f"before the tokens part"
+            + ("" if gate is None else f" (gate {gate:g})"))
+    return text, bad
+
+
+def continuous_phase(torch):
+    """[continuous] mamba2-780m at its published widths and depth:
+    8 requests drawn as the launcher draws them (seed 0, prompt-len
+    1024) through 2 slots (prompt_pad 16, max_len 1056, 32 greedy
+    tokens), kernel counts zeroed just before and read just after: every
+    request completes, each one's first token equals the fixed-batch
+    ServeEngine's on that prompt alone (the same B = 1 prefill; how many
+    requests agree in every token and how far the step logits drift in
+    bf16 is printed, ``_agree``), and the SSD kernel runs 48 times per
+    admission (one B = 1 prefill each)."""
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.models import get_model
+    from repro_torch.serving import ContinuousBatcher, ServeConfig
+
+    label = f"[continuous] {SLOT_ARCH}"
+    cfg = get_arch_config(SLOT_ARCH)
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    prompts = draw_prompts(cfg.vocab_size, 8, 1024, 0)
+    serve = ServeConfig(max_len=1056, max_new_tokens=32)
+    batcher = ContinuousBatcher(cfg, params, serve, batch_size=2,
+                                prompt_pad=16)
+    recorder = _SlotLogits(batcher, "_decode", lambda: batcher.slots)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with _StepClock() as clock:
+        t0 = time.perf_counter()
+        out = batcher.run(prompts)
+        secs = time.perf_counter() - t0
+    recorder.remove()
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in KERNELS}
+    want["ssd_intra_chunk"] = cfg.n_layers * len(prompts)
+    alone = {rid: _alone(torch, cfg, params, serve, pr, 16)
+             for rid, pr in enumerate(prompts)}
+    text, bad = _agreement(out, recorder.rows(), alone)
+    print(f"{label}: {len(prompts)} requests (prompt lengths "
+          f"{[len(p) for p in prompts]}) through 2 slots, 32 greedy tokens, "
+          f"in {secs:.2f} s; decode {clock.summary()}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items())
+          + f"; {text}")
+    check(sorted(out) == list(range(len(prompts)))
+          and all(len(v) == 32 for v in out.values()),
+          f"{label}: not every request completed with 32 tokens")
+    check(launched == want, f"{label}: launches {launched} != {want} "
+                            f"({cfg.n_layers} layers x {len(prompts)} "
+                            f"admissions)")
+    check(not bad, f"{label}: first tokens differ from the fixed-batch "
+                   f"engine's: {bad}")
+    return {"ssd_intra_chunk": {label: launched["ssd_intra_chunk"]}}
+
+
+def _single_agent_steps(torch, cfg, params, serve, prompts, slots):
+    """Decode-step times of the single-tenant ContinuousBatcher at
+    ``slots`` slots on ``prompts``."""
+    from repro_torch.serving import ContinuousBatcher
+    with _StepClock() as clock:
+        ContinuousBatcher(cfg, params, serve, batch_size=slots,
+                          prompt_pad=16).run(prompts)
+    return clock
+
+
+def _product_probe(torch, cfg, planes, slots):
+    """Whether cuBLAS gives a row the same sums in the group step's
+    per-slot batched product, (slots, 1, K) @ (slots, K, N), as in the
+    fixed-batch engine's (slots, K) @ (K, N), for each matrix of
+    agent 0's layer 0 at the compute dtype, on seeded rows → (bitwise
+    count, total, the (name, K, N) that differ)."""
+    from repro_torch.common.pytree import tree_leaves_with_paths
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cdt = cfg.dtype("compute")
+    differ, total = [], 0
+    for path, leaf in tree_leaves_with_paths(planes["layers"]):
+        if leaf.ndim != 4 or "conv" in str(path[-2]):   # (A, L, K, N)
+            continue                                    # products only
+        w = leaf[0, 0].to(cdt)
+        K, N = w.shape
+        x = torch.randn((slots, 1, K), generator=gen, device="cuda").to(cdt)
+        total += 1
+        if not torch.equal(x @ w, x @ w.expand(slots, K, N).contiguous()):
+            differ.append(("/".join(map(str, path)), K, N))
+    return total - len(differ), total, differ
+
+
+def group_phase(torch, arch, n_agents, slots, n_requests):
+    """[group] ``arch`` at its published widths and depth: ``n_agents``
+    agents' fp32 planes (agent a from seed a), ``slots`` slots,
+    ``n_requests`` requests (the launcher's draw, seed 0, prompt-len
+    1024) round-robin over the agents, 16 greedy tokens, and planes from
+    seeds 100 + a published (handed over) after half the requests
+    finished. Every request's first token equals the single-agent
+    ServeEngine's on the planes of the version it was admitted under
+    (agreement in every token and the bf16 drift printed, ``_agree``;
+    ``[exact]`` holds every token in fp32); requests admitted after the
+    swap carry version 1;
+    SSD launches 48 per admission for mamba2-780m, none for
+    llama3.2-3b. Then one step
+    with every slot live and nothing queued, under
+    ``torch.cuda.set_sync_debug_mode("warn")``: exactly one
+    synchronizing call (the step's device→host copy)."""
+    import warnings
+
+    from repro_torch.common.pytree import tree_leaves_with_paths, tree_map
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.serve import agent_planes, draw_prompts
+    from repro_torch.serving import (GroupRequest, GroupServeEngine,
+                                     ParamStore, ServeConfig, ServeMetrics)
+
+    label = f"[group] {arch}"
+    cfg = get_arch_config(arch)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    store = ParamStore(agent_planes(cfg, n_agents, 0, "cuda"), donate=True)
+    planes_by_version = {0: store.acquire()[0]}
+    serve = ServeConfig(max_len=1056, max_new_tokens=16)
+    metrics = ServeMetrics()
+    engine = GroupServeEngine(cfg, store, serve, batch_size=slots,
+                              prompt_pad=16, metrics=metrics)
+    prompts = draw_prompts(cfg.vocab_size, n_requests, 1024, 0)
+    reqs = [GroupRequest(rid, rid % n_agents, pr)
+            for rid, pr in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    recorder = _SlotLogits(engine, "decode_step", lambda: engine._slots)
+    reset_launches()
+    finished, swapped = 0, False
+    with _StepClock() as clock:
+        t0 = time.perf_counter()
+        while not engine.idle:
+            finished += len(engine.step())
+            if not swapped and finished >= n_requests // 2:
+                store.publish(agent_planes(cfg, n_agents, 100, "cuda"),
+                              donate=True)
+                metrics.observe_swap()
+                planes_by_version[1] = store.acquire()[0]
+                swapped = True
+        secs = time.perf_counter() - t0
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    recorder.remove()
+    want = {name: 0 for name in KERNELS}
+    if cfg.family == "ssm":
+        want["ssd_intra_chunk"] = cfg.n_layers * n_requests
+    results = dict(engine.results)
+    versions = {r.rid: metrics.traces[r.rid].version for r in reqs}
+    alone = {r.rid: _alone(torch, cfg,
+                           tree_map(lambda p: p[r.agent_id],
+                                    planes_by_version[versions[r.rid]]),
+                           serve, list(r.prompt), 16) for r in reqs}
+    text, bad = _agreement(results, recorder.rows(), alone)
+    after = [rid for rid, v in versions.items() if v == 1]
+    single = _single_agent_steps(
+        torch, cfg, tree_map(lambda p: p[0], planes_by_version[1]), serve,
+        prompts[:2 * slots], slots)
+    # one step with every slot live and nothing queued
+    engine.reset()
+    for r in reqs[:slots]:
+        engine.submit(r)
+    engine.step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    engine.drain()
+    gb = sum(t.numel() * t.element_size() for _, t in
+             tree_leaves_with_paths(planes_by_version[0])) / 1e9
+    same_sums, n_mats, differ = _product_probe(torch, cfg,
+                                               planes_by_version[0], slots)
+    print(f"{label}: {n_agents} agents' fp32 planes ({gb:.2f} GB), {slots} "
+          f"slots, {n_requests} requests round-robin, 16 greedy tokens, "
+          f"publish after {n_requests // 2} finished, in {secs:.2f} s; group "
+          f"{clock.summary()}; single-agent ContinuousBatcher at {slots} "
+          f"slots: {single.summary()}; peak memory {peak / 2 ** 30:.3f} GiB; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launched.items())
+          + f"; versions by request {[versions[r.rid] for r in reqs]}; "
+          f"against the single-agent ServeEngine on the admitted version's "
+          f"planes: {text} (cuBLAS sums a row alike in the per-slot and "
+          f"the fixed-batch product for {same_sums} of {n_mats} layer "
+          f"matrices; differ: {differ}); synchronizing calls in one full "
+          f"step: "
+          f"{len(syncs)}" + ("" if len(syncs) == 1 else f" {syncs}"))
+    check(sorted(results) == list(range(n_requests))
+          and all(len(v) == 16 for v in results.values()),
+          f"{label}: not every request completed with 16 tokens")
+    check(launched == want, f"{label}: launches {launched} != {want}")
+    check(swapped and after and all(v == 1 for v in
+                                    list(versions.values())[min(after):]),
+          f"{label}: requests admitted after the swap do not carry "
+          f"version 1: {versions}")
+    check(not bad, f"{label}: first tokens differ from the single-agent "
+                   f"engine's: {bad}")
+    check(len(syncs) == 1, f"{label}: {len(syncs)} synchronizing calls in "
+                           f"one step, not the one copy: {syncs}")
+    if cfg.family != "ssm":
+        return {}
+    return {"ssd_intra_chunk": {label: launched["ssd_intra_chunk"]}}
+
+
+def exact_slots_phase(torch, arch, n_agents):
+    """[exact] ``arch`` at its published widths and depth with fp32
+    compute, where a different order of sums moves logits by ulps, not
+    by bf16 units: ``n_agents`` requests (the launcher's draw, seed 0,
+    prompt-len 1024), 8 greedy tokens, through the ContinuousBatcher (2
+    slots, agent 0's weights) and the GroupServeEngine (one request per
+    agent, one slot each); every request's tokens equal the fixed-batch
+    ServeEngine's on its agent's weights, a near tie excepted, and every
+    decode step's logits within FP32_LOGITS · max|logit| of its."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.serve import agent_planes, draw_prompts
+    from repro_torch.serving import (ContinuousBatcher, GroupRequest,
+                                     GroupServeEngine, ParamStore,
+                                     ServeConfig)
+
+    cfg = get_arch_config(arch).with_(compute_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    planes = agent_planes(cfg, n_agents, 0, "cuda")
+    serve = ServeConfig(max_len=1056, max_new_tokens=8)
+    prompts = draw_prompts(cfg.vocab_size, n_agents, 1024, 0)
+    agent = [lambda p, a=a: p[a] for a in range(n_agents)]
+    batcher = ContinuousBatcher(cfg, tree_map(agent[0], planes), serve,
+                                batch_size=2, prompt_pad=16)
+    rec = _SlotLogits(batcher, "_decode", lambda: batcher.slots)
+    out = batcher.run(prompts)
+    rec.remove()
+    alone = {rid: _alone(torch, cfg, tree_map(agent[0], planes), serve, pr,
+                         16) for rid, pr in enumerate(prompts)}
+    text_c, bad_c = _agreement(out, rec.rows(), alone, FP32_LOGITS)
+    engine = GroupServeEngine(cfg, ParamStore(planes, donate=True), serve,
+                              batch_size=n_agents, prompt_pad=16)
+    rec = _SlotLogits(engine, "decode_step", lambda: engine._slots)
+    out = engine.run([GroupRequest(a, a, prompts[a])
+                      for a in range(n_agents)])
+    rec.remove()
+    alone = {a: _alone(torch, cfg, tree_map(agent[a], planes), serve,
+                       prompts[a], 16) for a in range(n_agents)}
+    text_g, bad_g = _agreement(out, rec.rows(), alone, FP32_LOGITS)
+    print(f"[exact] {arch}, full width and depth, fp32 compute, "
+          f"{n_agents} requests x 8 greedy tokens, against the fixed-batch "
+          f"ServeEngine on each request's weights: continuous (2 slots) "
+          f"{text_c}; group ({n_agents} agents, one request each) {text_g} "
+          f"-> {'ok' if not bad_c and not bad_g else 'FAIL'}")
+    check(not bad_c and not bad_g, f"[exact] {arch}: the slot engines "
+                                   f"disagree with the fixed-batch engine: "
+                                   f"{bad_c} {bad_g}")
+
+
+def load_phase(torch):
+    """[load] mamba2-780m: the load bench's twin at full width
+    (``repro_torch.benchmarks.bench_serving --full --agents 4 --slots 4
+    --requests 32``, the reference's defaults otherwise: open-loop
+    Poisson arrivals at 0.6 of the calibrated capacity, a hot swap
+    mid-run), with its three gates (completeness, throughput ≥ 0.4 ×
+    offered, p50 ≤ 6x and p99 ≤ 15x the calibrated ideal); SSD launches
+    48 per admission (the calibration's 5 and the stream's 32)."""
+    import contextlib
+    import io
+
+    from repro_torch.benchmarks import bench_serving
+    from repro_torch.configs import get_arch_config
+
+    label = f"[load] {SLOT_ARCH}"
+    cfg = get_arch_config(SLOT_ARCH)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    path = ROOT / "build" / "BENCH_serving_torch.json"
+    path.parent.mkdir(exist_ok=True)
+    try:
+        with contextlib.redirect_stdout(out):
+            payload = bench_serving.main(
+                ["--arch", SLOT_ARCH, "--full", "--agents", "4", "--slots",
+                 "4", "--requests", "32", "--json", str(path)])
+    except SystemExit as exc:
+        print(out.getvalue())
+        raise SmokeFailure(f"{label}: {exc}")
+    launched = launch_counts()
+    for ln in out.getvalue().splitlines():
+        if ln.strip():
+            print(f"[load]   {ln}")
+    c, s, o = payload["calibration"], payload["summary"], payload["open_loop"]
+    g = payload["gates"]
+    want = {name: 0 for name in KERNELS}
+    want["ssd_intra_chunk"] = cfg.n_layers * (4 + 1 + 32)
+    print(f"{label}: t_step_s {c['t_step_s']:.5f}, t_prefill_s "
+          f"{c['t_prefill_s']:.5f}, capacity {c['capacity_tok_s']:.1f} tok/s, "
+          f"offered {o['offered_tok_s']:.1f} tok/s, achieved "
+          f"{s['throughput_tok_s']:.1f} tok/s, latency p50 "
+          f"{s['latency_p50']:.3f} s (bound {g['latency']['p50_bound']:.3f}), "
+          f"p99 {s['latency_p99']:.3f} s (bound "
+          f"{g['latency']['p99_bound']:.3f}), gates "
+          + ", ".join(f"{k} {'PASS' if v['pass'] else 'FAIL'}"
+                      for k, v in g.items())
+          + "; launches " + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    check(all(v["pass"] for v in g.values()), f"{label}: a gate failed")
+    check(launched == want, f"{label}: launches {launched} != {want}")
+    return {"ssd_intra_chunk": {label: launched["ssd_intra_chunk"]}}
+
+
+def _record_logits(fn, sink):
+    def wrapped(*args):
+        logits, cache = fn(*args)
+        sink.append(logits.detach().float().cpu())
+        return logits, cache
+    return wrapped
+
+
+def equiv_slots_phase(torch, arch):
+    """[equiv] continuous and group at ``arch``'s widths cut to 2 layers
+    with fp32 compute, card against the port's CPU path on the same
+    weights (2 agents for the group, the second from seed 1): 4 requests
+    (the launcher's draw, seed 1, prompt-len 64) through 2 slots, 8 greedy
+    tokens; every decode step's logits within rtol = atol = 1e-4 and the
+    tokens equal."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.models import get_model
+    from repro_torch.serving import (ContinuousBatcher, GroupRequest,
+                                     GroupServeEngine, ServeConfig)
+
+    cfg = get_arch_config(arch).with_(n_layers=2, compute_dtype="float32")
+    model = get_model(cfg)
+    p0, p1 = (model.init(cfg, torch.Generator().manual_seed(s), "cpu")
+              for s in (0, 1))
+    planes = tree_map(lambda a, b: torch.stack([a, b]), p0, p1)
+    prompts = draw_prompts(cfg.vocab_size, 4, 64, 1)
+    serve = ServeConfig(max_len=128, max_new_tokens=8)
+    for engine_name in ("continuous", "group"):
+        results, steps = {}, {}
+        for dev in ("cpu", "cuda"):
+            steps[dev] = []
+            if engine_name == "continuous":
+                eng = ContinuousBatcher(
+                    cfg, tree_map(lambda t: t.to(dev), p0), serve,
+                    batch_size=2, prompt_pad=16)
+                eng._decode = _record_logits(eng._decode, steps[dev])
+                results[dev] = eng.run(prompts)
+            else:
+                eng = GroupServeEngine(
+                    cfg, tree_map(lambda t: t.to(dev), planes), serve,
+                    batch_size=2, prompt_pad=16)
+                eng.decode_step = _record_logits(eng.decode_step, steps[dev])
+                results[dev] = eng.run([GroupRequest(i, i % 2, pr)
+                                        for i, pr in enumerate(prompts)])
+        errs = [float((g - c).abs().max())
+                for g, c in zip(steps["cuda"], steps["cpu"])]
+        ok = (len(steps["cuda"]) == len(steps["cpu"]) > 0
+              and all(torch.allclose(g, c, rtol=1e-4, atol=1e-4)
+                      for g, c in zip(steps["cuda"], steps["cpu"]))
+              and results["cuda"] == results["cpu"])
+        print(f"[equiv] {engine_name} {arch} widths, 2 layers, fp32, 4 "
+              f"requests x 8 greedy tokens through 2 slots, card vs CPU: "
+              f"{len(steps['cuda'])} decode steps, step logits max abs "
+              f"{max(errs):.3e} (rtol=atol=1e-4), tokens equal "
+              f"{results['cuda'] == results['cpu']} -> "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"card and CPU {engine_name} engines disagree: {arch}")
+
+
+def nosync_decode_phase(torch, cfg, params):
+    """ServeEngine.decode of llama3.2-3b at full width and depth (2
+    requests, 8 greedy tokens) under
+    ``torch.cuda.set_sync_debug_mode("error")`` with the prompt lengths
+    from the host: any call that synchronizes with the card raises.
+    The mode is shown to bite first (a read-back under it raises)."""
+    from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
+
+    engine = ServeEngine(cfg, params, ServeConfig(max_len=64,
+                                                  max_new_tokens=8))
+    toks, lens = serve_batches([[5, 9, 200, 31, 7], [11, 400, 3]], 2,
+                               device="cpu")[0]
+    logits, cache = engine.prefill(toks.to("cuda"), lens)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            float(logits[0, 0])
+            bites = False
+        except RuntimeError:
+            bites = True
+        out = engine.decode(logits, cache, lens)
+        error = None
+    except RuntimeError as exc:
+        error = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"[nosync] ServeEngine.decode {LLAMA}, full width, 2 requests x 8 "
+          f"tokens under set_sync_debug_mode('error'): a read-back raises "
+          f"{bites}, decode "
+          + ("ran without a synchronizing call"
+             if error is None else f"raised: {error}")
+          + f" -> {'ok' if bites and error is None else 'FAIL'}")
+    check(bites and error is None and out.shape == (2, 8),
+          f"ServeEngine.decode synchronizes with the card: {error}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2105,9 +2701,17 @@ def main() -> int:
         score_launches = score_phase(torch, llama, params)
         profile_score_phase(torch, llama, params,
                             instances["flash_attention"])
+        nosync_decode_phase(torch, llama, params)
         del params
         torch.cuda.empty_cache()
-        for paths in (serve_launches, llama_launches, score_launches):
+        slot_launches = [continuous_phase(torch),
+                         group_phase(torch, SLOT_ARCH, 4, 4, 16),
+                         group_phase(torch, LLAMA, 2, 2, 4),
+                         load_phase(torch)]
+        exact_slots_phase(torch, SLOT_ARCH, 4)
+        exact_slots_phase(torch, LLAMA, 2)
+        for paths in (serve_launches, llama_launches, score_launches,
+                      *slot_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)
@@ -2118,6 +2722,8 @@ def main() -> int:
         equiv_score_phase(torch, cut)
         equiv_serve_phase(torch, LLAMA, prompts, cut)
         del cut
+        for arch in (SLOT_ARCH, LLAMA):
+            equiv_slots_phase(torch, arch)
         profile_phase(torch)
         profile_serve_phase(torch, prompts, instances["ssd_scan"])
     except SmokeFailure as exc:

@@ -50,6 +50,13 @@ def layer(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def slot_layer(tree, agents: torch.Tensor, i: int):
+    """Layer ``i`` of each row's agent from agents' stacked trees
+    (leaves (A, n_layers, ...)) → leaves (B, ...) for the (B,) long
+    index ``agents``: a gather, B copies of one layer."""
+    return tree_map(lambda t: t.select(1, i).index_select(0, agents), tree)
+
+
 def stack_layers(trees):
     """The inverse of :func:`layer`: per-layer pytrees → one pytree
     stacked on axis 0."""

@@ -20,7 +20,7 @@ from repro_torch.configs.base import DTYPES
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (causal_mask_bias, dense_init,
-                                       softmax_attention)
+                                       per_row, softmax_attention)
 
 
 def init_self_attention(cfg, gen: torch.Generator, device=None) -> dict:
@@ -85,7 +85,9 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     x: (B, S, E); positions: (B, S); layer_cache: this layer's slice of
     the KV cache (prefill / decode) or None (a full-sequence pass).
-    Returns (out, new_layer_cache).
+    Returns (out, new_layer_cache). Every weight in ``p`` may carry a
+    leading batch axis, one row's weights each (the group engine's
+    per-slot weights: (B, E, F) products and (B, F) biases).
 
     Without a cache it calls the flash attention, as the reference's
     ``_maybe_pallas`` does: causal by index, ``window =
@@ -103,9 +105,9 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     xk = x @ p["wk"].to(cdt)
     xv = x @ p["wv"].to(cdt)
     if cfg.qkv_bias:
-        xq = xq + p["bq"].to(cdt)
-        xk = xk + p["bk"].to(cdt)
-        xv = xv + p["bv"].to(cdt)
+        xq = xq + per_row(p["bq"], xq).to(cdt)
+        xk = xk + per_row(p["bk"], xk).to(cdt)
+        xv = xv + per_row(p["bv"], xv).to(cdt)
     q = rope_lib.apply_rope(cfg, xq.reshape(B, S, H, D), positions)
     k = rope_lib.apply_rope(cfg, xk.reshape(B, S, K, D), positions)
     v = xv.reshape(B, S, K, D)

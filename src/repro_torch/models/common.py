@@ -16,13 +16,47 @@ from typing import Optional, Sequence
 import torch
 
 
+def per_row(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (C,) weight as it is, or a (B, C) weight — one row per batch
+    row, the group engine's per-slot weights — shaped to broadcast
+    against ``like`` (B, ..., C)."""
+    if w.ndim == 1:
+        return w
+    return w.reshape(w.shape[0], *[1] * (like.ndim - 2), w.shape[-1])
+
+
+def embed_rows(cfg, params: dict, tokens: torch.Tensor,
+               agents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The embedding rows the tokens pick, cast to the compute dtype
+    (the reference casts the whole table first, which gives the same
+    values); with ``agents`` (B,), row b's from agent ``agents[b]``'s
+    table of stacked planes (A, V, E)."""
+    table = params["embed"]
+    rows = (table[tokens.long()] if agents is None
+            else table[agents[:, None], tokens.long()])
+    return rows.to(cfg.dtype("compute"))
+
+
+def head_weight(cfg, params: dict,
+                agents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The LM head (E, V) — the embedding's transpose when tied — or,
+    with ``agents`` (B,), each row's agent's (B, E, V) from stacked
+    planes; not yet cast."""
+    if agents is None:
+        return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if cfg.tie_embeddings:
+        return params["embed"][agents].transpose(-1, -2)
+    return params["lm_head"][agents]
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm with fp32 accumulation, cast back to ``x``'s dtype."""
+    """RMSNorm with fp32 accumulation, cast back to ``x``'s dtype;
+    ``weight`` is (C,) or per batch row (B, C) (:func:`per_row`)."""
     xf = x.to(torch.float32)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * weight.to(torch.float32)).to(x.dtype)
+    return (out * per_row(weight, x).to(torch.float32)).to(x.dtype)
 
 
 def truncated_normal(gen: torch.Generator, shape: Sequence[int],

@@ -84,9 +84,12 @@ def _causal_conv(x: torch.Tensor, conv: dict,
 
 
 def _conv_step(window: torch.Tensor, conv: dict) -> torch.Tensor:
-    """Single-token depthwise conv. window: (B, d_conv, C)."""
+    """Single-token depthwise conv. window: (B, d_conv, C); the conv's
+    weight (d_conv, C) or per row (B, d_conv, C), its bias (C,) or
+    (B, C)."""
     w = conv["w"].to(window.dtype)
-    out = torch.einsum("bkc,kc->bc", window, w) + conv["b"].to(window.dtype)
+    eq = "bkc,kc->bc" if w.ndim == 2 else "bkc,bkc->bc"
+    out = torch.einsum(eq, window, w) + conv["b"].to(window.dtype)
     return F.silu(out)
 
 
@@ -104,11 +107,17 @@ def _finalize(cfg, p: dict, y_heads: torch.Tensor, xh: torch.Tensor,
               z: torch.Tensor, lead_shape) -> torch.Tensor:
     d_inner, H, _ = _dims(cfg)
     cdt = cfg.dtype("compute")
-    y = y_heads + p["D"].to(torch.float32).reshape(
-        (1,) * (y_heads.ndim - 2) + (H, 1)) * xh.to(torch.float32)
+    D = p["D"].to(torch.float32)
+    # (H,), or per row (B, H) with y_heads (B, H, P) at decode
+    D = (D.reshape((1,) * (y_heads.ndim - 2) + (H, 1)) if D.ndim == 1
+         else D[:, :, None])
+    y = y_heads + D * xh.to(torch.float32)
     y = y.reshape(*lead_shape, d_inner).to(cdt)
     y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
-    return y @ p["out_proj"].to(cdt)
+    w = p["out_proj"].to(cdt)
+    if w.ndim == 3:             # per-row weights, y (B, d_inner)
+        return (y[:, None, :] @ w)[:, 0]
+    return y @ w
 
 
 def _dt_and_A(p: dict, dt_raw: torch.Tensor):
@@ -148,7 +157,9 @@ def mamba2_forward(cfg, p: dict, x: torch.Tensor,
 
 def mamba2_decode(cfg, p: dict, x: torch.Tensor, state: dict
                   ) -> Tuple[torch.Tensor, dict]:
-    """Single-token step. x: (B, 1, E)."""
+    """Single-token step. x: (B, 1, E). Every leaf of ``p`` may carry a
+    leading batch axis, one row's weights each (the group engine's
+    per-slot weights)."""
     s = cfg.ssm
     Bsz = x.shape[0]
     z, xs, Bs, Cs, dt_raw = (t[:, 0] for t in

@@ -6,6 +6,7 @@ and dense families:
     loss = model.loss(cfg, params, batch)                      # scoring
     logits, cache = model.forward(cfg, params, batch, cache)   # prefill
     logits, cache = model.decode(cfg, params, batch, cache)
+    logits, cache = model.decode(cfg, planes, batch, cache, agents)
 
 The dense family ("transformer") has its loss, a cache-free pass with
 no gradient on the card (the flash kernel has no backward, as the
@@ -27,7 +28,7 @@ class Model:
     init: Callable               # (cfg, generator, device)
     loss: Callable
     forward: Callable            # full-seq: (cfg, params, batch, cache)
-    decode: Callable             # (cfg, params, batch, cache)
+    decode: Callable             # (cfg, params, batch, cache[, agents])
     make_cache: Callable         # (cfg, batch_size, max_len, device)
 
 

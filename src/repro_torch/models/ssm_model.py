@@ -14,8 +14,10 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import init_stacked, layer, stack_layers
-from repro_torch.models.common import dense_init, embed_init, rms_norm
+from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
+                                       stack_layers)
+from repro_torch.models.common import (dense_init, embed_init, embed_rows,
+                                       head_weight, rms_norm)
 from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
                                        mamba2_decode, mamba2_forward)
 
@@ -41,24 +43,19 @@ def init_ssm_model(cfg, gen: torch.Generator, device=None) -> dict:
     return params
 
 
-def _head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    w = (params["embed"].T if cfg.tie_embeddings
-         else params["lm_head"]).to(cfg.dtype("compute"))
-    return x @ w
-
-
-def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    # the rows a token picks, cast: the reference casts the whole table
-    # first, which gives the same values
-    return params["embed"][tokens.long()].to(cfg.dtype("compute"))
+def _head(cfg, params: dict, x: torch.Tensor,
+          agents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    norm = (params["final_norm"] if agents is None
+            else params["final_norm"][agents])
+    x = rms_norm(x, norm, cfg.norm_eps)
+    return x @ head_weight(cfg, params, agents).to(cfg.dtype("compute"))
 
 
 def ssm_forward(cfg, params: dict, batch: dict,
                 cache: Optional[dict] = None):
     """Full-sequence pass; returns (logits, aux = 0, decode_state). The
     state is None unless a cache to continue from is given."""
-    x = _embed(cfg, params, batch["tokens"])
+    x = embed_rows(cfg, params, batch["tokens"])
     states = []
     for i in range(cfg.n_layers):
         lp = layer(params["layers"], i)
@@ -72,16 +69,23 @@ def ssm_forward(cfg, params: dict, batch: dict,
             new_cache)
 
 
-def ssm_decode(cfg, params: dict, batch: dict, cache: dict):
-    x = _embed(cfg, params, batch["tokens"])
+def ssm_decode(cfg, params: dict, batch: dict, cache: dict,
+               agents: Optional[torch.Tensor] = None):
+    """One-token decode; nothing here reads a value back from the card.
+    With ``agents`` (B,) (long, on the planes' device), ``params`` are
+    stacked planes (leaves (A, ...)) and row b runs under agent
+    ``agents[b]``'s weights, gathered one layer at a time (the
+    transient is B copies of one layer)."""
+    x = embed_rows(cfg, params, batch["tokens"], agents)
     states = []
     for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
+        lp = (layer(params["layers"], i) if agents is None
+              else slot_layer(params["layers"], agents, i))
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
         o, new_state = mamba2_decode(cfg, lp["mamba"], h, layer(cache, i))
         x = x + o
         states.append(new_state)
-    return _head(cfg, params, x), stack_layers(states)
+    return _head(cfg, params, x, agents), stack_layers(states)
 
 
 def make_ssm_cache(cfg, batch: int, max_len: int = 0, device=None) -> dict:

@@ -16,10 +16,11 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import init_stacked, layer, stack_layers
+from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
+                                       stack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (cross_entropy, dense_init, embed_init,
-                                       rms_norm)
+                                       embed_rows, head_weight, rms_norm)
 from repro_torch.models.mlp import init_swiglu, swiglu
 
 
@@ -59,59 +60,74 @@ def _layer_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     return x, None if layer_cache is None else {"kv": new_cache}
 
 
-def _embed(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    # the rows a token picks, cast: the reference casts the whole table
-    # first, which gives the same values
-    return params["embed"][tokens.long()].to(cfg.dtype("compute"))
+def _lm_head(cfg, params: dict, x: torch.Tensor,
+             agents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return x @ head_weight(cfg, params, agents).to(cfg.dtype("compute"))
 
 
-def _lm_head(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
-    w = (params["embed"].T if cfg.tie_embeddings
-         else params["lm_head"]).to(cfg.dtype("compute"))
-    return x @ w
-
-
-def _check_fits(cfg, positions: torch.Tensor, cache: dict):
-    """The reference drops KV writes beyond the cache silently; here a
-    position past the last slot raises (ring buffers of a sliding
-    window wrap and always fit)."""
-    if cfg.sliding_window:
+def check_fits(cfg, last: int, max_len: int) -> None:
+    """Raise unless absolute position ``last`` (a host int) fits a KV
+    cache of ``max_len`` slots. The reference drops KV writes beyond
+    the cache silently; here a position past the last slot raises (ring
+    buffers of a sliding window wrap and always fit). Callers pass
+    positions they know on the host, so the check reads nothing back
+    from the card."""
+    if cfg.sliding_window or last < max_len:
         return
-    slots = cache["layers"]["kv"]["pos"].shape[-1]
-    last = int(positions.max())
-    if last >= slots:
-        raise ValueError(
-            f"position {last} does not fit a KV cache of max_len={slots}; "
-            f"raise max_len to at least {last + 1}")
+    raise ValueError(
+        f"position {last} does not fit a KV cache of max_len={max_len}; "
+        f"raise max_len to at least {last + 1}")
+
+
+def _run_layers(cfg, params: dict, batch: dict, cache: Optional[dict],
+                agents: Optional[torch.Tensor] = None):
+    """(final hidden states, new cache or None) of the layer stack;
+    with ``agents``, ``params`` are stacked planes and each layer's
+    weights are gathered for the batch rows just before it runs."""
+    positions = batch["positions"]
+    x = embed_rows(cfg, params, batch["tokens"], agents)
+    new_caches = []
+    for i in range(cfg.n_layers):
+        lp = (layer(params["layers"], i) if agents is None
+              else slot_layer(params["layers"], agents, i))
+        x, lc = _layer_apply(
+            cfg, lp, x, positions,
+            None if cache is None else layer(cache["layers"], i))
+        new_caches.append(lc)
+    final_norm = (params["final_norm"] if agents is None
+                  else params["final_norm"][agents])
+    x = rms_norm(x, final_norm, cfg.norm_eps)
+    new_cache = (None if cache is None
+                 else {"layers": stack_layers(new_caches)})
+    return x, new_cache
 
 
 def transformer_forward(cfg, params: dict, batch: dict,
                         cache: Optional[dict] = None):
     """Full-sequence pass (scoring / prefill). batch: tokens (B, S),
     positions (B, S) [, labels]. Returns (logits, aux = 0, new_cache);
-    the cache is None unless one is given to continue from."""
-    positions = batch["positions"]
+    the cache is None unless one is given to continue from. With a
+    cache, the S positions must fit its slots: a prefill from position
+    0 writes up to S − 1, checked from the shape on the host (a caller
+    that continues from a later position checks that itself)."""
     if cache is not None:
-        _check_fits(cfg, positions, cache)
-    x = _embed(cfg, params, batch["tokens"])
-    new_caches = []
-    for i in range(cfg.n_layers):
-        x, lc = _layer_apply(
-            cfg, layer(params["layers"], i), x, positions,
-            None if cache is None else layer(cache["layers"], i))
-        new_caches.append(lc)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    new_cache = (None if cache is None
-                 else {"layers": stack_layers(new_caches)})
+        check_fits(cfg, batch["positions"].shape[-1] - 1,
+                   cache["layers"]["kv"]["pos"].shape[-1])
+    x, new_cache = _run_layers(cfg, params, batch, cache)
     return (_lm_head(cfg, params, x), torch.zeros((), dtype=torch.float32),
             new_cache)
 
 
-def transformer_decode(cfg, params: dict, batch: dict, cache: dict):
-    """One-token decode. batch: tokens (B, 1), positions (B, 1)."""
-    logits, _, new_cache = transformer_forward(cfg, params, batch,
-                                               cache=cache)
-    return logits, new_cache
+def transformer_decode(cfg, params: dict, batch: dict, cache: dict,
+                       agents: Optional[torch.Tensor] = None):
+    """One-token decode. batch: tokens (B, 1), positions (B, 1), which
+    the caller has checked against the cache (``check_fits``): nothing
+    here reads a value back from the card. With ``agents`` (B,) (long,
+    on the planes' device), ``params`` are stacked planes (leaves (A,
+    ...)) and row b runs under agent ``agents[b]``'s weights, gathered
+    one layer at a time (the transient is B copies of one layer)."""
+    x, new_cache = _run_layers(cfg, params, batch, cache, agents)
+    return _lm_head(cfg, params, x, agents), new_cache
 
 
 def transformer_loss(cfg, params: dict, batch: dict) -> torch.Tensor:

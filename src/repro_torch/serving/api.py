@@ -1,5 +1,5 @@
 """The serving API shared by the engines — the port of
-``repro.serving.api`` for the fixed-batch engine:
+``repro.serving.api``:
 
 * :class:`ServeConfig` — the serving knobs every engine shares;
 * :func:`build_prefill_batch`, :func:`decode_batch`,
@@ -9,20 +9,23 @@
   next-token logits and the filled cache;
 * :class:`Sampler`, :class:`StopCriteria` — greedy / temperature
   sampling and the eos / budget / capacity stop logic;
+* :func:`cache_batch_dims` / :func:`splice_cache` — each cache
+  leaf's batch dim, and a B = 1 cache written into one slot of the
+  continuous-style engines' batch cache;
 * ``ENGINE_OPTIONS`` and :func:`cli_options` — the ``--serve
   key=value`` vocabulary, the reference's.
-
-The continuous-batching slot plumbing (``cache_batch_dims``,
-``splice_cache``) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.common.pytree import tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import get_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +59,9 @@ def build_prefill_batch(cfg: ArchConfig, tokens: torch.Tensor
 def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
             lengths: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Any]:
     """Prefill a fresh B-slot cache; next-token logits come from each
-    prompt's LAST real token. tokens: (B, P); lengths: (B,).
+    prompt's LAST real token. tokens: (B, P); lengths: (B,), a tensor
+    or host ints. A dense model's KV cache must hold the P positions
+    (``ValueError`` naming ``max_len``, checked from the shape).
 
     As in the reference, the whole right-padded (B, P) block runs
     through the model: a transformer's KV cache also holds the pad
@@ -67,7 +72,10 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
     cache = model.make_cache(cfg, B, max_len, device=tokens.device)
     logits, cache = model.forward(cfg, params,
                                   build_prefill_batch(cfg, tokens), cache)
-    idx = torch.clamp(lengths.long() - 1, min=0)
+    if not torch.is_tensor(lengths):            # host ints
+        lengths = torch.from_numpy(np.asarray(lengths, np.int64))
+    idx = torch.clamp(lengths.to(logits.device, torch.long,
+                                 non_blocking=True) - 1, min=0)
     nxt = logits[torch.arange(B, device=logits.device), idx, :]
     return nxt, cache
 
@@ -118,6 +126,44 @@ class StopCriteria:
         return (token == self.eos_id
                 or n_generated >= self.max_new_tokens
                 or pos >= self.max_len - 1)
+
+
+# ---------------------------------------------------------------------
+# slot-cache plumbing (continuous-style engines)
+# ---------------------------------------------------------------------
+def cache_batch_dims(cfg: ArchConfig, max_len: int) -> Any:
+    """Nest (matching the cache) of each leaf's batch-dim index, found
+    as the reference finds it: the cache's shapes at B = 1 and B = 2
+    differ in that dim alone. Both caches are built on the ``meta``
+    device, so nothing is allocated. Transformer caches are (L, B,
+    ...), and so is the Mamba2 state: every leaf gives 1."""
+    model = get_model(cfg)
+    s1 = model.make_cache(cfg, 1, max_len, device="meta")
+    s2 = model.make_cache(cfg, 2, max_len, device="meta")
+
+    def dim(a, b):
+        for i, (x, y) in enumerate(zip(a.shape, b.shape)):
+            if x != y:
+                return i
+        raise ValueError(f"no batch dim in {tuple(a.shape)}")
+
+    return tree_map(dim, s1, s2)
+
+
+def splice_cache(batch_cache, one_cache, bdims, slot: int):
+    """Write a B = 1 cache into batch slot ``slot``: an in-place
+    ``copy_`` into ``batch_cache``'s tensors, which it returns.
+
+    Ownership: ``one_cache`` is only read. ``batch_cache`` must belong
+    to the caller alone. The engines' does: it is the last decode
+    step's output, and every decode builds new cache tensors (the KV
+    writes clone, the layers are stacked anew), so no tensor a caller
+    handed out is written."""
+    def put(buf, one, d):
+        buf.select(d, slot).copy_(one.select(d, 0))
+        return buf
+
+    return tree_map(put, batch_cache, one_cache, bdims)
 
 
 # engine-level knobs that live outside ServeConfig; the launcher maps

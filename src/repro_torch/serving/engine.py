@@ -4,9 +4,11 @@ prefill, then token-by-token decode over the model's functional cache
 
 The reference jits the decode as one ``lax.scan``; here it is a Python
 loop of ``max_new_tokens − 1`` steps with the same per-slot done
-masking, and nothing in it reads a device value back to the host.
-``prefill`` and ``decode`` are public steps as well as ``generate``, so
-a caller can time them apart.
+masking, and nothing in it reads a device value back to the host when
+the caller passes the prompt lengths from the host (as
+:func:`serve_batches` builds them): the KV cache's fit is checked once
+per call from those. ``prefill`` and ``decode`` are public steps as
+well as ``generate``, so a caller can time them apart.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import get_model
+from repro_torch.models.transformer import check_fits
 from repro_torch.serving.api import (
     Sampler,
     ServeConfig,
@@ -56,18 +59,34 @@ class ServeEngine:
                        self.serve.max_len)
 
     @torch.no_grad()
-    def decode(self, first_logits: torch.Tensor, cache: Any,
-               lengths: torch.Tensor,
+    def decode(self, first_logits: torch.Tensor, cache: Any, lengths,
                generator: Optional[torch.Generator] = None
                ) -> torch.Tensor:
         """Sample the first token from the prefill's logits, then decode
         ``max_new_tokens − 1`` more. A slot that emitted ``eos_id``
         repeats its last token from then on. Returns (B,
-        max_new_tokens) int32."""
+        max_new_tokens) int32.
+
+        ``lengths`` (B,): the prompt lengths, from the host (a list, a
+        numpy array or a CPU tensor: then nothing here reads a value
+        back from the card) or on the card (then read back once, to
+        check the fit). A dense model's KV cache must hold the last
+        position written, max(lengths) + max_new_tokens − 2, else
+        ``ValueError`` names ``max_len``, before any step runs."""
         cfg = self.cfg
+        dev = first_logits.device
+        if cfg.family == "dense" and self.serve.max_new_tokens > 1:
+            check_fits(cfg, int(np.max(_host_ints(lengths)))
+                       + self.serve.max_new_tokens - 2,
+                       cache["layers"]["kv"]["pos"].shape[-1])
+        if torch.is_tensor(lengths):
+            pos = lengths.to(device=dev, dtype=torch.int32,
+                             non_blocking=True)
+        else:
+            pos = torch.from_numpy(np.asarray(lengths, np.int32)).to(
+                dev, non_blocking=True)
         tok0 = self.sampler(first_logits, generator)
-        st = DecodeState(cache=cache, tokens=tok0[:, None],
-                         pos=lengths.to(torch.int32),
+        st = DecodeState(cache=cache, tokens=tok0[:, None], pos=pos,
                          done=self.stop.eos_done(tok0))
         out = [tok0]
         for _ in range(self.serve.max_new_tokens - 1):
@@ -82,12 +101,21 @@ class ServeEngine:
             out.append(nxt)
         return torch.stack(out, dim=1)
 
-    def generate(self, prompts: torch.Tensor, lengths: torch.Tensor,
+    def generate(self, prompts: torch.Tensor, lengths,
                  generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
-        """prompts: (B, P) right-padded int32; lengths: (B,)."""
+        """prompts: (B, P) right-padded int32; lengths: (B,), as
+        :meth:`decode` takes them."""
         first_logits, cache = self.prefill(prompts, lengths)
         return self.decode(first_logits, cache, lengths, generator)
+
+
+def _host_ints(lengths) -> np.ndarray:
+    """Lengths as a host array: a card tensor is read back (one
+    sync), anything else is already on the host."""
+    if torch.is_tensor(lengths):
+        return lengths.detach().to("cpu").numpy()
+    return np.asarray(lengths)
 
 
 def serve_batches(requests: Sequence[Sequence[int]], batch_size: int,

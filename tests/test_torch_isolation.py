@@ -44,7 +44,12 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.examples.quickstart",
              "repro_torch.examples.heterogeneous_group",
              "repro_torch.checkpoint.npz", "repro_torch.core.chaos",
-             "repro_torch.core.transport", "repro_torch.core.group_mdp"):
+             "repro_torch.core.transport", "repro_torch.core.group_mdp",
+             "repro_torch.serving.api", "repro_torch.serving.continuous",
+             "repro_torch.serving.group", "repro_torch.serving.metrics",
+             "repro_torch.benchmarks.bench_serving",
+             "repro_torch.examples.continuous_serving",
+             "repro_torch.examples.serve_batch"):
     assert name in names, name
 print(len(names))
 """

@@ -30,7 +30,6 @@ from repro.models import ssm_model as r_ssm  # noqa: E402
 from repro.serving import api as r_api  # noqa: E402
 from repro_torch import interop, serving  # noqa: E402
 from repro_torch.configs import get_arch_config  # noqa: E402
-from repro_torch.configs.base import NotPortedError  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.serving import api  # noqa: E402
 
@@ -226,8 +225,14 @@ def test_launcher_prompt_draw_equals_the_reference(capsys):
 
 @pytest.mark.parametrize("engine", ["continuous", "group"])
 def test_launcher_refuses_unported_engines(engine):
-    with pytest.raises(NotPortedError, match=engine):
-        launch.main(["--device", "cpu", "--serve", f"engine={engine}"])
+    """Both engines are ported now: the launcher serves them (every
+    request answered), and refuses only an engine it does not know."""
+    report = launch.main(["--device", "cpu", "--arch", ARCH, "--requests",
+                          "3", "--serve", f"engine={engine}", "--serve",
+                          "max_new_tokens=2"])
+    assert [len(o) for o in report["outputs"]] == [2, 2, 2]
+    with pytest.raises(ValueError, match="engine='nope'"):
+        launch.main(["--device", "cpu", "--serve", "engine=nope"])
 
 
 def test_launcher_refuses_unknown_serve_options(capsys):
