@@ -56,8 +56,20 @@ Phases, each printing its lines:
    the fixed-batch engine on its admitted planes and one synchronizing
    call per step, ``[exact]`` the same engines in fp32 compute with
    every token equal, and ``[load] mamba2-780m``, the load bench's twin
-   (open-loop Poisson arrivals, a hot swap, its three gates);
-5. the card against the port's CPU path: small DDA3C groups with seeded
+   (open-loop Poisson arrivals, a hot swap, its three gates); the
+   streaming trainer (Slice D): ``[train] mamba2-780m`` at its
+   published widths and depth through ``repro_torch.launch.train``
+   (2 agents, batch 4 x 256, 12 steps, sketched relevance d 256, shares
+   at steps 4 and 8; every loss finite, the window empty after each
+   share, ``grad_sketch`` launched once per leaf per accumulation step
+   and no flash or SSD kernel under grad), ``[train] llama3.2-3b, 2
+   layers`` (its published widths, depth cut to 2: 4 agents on a ring,
+   exact grad_cos, int8 planes), and the sketch kernel on the trainer's
+   own leaves (signs on the 77.2 M-position embedding at offsets near
+   0.86 B, time at the largest leaf, 2 x 226.5 M positions);
+5. the card against the port's CPU path: ``[train-equiv]``, the
+   streaming trainer at reduced() llama3.2-3b and mamba2-780m with fp32
+   compute, 8 steps with 2 shares, from the same state and batches; small DDA3C groups with seeded
    gradients, fp32 and int8 + learned relevance; a small DDADQN group
    with seeded gradients (target syncs included) and ``dqn_loss`` with
    its gradient on one seeded batch; the robustness paths (a) and (b)
@@ -73,7 +85,8 @@ Phases, each printing its lines:
    one full-width mamba2-780m prefill and 4 decode steps (the SSD
    library's kernels' share of the prefill).
 
-It prints one JSON line of per-kernel numbers (``launches`` is the
+Each phase group ends with a ``[time]`` line (host seconds). It prints
+one JSON line of per-kernel numbers (``launches`` is the
 count of the first path that drives the kernel, ``launches_by_path``
 each such path's own count) and, last, one JSON line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero, as
@@ -140,6 +153,17 @@ LLAMA_SERVE_ARGV = ["--arch", LLAMA, "--full", "--serve", "engine=batch",
                     "max_len=1056"]
 LLAMA_SERVE_LABEL = "[serve] llama3.2-3b"
 FA_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, as the Pallas kernel is held
+# the training path: the streaming trainer's launcher at mamba2-780m's
+# published widths and depth, 2 agents, share steps 4 and 8
+TRAIN_ARGV = ["--arch", "mamba2-780m", "--full", "--agents", "2",
+              "--steps", "12", "--batch", "4", "--seq", "256",
+              "--threshold", "4", "--minibatch", "4", "--exchange",
+              "estimator=grad_cos+sketch", "--exchange",
+              "relevance_sketch_dim=256", "--seed", "0"]
+TRAIN_LABEL = "[train] mamba2-780m"
+TRAIN_SHARES = [4, 8]
+TRAIN_ACCUMULATE = 8            # steps 4 .. 11 add to the window
+LLAMA_TRAIN_LABEL = "[train] llama3.2-3b, 2 layers"
 
 KERNELS = {
     "ddal_fused_wavg": dict(
@@ -1855,6 +1879,333 @@ def serve_phase(torch, argv, label):
             report["prompts"])
 
 
+def train_phase(torch):
+    """The streaming trainer at mamba2-780m's published widths and depth
+    through ``repro_torch.launch.train.main`` (``TRAIN_ARGV``: 2 agents,
+    batch 4 x 256, sketched relevance d 256, share steps 4 and 8), with
+    the launch counts zeroed just before it and read just after. Checks:
+    every loss finite; ``<shared>`` at steps 4 and 8 only; the window
+    empty after each share and one piece fuller after each later step;
+    ``grad_sketch`` launched once per parameter leaf on each of the 8
+    accumulation steps and no other kernel launched (a recorded pass
+    takes the einsum SSD form, never the SSD kernel). Returns ({kernel:
+    {path: launches}}, the positions of the largest leaf per agent)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(out):
+        report = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    lines = out.getvalue().splitlines()
+    for ln in lines[:1] + lines[-3:]:
+        print(f"[train]   {ln}")
+    state, spec = report["state"], report["spec"]
+    losses = report["losses"]
+    finite = all(math.isfinite(x) for row in losses for x in row)
+    leaves = report["leaves"]
+    want = {name: 0 for name in KERNELS}
+    want["grad_sketch"] = leaves * TRAIN_ACCUMULATE
+    expect_window, count = [], 0
+    for step in range(len(losses)):
+        if step >= spec.threshold:
+            count += 1
+        if step in TRAIN_SHARES:
+            count = 0
+        expect_window.append([float(count)] * spec.n_agents)
+    med = report["median_ms"]
+    print(f"{TRAIN_LABEL}: {report['params_per_agent']:,} params/agent x "
+          f"{spec.n_agents} agents ({leaves} leaves), batch 4 x 256, "
+          f"{report['tokens_per_s']:,.0f} tokens/s over "
+          f"{len(losses)} steps ({report['seconds']:.2f} s); median ms per "
+          f"step: " + ", ".join(f"{k} {v:.1f}" for k, v in med.items())
+          + f"; peak memory {report['peak_bytes'] / 2 ** 30:.3f} GiB; "
+          f"losses first {losses[0]} last {losses[-1]}; shared at "
+          f"{report['shared']}; launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    check(finite, f"{TRAIN_LABEL}: a non-finite loss")
+    check(report["shared"] == TRAIN_SHARES,
+          f"{TRAIN_LABEL}: shared at {report['shared']}, not {TRAIN_SHARES}")
+    check(report["window"] == expect_window,
+          f"{TRAIN_LABEL}: window piece counts {report['window']} != "
+          f"{expect_window}")
+    check(launched == want, f"{TRAIN_LABEL}: launches {launched} != {want}")
+    check(all(bool(torch.isfinite(x).all()) for x in
+              _tree_leaves(state.params)),
+          f"{TRAIN_LABEL}: non-finite parameters")
+    largest = max(x.numel() for x in _tree_leaves(state.params)
+                  ) // spec.n_agents
+    profile_train_steps(torch, report)
+    del report, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"grad_sketch": {TRAIN_LABEL: launched["grad_sketch"]}}, largest
+
+
+def profile_train_steps(torch, report):
+    """One more step of the [train] run in a profiler window: step 12,
+    a share step (forward and backward of both agents, the window, 20
+    sketch launches, eq. 4, AdamW). Prints the wall time, the device's
+    busy share, the kernel count and the ops that take the device's
+    time (one window: the profiler's own processing of ~40,000 kernels
+    takes tens of seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import optim
+    from repro_torch.core.sharded_ddal import make_group_train_step
+    from repro_torch.data import StreamSpec, make_group_batch
+    from repro_torch.configs.base import ShapeConfig
+
+    cfg, spec = report["cfg"], report["spec"]
+    step = make_group_train_step(cfg, spec, optim.adamw(1e-3))
+    shape = ShapeConfig("train_cli", 256, 4, "train")
+    state = report["state"]
+    for _ in range(1):
+        kind = "share" if state.step % spec.minibatch == 0 else "accumulation"
+        batch = make_group_batch(cfg, shape, StreamSpec(seed=0),
+                                 spec.n_agents, state.step, "cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kernels = [e for e in prof.events()
+                   if getattr(e, "device_type", None) is not None
+                   and str(e.device_type).endswith("CUDA")]
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        rows = [(ev.key, ev.count,
+                 getattr(ev, "device_time_total",
+                         getattr(ev, "cuda_time_total", 0.0)),
+                 getattr(ev, "self_cpu_time_total", 0.0))
+                for ev in prof.key_averages()]
+        print(f"[profile] train mamba2-780m {kind} step {state.step - 1} "
+              f"(2 agents, batch 4 x 256): wall {wall * 1e3:.1f} ms, device "
+              f"busy {busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%}), "
+              f"{len(kernels)} device kernels")
+        for key, count, dev_us, cpu_us in sorted(rows,
+                                                 key=lambda r: -r[2])[:8]:
+            print(f"[profile]   by device time: {key[:60]}: {count} calls, "
+                  f"device {dev_us:.0f} us, self host {cpu_us:.0f} us")
+
+
+def _tree_leaves(tree):
+    from repro_torch.common.pytree import tree_leaves_with_paths
+    return [x for _, x in tree_leaves_with_paths(tree)]
+
+
+def train_llama_phase(torch):
+    """The streaming trainer at llama3.2-3b's published widths cut to 2
+    layers (the cut: 28 → 2 layers; 4 agents of the full model need
+    ~4 x 64 GB), bf16 compute: 4 agents on a ring, exact grad_cos
+    relevance, int8 knowledge planes (q_block 128), built through
+    ``init_train_state`` / ``make_group_train_step`` /
+    ``make_group_batch``, 6 steps with shares at 2 and 4. Checks: finite
+    losses, no flash launch (the recorded pass takes the softmax
+    branch by position) and no other kernel launch."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import GroupSpec, ShapeConfig
+    from repro_torch.core.sharded_ddal import (init_train_state,
+                                               make_group_train_step)
+    from repro_torch.data import StreamSpec, make_group_batch
+
+    cfg = get_arch_config(LLAMA).with_(n_layers=2)
+    spec = GroupSpec(n_agents=4, threshold=2, minibatch=2,
+                     knowledge_mode="streaming", topology="ring",
+                     relevance_mode="grad_cos", knowledge_quant_block=128)
+    opt = optim.adamw(1e-3)
+    shape = ShapeConfig("train_smoke", 256, 2, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, spec, opt, seed=0, device="cuda")
+    step = make_group_train_step(cfg, spec, opt)
+    losses, shared, ms = [], [], []
+    for i in range(6):
+        batch = make_group_batch(cfg, shape, StreamSpec(seed=0), 4, i,
+                                 "cuda")
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].tolist())
+        if m["shared"]:
+            shared.append(i)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(x.numel() for x in _tree_leaves(state.params)) // 4
+    finite = all(math.isfinite(x) for row in losses for x in row)
+    print(f"{LLAMA_TRAIN_LABEL}: {n_params:,} params/agent x 4 agents, "
+          f"ring, grad_cos, int8 q_block 128, bf16 compute, batch 2 x 256; "
+          f"ms per step {[round(x, 1) for x in ms]} (warm-up, warm-up, "
+          f"share, accumulation, share, accumulation); "
+          f"{time.perf_counter() - t0:.1f} s with init; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; losses first {losses[0]} last "
+          f"{losses[-1]}; shared at {shared}; launches "
+          + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    check(finite, f"{LLAMA_TRAIN_LABEL}: a non-finite loss")
+    check(shared == [2, 4], f"{LLAMA_TRAIN_LABEL}: shared at {shared}")
+    check(launched == {name: 0 for name in KERNELS},
+          f"{LLAMA_TRAIN_LABEL}: kernel launches {launched} under grad")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _loose_params(torch, got, want, bound):
+    """(max |got − want|, share of elements beyond 2e-4) over two trees
+    of parameters, and whether every element is within ``bound`` and at
+    most 1e-4 of them beyond 2e-4 (AdamW's first steps turn ulp-level
+    gradient differences of elements whose gradient is near its eps
+    into steps up to lr)."""
+    worst, over, total = 0.0, 0, 0
+    for g, w in zip(_tree_leaves(got), _tree_leaves(want)):
+        d = (g.cpu() - w).abs()
+        worst = max(worst, float(d.max()))
+        over += int((d > 2e-4).sum())
+        total += d.numel()
+    return worst, over / total, worst <= bound and over <= 1e-4 * total
+
+
+def train_equiv_phase(torch):
+    """The streaming trainer on the card against the port's CPU path, at
+    reduced() llama3.2-3b and mamba2-780m with fp32 compute (TF32 off),
+    from the same state and the same batches: 3 agents on a ring,
+    sketched relevance (d 64) and int8 planes (q_block 128), 8 steps
+    with shares at 3 and 6. Losses within rtol = atol = 1e-4; the share
+    flags equal; parameters within 2e-4 but for 1e-4 of the elements,
+    every one within 2·lr per update; the card's sketch launches one per
+    leaf per accumulation step."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import GroupSpec, ShapeConfig
+    from repro_torch.core.sharded_ddal import (clone_state,
+                                               init_train_state,
+                                               make_group_train_step)
+    from repro_torch.data import StreamSpec, make_group_batch
+
+    lr = 1e-3
+    for arch in (LLAMA, "mamba2-780m"):
+        cfg = get_arch_config(arch).reduced()
+        spec = GroupSpec(n_agents=3, threshold=2, minibatch=3,
+                         knowledge_mode="streaming", topology="ring",
+                         relevance_mode="grad_cos", relevance_sketch_dim=64,
+                         knowledge_quant_block=128)
+        opt = optim.adamw(lr)
+        shape = ShapeConfig("equiv", 64, 2, "train")
+        start = init_train_state(cfg, spec, opt, seed=0, device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            st = clone_state(start)
+            if dev == "cuda":
+                st = _state_to(torch, st, dev)
+            step = make_group_train_step(cfg, spec, opt)
+            reset_launches()
+            losses, shared = [], []
+            t0 = time.perf_counter()
+            for i in range(8):
+                batch = make_group_batch(cfg, shape, StreamSpec(seed=1), 3,
+                                         i, dev)
+                st, m = step(st, batch)
+                losses.append(m["loss"].cpu())
+                shared.append(m["shared"])
+            runs[dev] = (st, torch.stack(losses), shared, launch_counts(),
+                         time.perf_counter() - t0)
+        cpu, card = runs["cpu"], runs["cuda"]
+        leaves = len(_tree_leaves(start.params))
+        loss_ok = torch.allclose(card[1], cpu[1], rtol=1e-4, atol=1e-4)
+        worst, share, p_ok = _loose_params(torch, card[0].params,
+                                           cpu[0].params, 2 * lr * 4)
+        want = {name: 0 for name in KERNELS}
+        want_card = dict(want, grad_sketch=leaves * 6)
+        ok = (loss_ok and p_ok and card[2] == cpu[2]
+              and cpu[2].count(1) == 2 and cpu[3] == want
+              and card[3] == want_card)
+        shares = [i for i, x in enumerate(cpu[2]) if x]
+        print(f"[train-equiv] {arch} reduced(), fp32, 3 agents ring, sketch "
+              f"64, int8 128, 8 steps (shares {shares}), "
+              f"card vs CPU: losses max abs "
+              f"{float((card[1] - cpu[1]).abs().max()):.3e} (rtol=atol=1e-4)"
+              f", params max abs {worst:.3e}, share beyond 2e-4 "
+              f"{share:.2e} (bound {2 * lr * 4:.0e}, share <= 1e-4); card "
+              f"launches {card[3]['grad_sketch']} grad_sketch "
+              f"({leaves} leaves x 6 steps), others 0; CPU {cpu[4]:.1f} s, "
+              f"card {card[4]:.1f} s -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"[train-equiv] {arch}: card and CPU disagree")
+
+
+def _state_to(torch, state, dev):
+    def to(x):
+        if isinstance(x, dict):
+            return {k: to(v) for k, v in x.items()}
+        return x.to(dev) if isinstance(x, torch.Tensor) else x
+    know = type(state.know)(*(to(x) for x in state.know))
+    return state._replace(params=to(state.params),
+                          opt_state=to(state.opt_state), know=know)
+
+
+def sketch_leaf_phase(torch, p_big):
+    """The gradient-sketch kernel on the trainer's own leaves: signs
+    through the kernel bitwise at mamba2-780m's 77.2 M-position
+    embedding leaf at an offset near its 0.86 B parameters (positions
+    past 2^24 and near the leaf's end), and the time of one launch at
+    the trainer's largest leaf (a stacked (48, 1536, 3072) projection:
+    2 x 226.5 M positions → 256) beside its bound. torch.matmul(G, S)
+    there would need a 232 GB S, so the yardstick is taken at (2, 2^23)
+    with the kernel beside it on the same slice."""
+    from repro_torch.core.relevance import fold_seed
+    from repro_torch.kernels.grad_sketch import ops, ref
+
+    seed, d = fold_seed(0, 2), SKETCH_DIM
+    p_embed, offset = 50280 * 1536, 780_000_000
+    pos = [0, 2 ** 24 + 3, p_embed - 2, p_embed - 1]
+    G = torch.zeros((len(pos), p_embed), device="cuda")
+    G[torch.arange(len(pos)), torch.tensor(pos)] = 1.0
+    got = ops.sketch_flat(G, seed, d, offset=offset)
+    want = torch.cat([ref.sign_block(seed, offset + q, 1, d, "cuda")
+                      for q in pos])
+    check(torch.equal(got, want), "sketch signs differ on the embedding leaf")
+    del G
+    print(f"[kernel] grad_sketch signs on the embedding leaf (P {p_embed:,},"
+          f" offset {offset:,}, positions {pos}): bitwise -> ok")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    G = torch.randn((2, p_big), generator=g, device="cuda")
+    ms, host = time_ms(torch, lambda: ops.sketch_flat(G, seed, d), 5)
+    bytes_ms = (4 * 2 * p_big + 4 * 2 * d) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * 2 * p_big * d / FP32_FLOP_PER_S * 1e3
+    b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                  else (ops_ms, "operations"))
+    del G
+    cut = 2 ** 23
+    Gs = torch.randn((2, cut), generator=g, device="cuda")
+    ms_s, _ = time_ms(torch, lambda: ops.sketch_flat(Gs, seed, d), 20)
+    S = torch.empty((cut, d), device="cuda")          # outside the timing
+    for start in range(0, cut, 2 ** 18):
+        S[start:start + 2 ** 18] = ref.sign_block(seed, start, 2 ** 18, d,
+                                                  "cuda")
+    lib_ms, _ = time_ms(torch, lambda: torch.matmul(Gs, S), 20)
+    del S, Gs
+    torch.cuda.empty_cache()
+    print(f"[kernel] grad_sketch at the trainer's largest leaf (n, P, d) = "
+          f"(2, {p_big:,}, {d}): device {ms:.5f} ms ({b_ms / ms:.1%} of the "
+          f"{b_ms:.5f} ms bound, {b_by}: 2·n·P·d fp32 flops at 67 TFLOP/s "
+          f"vs 4·n·P bytes at 3.35 TB/s), host per call {host:.5f} ms; at "
+          f"(2, 2^23, {d}): kernel {ms_s:.5f} ms, torch.matmul(G, S) with "
+          f"S built outside the timing {lib_ms:.5f} ms")
+    return dict(big_ms=ms, big_bound_ms=b_ms, big_p=p_big, slice_ms=ms_s,
+                slice_lib_ms=lib_ms)
+
+
 def _cut_to_two_layers(torch, arch):
     """``arch`` at its published widths cut to 2 layers with fp32
     compute, and its weights drawn on the host from seed 0."""
@@ -2679,9 +3030,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    marks = [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - marks[-1]:.1f} s")
+        marks.append(now)
     try:
         card = device_phase(torch)
         instances = build_phase()
+        lap("build")
         table = kernel_phase(torch)
         table["grad_sketch"] = sketch_phase(torch)
         table["ddal_fused_wavg_q"] = wavg_q_phase(torch)
@@ -2689,11 +3047,14 @@ def main() -> int:
         table["ssd_intra_chunk"] = ssd_kernel_phase(torch,
                                                     instances["ssd_scan"])
         table["flash_attention"] = flash_kernel_phase(torch)
+        lap("kernels")
         launches = main_path_phase(torch)
+        lap("main paths")
         serve_launches, prompts = serve_phase(torch, SERVE_ARGV,
                                               SERVE_LABEL)
         llama_launches, _ = serve_phase(torch, LLAMA_SERVE_ARGV,
                                         LLAMA_SERVE_LABEL)
+        lap("serve")
         # the scoring path and its profile share one full-width model
         llama = get_arch_config(LLAMA)
         params = get_model(llama).init(
@@ -2704,19 +3065,31 @@ def main() -> int:
         nosync_decode_phase(torch, llama, params)
         del params
         torch.cuda.empty_cache()
+        lap("score")
         slot_launches = [continuous_phase(torch),
                          group_phase(torch, SLOT_ARCH, 4, 4, 16),
                          group_phase(torch, LLAMA, 2, 2, 4),
                          load_phase(torch)]
         exact_slots_phase(torch, SLOT_ARCH, 4)
         exact_slots_phase(torch, LLAMA, 2)
+        lap("slot engines")
+        train_launches, largest_leaf = train_phase(torch)
+        lap("train mamba2-780m")
+        train_llama_phase(torch)
+        lap("train llama")
+        train_equiv_phase(torch)
+        lap("train-equiv")
+        table["grad_sketch"]["largest_leaf"] = sketch_leaf_phase(
+            torch, largest_leaf)
+        lap("sketch at the largest leaf")
         for paths in (serve_launches, llama_launches, score_launches,
-                      *slot_launches):
+                      *slot_launches, train_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)
         dqn_equivalence_phase(torch)
         robust_equivalence_phase(torch)
+        lap("equivalence")
         equiv_serve_phase(torch, "mamba2-780m", prompts)
         cut = _cut_to_two_layers(torch, LLAMA)
         equiv_score_phase(torch, cut)
@@ -2724,8 +3097,10 @@ def main() -> int:
         del cut
         for arch in (SLOT_ARCH, LLAMA):
             equiv_slots_phase(torch, arch)
+        lap("serving equivalence")
         profile_phase(torch)
         profile_serve_phase(torch, prompts, instances["ssd_scan"])
+        lap("profiles")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -4,6 +4,8 @@ from repro_torch.checkpoint.npz import (  # noqa: F401
     restore,
     restore_group,
     restore_step,
+    restore_train,
     save,
     save_group,
+    save_train,
 )

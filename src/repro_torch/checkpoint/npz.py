@@ -11,8 +11,12 @@ written by either package restores in the other. ``save`` /
 reference's per-leaf arrays (and back) through the agents'
 ``PlaneLayout`` (``repro_torch.interop.group_tree`` /
 ``group_state``): agent states, stores, the delay line, elastic and
-transport planes included. Writes are atomic (a temporary file, then a
-rename).
+transport planes included; ``save_train`` / ``restore_train`` take the
+streaming trainer's ``TrainState`` (params, optimiser state and the
+knowledge window with its learned relevance, sketch and alive mask),
+whose trees keep the reference's key paths as they are
+(``repro_torch.interop.train_tree`` / ``train_state``). Writes are
+atomic (a temporary file, then a rename).
 """
 from __future__ import annotations
 
@@ -157,3 +161,31 @@ def restore_group(path: str, like, layout, strict: bool = True):
     from repro_torch import interop
     tree = restore(path, interop.group_tree(like, layout), strict)
     return interop.group_state(tree, layout, like)
+
+
+def save_train(path: str, state, step: Optional[int] = None) -> None:
+    """Save a streaming ``TrainState`` under the reference's keys (the
+    reference's ``save(path, state)``)."""
+    from repro_torch import interop
+    save(path, interop.train_tree(state), step)
+
+
+def restore_train(path: str, like, strict: bool = True):
+    """A streaming ``TrainState`` shaped like ``like`` (its device and
+    dtypes), refilled from ``path`` — written by ``save_train`` or by
+    the reference's ``save``. ``strict=False`` keeps ``like``'s value
+    for leaves the file lacks (an older file's missing ``alive``)."""
+    from repro_torch import interop
+    got = interop.train_state(restore(path, interop.train_tree(like),
+                                      strict), "cpu")
+
+    def put(x, ref):
+        if isinstance(ref, dict):
+            return {k: put(x[k], ref[k]) for k in ref}
+        return None if ref is None else x.to(device=ref.device,
+                                              dtype=ref.dtype)
+    know = type(like.know)(*(put(getattr(got.know, f), getattr(like.know, f))
+                             for f in like.know._fields))
+    return type(like)(params=put(got.params, like.params),
+                      opt_state=put(got.opt_state, like.opt_state),
+                      know=know, step=got.step)

@@ -36,6 +36,18 @@ def tree_leaves_with_paths(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
     return [(prefix, tree)]
 
 
+#: columns of an (n, p) leaf view that the streaming trainer's
+#: elementwise passes take at a time: a multiple of every int8 block
+#: (each divides 8192), so a chunk holds whole blocks, and small enough
+#: that a pass's temporaries stay near n · 64 MiB whatever the leaf
+COLUMN_CHUNK = 1 << 24
+
+
+def column_chunks(p: int, width: int = COLUMN_CHUNK):
+    """Slices covering 0 .. p − 1, ``width`` columns at a time."""
+    return [slice(c, min(p, c + width)) for c in range(0, p, width)]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` leaf by leaf over matching nests of dicts (the model
     zoo's parameter and cache trees): ``fn(leaf, *matching_leaves)``."""
@@ -48,6 +60,16 @@ def tree_map(fn, tree, *rest):
 def layer(tree, i: int):
     """Layer ``i``'s slice of a pytree stacked on axis 0 (views)."""
     return tree_map(lambda t: t[i], tree)
+
+
+def unstack_layers(tree, n: int):
+    """The ``n`` per-layer trees of a tree stacked on axis 0, as views
+    (``torch.unbind`` of every leaf once). The views equal
+    :func:`layer`'s; under autograd the gradients of all layers meet in
+    one stack per leaf, where a ``select`` per layer would each
+    scatter into a zero tensor of the whole stacked leaf."""
+    parts = tree_map(lambda t: torch.unbind(t, 0), tree)
+    return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
 def slot_layer(tree, agents: torch.Tensor, i: int):

@@ -7,11 +7,14 @@ that the reference rejects is rejected here with the same
 ``ValueError``. On top of that, a field whose behaviour the port does
 not implement yet is refused at construction with a
 :class:`NotPortedError` naming the field, so an unported option is
-never silently ignored: only the streaming trainer's settings remain
-(``knowledge_mode="streaming"``, ``pods > 0`` and the ``flat`` and
-``pod`` combiners). ``ArchConfig`` and ``SSMConfig`` (the model
-zoo) are copied for the SSM and dense families only; the other
-families raise :class:`NotPortedError`.
+never silently ignored: only the multi-device settings remain
+(``pods > 0`` and the ``pod`` combiner, Slice E). Both trainers'
+settings construct; which combiner, delay and estimator a trainer
+accepts is checked where the reference checks it, in
+``repro_torch.core.exchange.build_exchange``. ``ArchConfig`` and
+``SSMConfig`` (the model zoo) are copied for the SSM and dense
+families only; the other families raise :class:`NotPortedError`.
+``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 TOPOLOGIES = ("full", "ring", "torus2d", "star", "random_k",
               "hierarchical")
 RELEVANCE_MODES = ("uniform", "grad_cos")
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # Every strategy key the reference's registries know. A key outside
 # these is a configuration error (ValueError); a key inside them that
@@ -248,19 +252,25 @@ class GroupSpec:
                        "transport"):
             key = getattr(self, f"exchange_{family}")
             if key != "auto" and key not in REGISTRIES[family]:
+                if (family, key) == ("combiner", "pod"):
+                    raise NotPortedError(
+                        "exchange_combiner='pod' (the two-level pod "
+                        "dispatch over a device mesh) waits for Slice E; "
+                        f"the port has {REGISTRIES[family].choices}")
                 raise NotPortedError(
                     f"exchange_{family}={key!r} is not ported yet; the "
                     f"port has {REGISTRIES[family].choices}")
-        # the streaming trainer's settings (Slices D and E)
-        unported = [
-            ("knowledge_mode", self.knowledge_mode != "buffer"),
-            ("pods", self.pods > 0),
-        ]
-        for field, asked in unported:
-            if asked:
-                raise NotPortedError(
-                    f"GroupSpec.{field}={getattr(self, field)!r} is not "
-                    f"ported to repro_torch yet")
+        if self.knowledge_dtype not in DTYPES:
+            raise NotPortedError(
+                f"GroupSpec.knowledge_dtype={self.knowledge_dtype!r} is "
+                f"not ported to repro_torch; the port has "
+                f"{tuple(DTYPES)}")
+        # the pod dispatch runs one program over several devices
+        if self.pods > 0:
+            raise NotPortedError(
+                f"GroupSpec.pods={self.pods!r} (the two-level pod "
+                f"dispatch over a device mesh) waits for Slice E; the "
+                f"port runs on one device")
 
 
 # ---------------------------------------------------------------------
@@ -271,7 +281,6 @@ PORTED_FAMILIES = ("ssm", "dense")
 SSD_IMPLS = ("xla", "pallas_interpret")
 ATTENTION_IMPLS = ("xla", "pallas", "pallas_interpret")
 ROPE_MODES = ("standard", "mrope", "none")
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -299,12 +308,24 @@ class ArchConfig:
     ``"dense"``; an unknown family, ``rope_mode``, ``ssd_impl``,
     ``attention_impl`` or dtype raises ``ValueError``.
 
-    ``ssd_impl`` and ``attention_impl`` are kept and validated against
-    the reference's values, but they select nothing: as for every
-    kernel of the port, CUDA tensors take the kernel (the SSD intra-chunk
-    form, the flash attention of a cache-free pass) and CPU tensors its
-    plain version (``repro_torch.kernels.ssd_scan.ops``,
-    ``repro_torch.kernels.flash_attention.ops``).
+    ``ssd_impl`` and ``attention_impl`` are validated against the
+    reference's values and decide one thing, the route of a pass that
+    autograd records (``torch.is_grad_enabled()`` and an input that
+    requires grad: a training step's loss). Such a pass takes the
+    reference's ``"xla"`` branch, which is all the reference can
+    differentiate too: the cache-free attention masks by position
+    (``causal_mask_bias``) and runs ``softmax_attention`` at
+    ``attention_scores_dtype``; the SSD runs the einsum intra-chunk form
+    of ``repro.models.ssd``. A recorded pass with ``"pallas"`` or
+    ``"pallas_interpret"`` raises :class:`NotPortedError`, as the
+    reference's Pallas kernels have no VJP. A pass with no gradient
+    (serving, scoring under ``torch.no_grad()``) ignores both fields
+    and takes the kernels: CUDA tensors the SSD intra-chunk kernel and
+    the flash attention, CPU tensors their plain versions
+    (``repro_torch.kernels.ssd_scan.ops``,
+    ``repro_torch.kernels.flash_attention.ops``). The route is chosen
+    before any launch, and the kernel wrappers still refuse inputs that
+    require grad.
     """
     name: str
     family: str
@@ -402,3 +423,23 @@ class ArchConfig:
         if self.sliding_window is not None:
             kw["sliding_window"] = 16
         return replace(self, **kw)
+
+
+# ---------------------------------------------------------------------
+# Input shapes — the reference's. ``kind`` names the step a shape is
+# for: train / prefill / decode.
+# ---------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}

@@ -84,8 +84,12 @@ class DDAL:
         self.params_of = params_of
         if exchange is None:
             exchange = build_exchange(
-                spec, topology=topology, relevance=relevance,
+                spec, kind="buffer", topology=topology, relevance=relevance,
                 delay=delay, use_wavg_kernel=use_wavg_kernel)
+        elif exchange.kind != "buffer":
+            raise ValueError(
+                f"DDAL needs a 'buffer' exchange protocol, got "
+                f"{exchange.kind!r}")
         else:
             stale = [name for name, v in
                      [("topology", topology), ("relevance", relevance),

@@ -1,6 +1,8 @@
 """The exchange-protocol API for DDAL knowledge exchange (port of
-``repro.core.exchange``): strategy registries and the protocol that
-``repro_torch.core.ddal.DDAL`` loops over."""
+``repro.core.exchange``): strategy registries, the launcher's
+``cli_options`` vocabulary and the protocol that both trainers
+(``repro_torch.core.ddal.DDAL``, ``repro_torch.core.sharded_ddal``)
+loop over."""
 from repro_torch.core.exchange.build import (  # noqa: F401
     ExchangeProtocol,
     build_exchange,
@@ -13,6 +15,7 @@ from repro_torch.core.exchange.registry import (  # noqa: F401
     SCHEDULES,
     TRANSPORTS,
     Registry,
+    cli_options,
 )
 
 # registers the "none" and "faulty" transport strategies

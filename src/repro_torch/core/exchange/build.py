@@ -1,18 +1,29 @@
 """Assemble an :class:`ExchangeProtocol` from a ``GroupSpec`` — the
-port of ``repro.core.exchange.build`` for the buffer trainer.
+port of ``repro.core.exchange.build`` for both trainers.
 
-Each strategy family is resolved against the port's registries exactly
-as the reference resolves ``"auto"`` for the buffer trainer: the
-``static`` schedule over the spec's topology, or ``dynamic`` when
-``resample_every > 0`` (``relevance_topk`` when asked for); the
-estimator that ``relevance_mode`` / ``relevance_sketch_dim`` name
-(``uniform``, ``grad_cos`` or ``grad_cos+sketch``), or ``obs_stats``;
-the spec's delay model (``none`` by default); the ``store`` combiner;
-and the transport, ``faulty`` when any fault rate is nonzero. The
-faulty transport's knob-derived headroom deepens the delay line, and
-``max_staleness`` or a decaying transport makes the stores and the
-line carry each piece's send epoch. ``GroupSpec`` has already refused
-every key the port lacks.
+``kind`` names the trainer: ``"buffer"`` (``repro_torch.core.ddal``,
+knowledge stores) or ``"streaming"`` (``repro_torch.core.sharded_ddal``,
+window accumulators); it defaults to ``spec.knowledge_mode``. Each
+strategy family is resolved against the port's registries exactly as
+the reference resolves ``"auto"``: the ``static`` schedule over the
+spec's topology, or ``dynamic`` when ``resample_every > 0``
+(``relevance_topk`` when asked for); the estimator that
+``relevance_mode`` / ``relevance_sketch_dim`` name (``uniform``,
+``grad_cos`` or ``grad_cos+sketch``), or ``obs_stats``; the spec's
+delay model (``none`` by default); the ``store`` combiner for the
+buffer trainer and ``flat`` for the streaming one; and the transport,
+``faulty`` when any fault rate is nonzero. The faulty transport's
+knob-derived headroom deepens the delay line, and ``max_staleness`` or
+a decaying transport makes the stores and the line carry each piece's
+send epoch.
+
+The streaming trainer takes the reference's checks (its
+``build.py:376-422``): no ``store`` combiner, no delay model, no
+``obs_stats`` estimator, no ``max_staleness``, no transport jitter or
+retransmit; and ``full`` with nothing time-varying and no faulty
+transport builds no graph object at all (the global-sum fast path, an
+explicit ``relevance`` then weighting the dense eq. 4). ``GroupSpec``
+has already refused every key the port lacks.
 """
 from __future__ import annotations
 
@@ -38,32 +49,52 @@ from repro_torch.core.topology import (DynamicTopology, Topology,
 
 
 class ExchangeProtocol:
-    """The four strategies plus the spec facts the trainer needs,
-    behind the reference's calls: ``topology_at`` → ``observe`` →
-    ``apply_relevance`` → (delay lines) → ``combine``."""
+    """The four strategies plus the spec facts the trainers need, behind
+    the reference's calls. The buffer trainer drives ``topology_at`` →
+    ``observe`` → ``apply_relevance`` → (delay lines) → ``combine``; the
+    streaming trainer ``sketch_step`` (accumulation) → ``observe`` →
+    ``combine`` at share steps."""
 
     def __init__(self, *, spec, schedule, estimator, combiner,
-                 transport=None):
+                 transport=None, kind: str = "buffer"):
         self.spec = spec
+        self.kind = kind
         self.schedule = schedule
         self.estimator = estimator
         self.combiner = combiner
         self.transport = transport
-        self.static_topology = schedule.base
-        self.max_delay = max(schedule.max_delay, spec.max_delay)
+        self.static_topology = (schedule.base if schedule is not None
+                                else None)
+        sched_delay = schedule.max_delay if schedule is not None else 0
+        self.max_delay = max(sched_delay, spec.max_delay)
         if transport is not None:
             # jitter, retransmit backoff and the duplicate's +1 land
             # deeper in the line; knob-derived, not plan-realised
             self.max_delay += transport.extra_delay
         ms = spec.max_staleness
         #: stores and delay lines carry each piece's send epoch
-        self.track_born = (ms is not None or (
+        self.track_born = kind == "buffer" and (ms is not None or (
             transport is not None and spec.transport_decay < 1.0))
         self._edge_tables: dict = {}
 
     @property
     def wants_obs(self) -> bool:
         return self.estimator.wants_obs
+
+    @property
+    def sketch_dim(self) -> int:
+        return self.estimator.sketch_dim
+
+    def streaming_rel_init(self, device=None):
+        """``Knowledge.rel``'s seed: ``None`` when nothing is learned."""
+        if not self.estimator.learns:
+            return None
+        return self.estimator.init(self.spec.n_agents, device)
+
+    def sketch_step(self, grads, rnd: int):
+        """This step's (n, d) window-sketch contribution (sketched
+        estimators; ``None`` otherwise)."""
+        return self.estimator.sketch_step(grads, rnd)
 
     def init_table(self) -> np.ndarray:
         return self.schedule.init_table()
@@ -81,14 +112,15 @@ class ExchangeProtocol:
         nbr = self.schedule.refresh(step, nbr, rel, alive)
         return self.schedule.materialize(step, nbr, rel), nbr
 
-    def observe(self, rel_state, *, grads, aux=None, rnd=0, enabled=True,
-                alive=None):
+    def observe(self, rel_state, *, grads=None, sketch=None, aux=None,
+                rnd=0, enabled=True, alive=None):
         """One estimator update (the identity for ``uniform``);
+        ``sketch`` is the streaming window's carried (n, d) sketch;
         ``alive`` (device (n,) bool) freezes entries touching a dead
         agent."""
-        return self.estimator.observe(rel_state, grads=grads, aux=aux,
-                                      rnd=rnd, enabled=enabled,
-                                      alive=alive)
+        return self.estimator.observe(rel_state, grads=grads,
+                                      sketch=sketch, aux=aux, rnd=rnd,
+                                      enabled=enabled, alive=alive)
 
     def edge_tables(self, topo: Topology, device):
         """(nbr, mask, prior relevance) of ``topo`` on ``device``,
@@ -118,11 +150,16 @@ class ExchangeProtocol:
         return edge_effective(topo, rel, *self.edge_tables(topo,
                                                            rel.device))
 
-    def combine(self, stores, rel_state, step):
-        # the store combiner, the port's only one, reads relevance from
-        # each piece's R (set at delivery), never an (n, n) matrix
-        del rel_state
-        return self.combiner(stores, None, step)
+    def combine(self, knowledge, rel_state, step, alive=None, out=None):
+        """The eq. 4 aggregation of the chosen combiner, given the
+        estimator's dense (n, n) R (``None`` when nothing is learned).
+        The streaming ``flat`` combiner also takes ``alive`` and an
+        ``out`` tree for ḡ; the buffer trainer's ``store`` combiner
+        reads relevance from each piece's R (set at delivery)."""
+        rel = None
+        if self.estimator.learns and rel_state is not None:
+            rel = self.estimator.matrix(rel_state)
+        return self.combiner(knowledge, rel, step, alive, out)
 
 
 def _schedule_key(spec) -> str:
@@ -237,22 +274,110 @@ def _make_schedule(spec, key: str, topology, relevance, delay,
     return SCHEDULES.get("static")(delay_model.attach(built))
 
 
-def build_exchange(spec, *, topology=None, relevance=None, delay=None,
+KINDS = ("buffer", "streaming")
+
+
+def _combiner_key(spec, kind: str) -> str:
+    key = spec.exchange_combiner
+    if key != "auto":
+        return key
+    return "store" if kind == "buffer" else "flat"
+
+
+def _check_streaming(spec, estimator, faulty: bool) -> None:
+    """The reference's refusals of streaming specs (``build.py:380-422``)."""
+    if _delay_key(spec) != "none":
+        raise ValueError(
+            f"delay model {_delay_key(spec)!r} has no effect on the "
+            f"streaming trainer (window accumulators exchange at "
+            f"share steps; there is no delay line to stale) — drop "
+            f"exchange_delay, or use the buffer trainer for "
+            f"asynchrony simulation")
+    if estimator.wants_obs:
+        raise ValueError(
+            f"estimator {_estimator_key(spec)!r} needs the trainers' "
+            f"observation side channel (metrics['obs_moments']), "
+            f"which the streaming train step does not carry — it "
+            f"would silently hold the uniform prior forever; use the "
+            f"buffer trainer for observation-statistics relevance")
+    if spec.max_staleness is not None:
+        raise ValueError(
+            "max_staleness ages buffer-trainer arrival slots; the "
+            "streaming trainer's window accumulators are rebuilt "
+            "every share round and have no staleness to cut — "
+            "drop max_staleness or use the buffer trainer")
+    if faulty and (spec.transport_jitter > 0
+                   or spec.transport_retransmit > 0):
+        raise ValueError(
+            "transport_jitter / transport_retransmit delay "
+            "deliveries through the buffer trainer's delay line; "
+            "the streaming trainer exchanges whole windows at "
+            "share steps (no line to delay — a message is either "
+            "in this round or gone), got jitter="
+            f"{spec.transport_jitter}, retransmit="
+            f"{spec.transport_retransmit}; zero them or use the "
+            "buffer trainer")
+
+
+def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
+                   relevance=None, delay=None,
                    obs_dim: Optional[int] = None,
                    use_wavg_kernel: bool = False) -> ExchangeProtocol:
-    """Build the buffer trainer's exchange protocol for ``spec``.
-    ``topology`` (a ``Topology`` or ``DynamicTopology``) overrides the
-    graph the spec names; ``relevance`` / ``delay`` are dense (n, n)
-    src→dst or per-edge (n, k) overrides; ``obs_dim`` is needed by the
-    ``obs_stats`` estimator only."""
-    from repro_torch.core.transport import make_transport
+    """Build the exchange protocol of the ``kind`` trainer (default
+    ``spec.knowledge_mode``) for ``spec``. ``topology`` (a ``Topology``
+    or ``DynamicTopology``) overrides the graph the spec names;
+    ``relevance`` / ``delay`` are dense (n, n) src→dst or per-edge
+    (n, k) overrides; ``obs_dim`` is needed by the ``obs_stats``
+    estimator only."""
+    from repro_torch.core.transport import make_transport, transport_enabled
+    kind = kind or spec.knowledge_mode
+    if kind not in KINDS:
+        raise ValueError(
+            f"unknown exchange kind {kind!r}; expected one of {KINDS}")
+    sched_key = _schedule_key(spec)
+    comb_key = _combiner_key(spec, kind)
+    if kind == "buffer" and comb_key != "store":
+        raise ValueError(
+            f"the buffer trainer aggregates knowledge stores and "
+            f"needs the 'store' combiner, got {comb_key!r}")
+    if kind == "streaming" and comb_key == "store":
+        raise ValueError(
+            "the 'store' combiner aggregates ring-buffer pieces and "
+            "only serves the buffer trainer; streaming wants 'flat' "
+            "or 'pod'")
     delay_model = _make_delay_model(spec, delay)
     estimator = _make_estimator(spec, obs_dim)
-    schedule = _make_schedule(spec, _schedule_key(spec), topology,
-                              relevance, delay, delay_model)
-    transport = make_transport(spec, tuple(schedule.base.nbr.shape))
-    return ExchangeProtocol(
-        spec=spec, schedule=schedule, estimator=estimator,
-        combiner=COMBINERS.get("store")(spec=spec, transport=transport,
-                                        use_wavg_kernel=use_wavg_kernel),
-        transport=transport)
+    faulty = transport_enabled(spec)
+    if kind == "streaming":
+        _check_streaming(spec, estimator, faulty)
+    if kind == "buffer":
+        schedule = _make_schedule(spec, sched_key, topology, relevance,
+                                  delay, delay_model)
+        transport = make_transport(spec, tuple(schedule.base.nbr.shape))
+        combiner = COMBINERS.get("store")(spec=spec, transport=transport,
+                                          use_wavg_kernel=use_wavg_kernel)
+        return ExchangeProtocol(spec=spec, schedule=schedule,
+                                estimator=estimator, combiner=combiner,
+                                transport=transport, kind=kind)
+    # the global-sum fast path: no graph object when the spec names the
+    # full topology with nothing time-varying (an explicit relevance
+    # matrix then weights the dense eq. 4); a faulty transport drops
+    # per-round edges, so it always needs the edge table
+    dense_R = None
+    if (topology is None and spec.topology == "full"
+            and spec.resample_every == 0 and sched_key == "static"
+            and not faulty):
+        schedule = None
+        dense_R = relevance
+    else:
+        schedule = _make_schedule(spec, sched_key, topology, relevance,
+                                  delay, delay_model)
+    transport = make_transport(
+        spec, tuple(schedule.base.nbr.shape) if schedule is not None
+        else (spec.n_agents, spec.n_agents))
+    combiner = COMBINERS.get(comb_key)(spec=spec, schedule=schedule,
+                                       estimator=estimator, dense_R=dense_R,
+                                       transport=transport)
+    return ExchangeProtocol(spec=spec, schedule=schedule,
+                            estimator=estimator, combiner=combiner,
+                            transport=transport, kind=kind)

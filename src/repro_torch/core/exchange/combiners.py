@@ -1,8 +1,10 @@
 """Combiners — *how gathered knowledge becomes one update*. The port
 has the buffer trainer's ``store`` combiner of
-``repro.core.exchange.combiners``: the eq. 4 weighted average over
-every agent's knowledge store, and the shared per-edge relevance tail
-``edge_effective``.
+``repro.core.exchange.combiners`` (the eq. 4 weighted average over
+every agent's knowledge store), the streaming trainer's ``flat``
+combiner (below, after the store's notes) and the shared per-edge
+relevance tail ``edge_effective``. The ``pod`` combiner waits for
+Slice E.
 
 The reference vmaps the share step over the n stores; the port hands
 the whole (n, m, P) plane stack to one launch of the fused CUDA kernel
@@ -18,16 +20,28 @@ reference the discounted weights agree to a few ulps, not to the bit;
 the kernel and its plain version get the same T and R and stay
 bitwise. When every piece ages out the weight sum is 0 and the trainer
 takes its local update.
+
+``flat`` (the reference's ``combiners.py:70-156``) combines the
+streaming trainer's window (``repro_torch.core.sharded_ddal``): with no
+schedule (``full``, nothing time-varying) the global-sum fast path when
+nothing weights the edges, else the dense eq. 4 with the learned R
+times the prior; with a schedule the neighbour-local sums over the
+step's edge table, the learned R gathered onto the edges; a faulty
+transport drops this round's lost and corrupted edges (the self-loop
+always survives). ``knowledge_quant_block > 0`` pushes the window
+through the int8 wire format and ``alive`` zeroes dead agents' rows on
+the way in, a column chunk at a time.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core import knowledge as K
 from repro_torch.core import relevance as REL
 from repro_torch.core.exchange.registry import COMBINERS
 from repro_torch.core.topology import Topology
-from repro_torch.core.weighting import combine_relevance
+from repro_torch.core.weighting import combine_relevance, relevance_matrix
 
 
 def edge_effective(topo: Topology, rel: torch.Tensor, nbr: torch.Tensor,
@@ -63,11 +77,13 @@ def age_gate(stores: K.KnowledgeStore, step: int, max_staleness=None,
     return stores._replace(T=T, R=R, valid=valid)
 
 
-@COMBINERS.register("store")
+@COMBINERS.register(
+    "store", params={"quant_block": ("knowledge_quant_block", int)})
 def make_store_combiner(*, spec, transport=None,
                         use_wavg_kernel: bool = False):
-    """``combine(stores, rel, step) -> (ḡ (n, P), Σw (n,))``. Relevance
-    already rode in on each piece's R at delivery, so ``rel`` is unused.
+    """``combine(stores, rel, step, alive=None, out=None) -> (ḡ (n, P),
+    Σw (n,))``. Relevance already rode in on each piece's R at delivery,
+    so ``rel`` is unused, as are ``alive`` and ``out``.
     ``use_wavg_kernel=True`` keeps the legacy path: weights computed
     outside, then the plain contraction kernel. Int8 stores
     (``knowledge_quant_block > 0``) always take the int8 fused step.
@@ -77,10 +93,60 @@ def make_store_combiner(*, spec, transport=None,
     decay = spec.transport_decay if transport is not None else 1.0
     stale_gate = ms is not None or decay < 1.0
 
-    def combine(stores, rel, step):
-        del rel
+    def combine(stores, rel, step, alive=None, out=None):
+        # stores hold only live agents' pieces (the send path gates
+        # them), and a dead destination's row is selected away upstream
+        del rel, alive, out
         if stale_gate:
             stores = age_gate(stores, step, ms, decay)
         return K.weighted_average(stores, use_kernel=use_wavg_kernel)
 
+    return combine
+
+
+@COMBINERS.register(
+    "flat", params={"r_weighting": ("r_weighting", str),
+                    "quant_block": ("knowledge_quant_block", int)})
+def make_flat_combiner(*, spec, schedule, estimator, dense_R=None,
+                       transport=None):
+    """``combine(window, rel, step, alive=None, out=None) -> ḡ``, a tree
+    of (A, *param) fp32 leaves (written into ``out`` when given).
+    ``schedule=None`` marks the topology-free ``full`` case; ``rel`` is
+    the learned dense (A, A) R (``None`` when nothing is learned)."""
+    from repro_torch.core import sharded_ddal as SD
+    A = spec.n_agents
+    learns = estimator.learns
+    qb = spec.knowledge_quant_block
+
+    if schedule is None:
+        if transport is not None:
+            raise ValueError(
+                "the faulty transport drops per-round edges and needs "
+                "an edge table — build_exchange keeps a schedule when "
+                "transport is enabled, so a None schedule here is a "
+                "construction bug")
+        uniform = (dense_R is None and spec.r_weighting == "uniform"
+                   and not learns)
+        R0 = (relevance_matrix(A, "uniform") if dense_R is None
+              else torch.as_tensor(dense_R, dtype=torch.float32))
+
+        def combine(window, rel, step, alive=None, out=None):
+            del step
+            R = R0.to(window.tsum.device)
+            if learns:
+                R = combine_relevance(R, rel)
+            return SD._combine(window, R, uniform, out, alive, qb)
+        return combine
+
+    def combine(window, rel, step, alive=None, out=None):
+        dev = window.tsum.device
+        alive_h = (alive.cpu().numpy() if alive is not None
+                   and schedule.resamples else None)
+        topo = schedule.at_step(step, rel if learns else None, alive_h)
+        if learns:
+            topo = edge_effective(topo, rel, *SD.topo_tables(topo, dev))
+        if transport is not None:
+            topo = SD.drop_topology_edges(
+                topo, transport.deliver_mask(step, np.asarray(topo.nbr)))
+        return SD._combine_topo(window, topo, out, alive, qb)
     return combine

@@ -31,7 +31,7 @@ class NoDelay:
         return None
 
 
-@DELAYS.register("uniform")
+@DELAYS.register("uniform", params={"max_delay": ("max_delay", int)})
 class UniformDelay:
     def __init__(self, delay: int):
         if delay < 0:

@@ -24,9 +24,16 @@ the port of ``repro.core.exchange.estimators`` for the buffer trainer.
 The gradient estimators' state is the dense (n, n) ``R[src, dst]`` on
 the trainer's device, ``obs_stats``'s an :class:`ObsStatsState`. Every
 ``observe`` takes ``alive`` ((n,) bool on the device, elastic
-membership): entries touching a dead agent hold. The streaming
-trainer's carried window sketch (``sketch=`` in the reference's
-``observe``) waits for its slice.
+membership): entries touching a dead agent hold.
+
+The streaming trainer (``repro_torch.core.sharded_ddal``) observes its
+window-accumulated gradients, a tree of stacked leaves, and a sketched
+estimator carries the window's (n, d) sketch instead: every
+accumulation step adds ``sketch_step(grads, rnd)`` (one ``grad_sketch``
+launch per leaf, seed ``fold_seed(seed, rnd)``) and the share step's
+``observe(sketch=...)`` takes ``cosine_rows`` of it (the reference's
+``estimators.py:154-172``). ``sketch_dim`` is 0 for every estimator
+that does not sketch.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ class UniformEstimator:
 
     learns = False
     wants_obs = False
+    sketch_dim = 0
 
     @classmethod
     def from_spec(cls, spec, obs_dim=None) -> "UniformEstimator":
@@ -58,13 +66,18 @@ class UniformEstimator:
     def matrix(self, state) -> torch.Tensor:
         return state
 
+    def sketch_step(self, grads, rnd):
+        return None
 
-@ESTIMATORS.register("grad_cos")
+
+@ESTIMATORS.register(
+    "grad_cos", params={"relevance_ema": ("relevance_ema", float)})
 class GradCosEstimator:
     """Exact pairwise gradient cosines → ``to_relevance`` → EMA."""
 
     learns = True
     wants_obs = False
+    sketch_dim = 0
 
     def __init__(self, ema: float):
         self.ema = ema
@@ -79,7 +92,7 @@ class GradCosEstimator:
     def _cosine(self, grads: torch.Tensor, rnd: int) -> torch.Tensor:
         return REL.grad_cosine(grads)
 
-    def observe(self, state: torch.Tensor, *, grads: torch.Tensor,
+    def observe(self, state: torch.Tensor, *, grads=None, sketch=None,
                 aux=None, rnd: int = 0, enabled: bool = True,
                 alive=None) -> torch.Tensor:
         # the reference computes the observation on warm-up epochs too
@@ -89,13 +102,22 @@ class GradCosEstimator:
         if not enabled:
             return state
         return REL.ema_update(state, REL.to_relevance(
-            self._cosine(grads, rnd)), self.ema, alive=alive)
+            self._observation(grads, sketch, rnd)), self.ema, alive=alive)
+
+    def _observation(self, grads, sketch, rnd: int) -> torch.Tensor:
+        del sketch
+        return self._cosine(grads, rnd)
 
     def matrix(self, state: torch.Tensor) -> torch.Tensor:
         return state
 
+    def sketch_step(self, grads, rnd):
+        return None
 
-@ESTIMATORS.register("grad_cos+sketch")
+
+@ESTIMATORS.register(
+    "grad_cos+sketch",
+    params={"relevance_sketch_dim": ("relevance_sketch_dim", int)})
 class SketchedGradCosEstimator(GradCosEstimator):
     """Gradient cosines on seeded sign-JL sketches: every observed
     epoch streams the gradient rows through that round's projection
@@ -109,6 +131,7 @@ class SketchedGradCosEstimator(GradCosEstimator):
         super().__init__(ema)
         self.dim = dim
         self.seed = seed
+        self.sketch_dim = dim
 
     @classmethod
     def from_spec(cls, spec, obs_dim=None) -> "SketchedGradCosEstimator":
@@ -118,6 +141,19 @@ class SketchedGradCosEstimator(GradCosEstimator):
     def _cosine(self, grads: torch.Tensor, rnd: int) -> torch.Tensor:
         return REL.sketch_cosine(grads, self.dim,
                                  REL.fold_seed(self.seed, rnd))
+
+    def _observation(self, grads, sketch, rnd: int) -> torch.Tensor:
+        if sketch is not None:
+            return REL.cosine_rows(sketch)
+        return self._cosine(grads, rnd)
+
+    def sketch_step(self, grads, rnd: int) -> torch.Tensor:
+        """This step's (n, d) contribution to the window sketch: the
+        tree of stacked gradients through round ``rnd``'s projection,
+        one kernel launch per leaf."""
+        from repro_torch.kernels.grad_sketch import ops as sketch_ops
+        return sketch_ops.sketch_pytree(grads, REL.fold_seed(self.seed, rnd),
+                                        self.dim)
 
 
 class ObsStatsState(NamedTuple):
@@ -145,6 +181,7 @@ class ObsStatsEstimator:
 
     learns = True
     wants_obs = True
+    sketch_dim = 0
 
     def __init__(self, ema: float, obs_dim: Optional[int]):
         if obs_dim is None:
@@ -165,10 +202,10 @@ class ObsStatsEstimator:
         return ObsStatsState(count=z(n), mean=z(n, self.obs_dim), m2=z(n),
                              rel=REL.init_relevance(n, device))
 
-    def observe(self, state: ObsStatsState, *, grads=None, aux=None,
-                rnd: int = 0, enabled: bool = True,
+    def observe(self, state: ObsStatsState, *, grads=None, sketch=None,
+                aux=None, rnd: int = 0, enabled: bool = True,
                 alive=None) -> ObsStatsState:
-        del grads, rnd
+        del grads, sketch, rnd
         if aux is None:
             return state
         obs_sum, sq_sum, cnt = (x.to(torch.float32) for x in aux)
@@ -201,3 +238,6 @@ class ObsStatsEstimator:
 
     def matrix(self, state: ObsStatsState) -> torch.Tensor:
         return state.rel
+
+    def sketch_step(self, grads, rnd):
+        return None

@@ -1,10 +1,13 @@
 """String-keyed strategy registries — the port of
 ``repro.core.exchange.registry``. Each family holds only the strategies
 the port implements; ``GroupSpec`` refuses the reference's other keys
-with ``NotPortedError``."""
+with ``NotPortedError``. A strategy registers the CLI parameters it
+reads (``params={cli_key: (GroupSpec field, type)}``), and
+``cli_options`` is the launcher's whole ``--exchange key=value``
+vocabulary, the reference's keys exactly."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 
 class Registry:
@@ -13,16 +16,27 @@ class Registry:
     def __init__(self, kind: str):
         self.kind = kind
         self._table: Dict[str, Callable] = {}
+        self._params: Dict[str, Mapping[str, Tuple[str, type]]] = {}
 
-    def register(self, name: str):
-        """Decorator: ``@REGISTRY.register("name")``."""
+    def register(self, name: str,
+                 params: Optional[Mapping[str, Tuple[str, type]]] = None):
+        """Decorator: ``@REGISTRY.register("name", params={cli_key:
+        (spec_field, type)})``."""
         def deco(factory):
             if name in self._table:
                 raise ValueError(
                     f"duplicate {self.kind} strategy {name!r}")
             self._table[name] = factory
+            self._params[name] = dict(params or {})
             return factory
         return deco
+
+    def cli_params(self) -> Dict[str, Tuple[str, type]]:
+        """Union of every registered strategy's CLI parameters."""
+        out: Dict[str, Tuple[str, type]] = {}
+        for p in self._params.values():
+            out.update(p)
+        return out
 
     @property
     def choices(self) -> Tuple[str, ...]:
@@ -55,3 +69,27 @@ REGISTRIES: Dict[str, Registry] = {
     "combiner": COMBINERS,
     "transport": TRANSPORTS,
 }
+
+
+#: the parameters of the reference's ``pod`` combiner, which the port
+#: does not register (Slice E): kept in the vocabulary so that asking
+#: for them reaches ``GroupSpec``, which refuses ``pods > 0`` by name
+UNPORTED_CLI_PARAMS = {"pods": ("pods", int), "pod_axis": ("pod_axis", str)}
+
+
+def cli_options() -> Dict[str, Tuple[str, type]]:
+    """The full ``--exchange key=value`` vocabulary: the five strategy
+    selectors plus every registered strategy's declared parameters,
+    each mapped to the ``GroupSpec`` field it sets."""
+    import repro_torch.core.exchange  # noqa: F401  (registers them all)
+    opts: Dict[str, Tuple[str, type]] = {
+        "schedule": ("exchange_schedule", str),
+        "estimator": ("exchange_estimator", str),
+        "delay": ("exchange_delay", str),
+        "combiner": ("exchange_combiner", str),
+        "transport": ("exchange_transport", str),
+    }
+    for reg in REGISTRIES.values():
+        opts.update(reg.cli_params())
+    opts.update(UNPORTED_CLI_PARAMS)
+    return opts

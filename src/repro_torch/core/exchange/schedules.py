@@ -39,7 +39,10 @@ from repro_torch.core.topology import (DynamicTopology, Topology, host_f32,
                                        round_generator, sample_gossip)
 
 
-@SCHEDULES.register("static")
+@SCHEDULES.register(
+    "static", params={"topology": ("topology", str),
+                      "degree": ("degree", int),
+                      "topology_seed": ("topology_seed", int)})
 class StaticSchedule:
     """The graph named by ``GroupSpec.topology``, fixed for the run."""
 
@@ -67,8 +70,16 @@ class StaticSchedule:
         del step, nbr, rel
         return self.base
 
+    def at_step(self, step, rel, alive=None) -> Topology:
+        """The graph in force at ``step`` for the streaming trainer,
+        which carries no table: a pure function of the step (``rel``
+        the dense learned R or ``None``, ``alive`` host (n,) bool)."""
+        del step, rel, alive
+        return self.base
 
-@SCHEDULES.register("dynamic")
+
+@SCHEDULES.register(
+    "dynamic", params={"resample_every": ("resample_every", int)})
 class DynamicSchedule(StaticSchedule):
     """Uniform gossip resampling; with ``resample_every <= 0`` it is the
     static base."""
@@ -94,6 +105,10 @@ class DynamicSchedule(StaticSchedule):
             return self.base
         return self.topology.with_table(nbr)
 
+    def at_step(self, step, rel, alive=None) -> Topology:
+        del rel
+        return self.topology.at_epoch(step, alive)
+
 
 def topk_draws(seed: int, rnd: int, n: int
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -108,7 +123,8 @@ def topk_draws(seed: int, rnd: int, n: int
             torch.rand((n, n), generator=g))
 
 
-@SCHEDULES.register("relevance_topk")
+@SCHEDULES.register(
+    "relevance_topk", params={"explore_eps": ("explore_eps", float)})
 class RelevanceTopKSchedule(StaticSchedule):
     """Gumbel top-k gossip over the learned relevance, with ε-greedy
     uniform rows; slot 0 stays the self-loop. A pure function of
@@ -207,4 +223,7 @@ class RelevanceTopKSchedule(StaticSchedule):
     def materialize(self, step, nbr, rel) -> Topology:
         del step, rel
         return self.topology.with_table(nbr)
+
+    def at_step(self, step, rel, alive=None) -> Topology:
+        return self.topology.with_table(self.sample_table(step, rel, alive))
 

@@ -9,9 +9,13 @@ of two agents' gradients; ``sketch_cosine`` is the same estimate on
 the dense (n, n) ``R[src, dst]`` that the estimators carry;
 ``gather_edges`` projects it onto an (n, k) edge table.
 
-Gradients are flat (n, P) rows in the port, so the cosines reduce over
-one row where the reference reduces per leaf and then over leaves; the
-two agree to a few ulps, not to the bit. ``fold_seed`` is host integer
+The buffer trainer's gradients are flat (n, P) rows, so the cosines
+reduce over one row where the reference reduces per leaf and then over
+leaves; the two agree to a few ulps, not to the bit. The streaming
+trainer's are trees of stacked (n, *param) leaves, which
+``grad_cosine`` reduces leaf by leaf in two passes as the reference
+does (norms, then the Gram of the normalised rows), a column chunk at a
+time so no leaf-sized copy is made. ``fold_seed`` is host integer
 math (the epoch and the base seed are host values here) and is bitwise
 the reference's, int32 reinterpretation included.
 
@@ -22,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common.pytree import column_chunks, tree_leaves_with_paths
 from repro_torch.configs.base import RELEVANCE_MODES
 from repro_torch.kernels.grad_sketch.ref import MASK32, MIX_CONSTANTS
 
@@ -37,10 +42,30 @@ def cosine_rows(g: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.where(eye, torch.ones_like(c), c)
 
 
-def grad_cosine(grads: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Exact pairwise cosine of the agents' gradient rows (n, P) →
-    symmetric (n, n) ``C[src, dst]`` in [-1, 1], unit diagonal."""
-    return cosine_rows(grads.to(torch.float32), eps)
+def grad_cosine(grads, eps: float = 1e-8) -> torch.Tensor:
+    """Exact pairwise cosine of the agents' gradients → symmetric (n, n)
+    ``C[src, dst]`` in [-1, 1], unit diagonal. ``grads`` is (n, P) rows
+    or a tree of stacked (n, *param) leaves."""
+    if isinstance(grads, torch.Tensor):
+        return cosine_rows(grads.to(torch.float32), eps)
+    rows = [x.reshape(x.shape[0], -1)
+            for _, x in tree_leaves_with_paths(grads)]
+    n = rows[0].shape[0]
+    dev = rows[0].device
+    sq = torch.zeros((n,), dtype=torch.float32, device=dev)
+    for g in rows:
+        for cols in column_chunks(g.shape[1]):
+            gf = g[:, cols].to(torch.float32)
+            sq = sq + torch.sum(gf * gf, dim=1)
+    denom = torch.clamp_min(torch.sqrt(sq), eps)[:, None]
+    C = torch.zeros((n, n), dtype=torch.float32, device=dev)
+    for g in rows:
+        for cols in column_chunks(g.shape[1]):
+            gn = g[:, cols].to(torch.float32) / denom
+            C = C + gn @ gn.T
+    c = torch.clamp(C, -1.0, 1.0)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    return torch.where(eye, torch.ones_like(c), c)
 
 
 def sketch_cosine(grads: torch.Tensor, dim: int, seed: int,

@@ -136,6 +136,17 @@ class Transport:
                                dup=self.plan.dup[e],
                                corrupt=self.plan.corrupt[e])
 
+    def deliver_mask(self, step: int, nbr) -> np.ndarray:
+        """The streaming trainer's view: host (n, k) bool, True where
+        this share round's message survives. Lost and corrupted
+        messages are alike there (a quarantined window adds exactly 0);
+        duplicates and jitter do nothing to window sums with no delay
+        line. Self-loops always survive."""
+        f = self.at(step)
+        nbr = np.asarray(nbr)
+        self_edge = nbr == np.arange(nbr.shape[0])[:, None]
+        return self_edge | ~(f.drop | f.corrupt)
+
 
 # ---------------------------------------------------------------------
 # wire integrity: position-weighted payload checksums
@@ -268,7 +279,17 @@ def _make_none_transport(*, spec, shape) -> None:
     return None
 
 
-@TRANSPORTS.register("faulty")
+@TRANSPORTS.register(
+    "faulty",
+    params={"loss": ("transport_loss", float),
+            "dup": ("transport_dup", float),
+            "corrupt": ("transport_corrupt", float),
+            "jitter": ("transport_jitter", int),
+            "retransmit": ("transport_retransmit", int),
+            "transport_seed": ("transport_seed", int),
+            "transport_horizon": ("transport_horizon", int),
+            "max_staleness": ("max_staleness", int),
+            "staleness_decay": ("transport_decay", float)})
 def _make_faulty_transport(*, spec, shape) -> Transport:
     """The seeded planned injector over the ``transport_*`` knobs;
     ``shape`` is the base topology's (n, k) edge table shape."""

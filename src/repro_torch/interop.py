@@ -16,7 +16,9 @@ port's scale columns (``BlockLayout``). The model zoo's params keep
 the reference's pytree as they are (``ssm_params``,
 ``transformer_params``), and Mamba2 decode states and transformer KV
 caches go both ways (``ssm_state``, ``ssm_state_to_numpy``,
-``kv_cache``, ``kv_cache_to_numpy``).
+``kv_cache``, ``kv_cache_to_numpy``). The streaming trainer's
+``TrainState`` goes both ways too (``train_state``, ``train_tree``):
+its trees of stacked leaves keep the reference's pytree as they are.
 """
 from __future__ import annotations
 
@@ -346,3 +348,66 @@ def kv_cache_to_numpy(cache) -> dict:
     return {"layers": {"kv": {k: kv[k].detach().to("cpu").to(
         torch.float32 if kv[k].dtype == torch.bfloat16
         else kv[k].dtype).numpy() for k in KV_KEYS}}}
+
+
+# ---------------------------------------------------------------------
+# the streaming trainer's TrainState
+# ---------------------------------------------------------------------
+def _opt_tree(state, device):
+    out = {}
+    for k, v in state.items():
+        out[k] = (tree_map(lambda x: _array_to_tensor(x, device), v)
+                  if isinstance(v, dict) else _array_to_tensor(v, device))
+    return out
+
+
+def train_state(state, device="cpu"):
+    """The reference's streaming ``TrainState`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``) → the port's
+    (``repro_torch.core.sharded_ddal.TrainState``): params, the
+    optimiser's state, ``Knowledge`` with ``rel``, ``sk`` and ``alive``
+    where present, and the step as a host int. Dtypes are kept (bf16
+    arrays through fp32)."""
+    from repro_torch.core.sharded_ddal import Knowledge, TrainState
+    know = state.know
+
+    def opt(x):
+        return None if x is None else _array_to_tensor(x, device)
+    return TrainState(
+        params=tree_map(lambda x: _array_to_tensor(x, device), state.params),
+        opt_state=_opt_tree(state.opt_state, device),
+        know=Knowledge(
+            tg=tree_map(lambda x: _array_to_tensor(x, device), know.tg),
+            tsum=_array_to_tensor(know.tsum, device),
+            rg=tree_map(lambda x: _array_to_tensor(x, device), know.rg),
+            rsum=_array_to_tensor(know.rsum, device),
+            rel=opt(getattr(know, "rel", None)),
+            sk=opt(getattr(know, "sk", None)),
+            alive=opt(getattr(know, "alive", None))),
+        step=int(np.asarray(state.step)))
+
+
+def train_tree(state):
+    """The port's ``TrainState`` → the reference's structure with numpy
+    leaves (bf16 as fp32, the step as an int32 scalar), under the port's
+    NamedTuple types, whose field names are the reference's: what
+    ``repro_torch.checkpoint.save_train`` writes."""
+    from repro_torch.core.sharded_ddal import Knowledge
+
+    def arr(x):
+        if x is None:
+            return None
+        x = x.detach().to("cpu")
+        if x.dtype == torch.bfloat16:
+            x = x.to(torch.float32)
+        return x.numpy()
+    know = state.know
+    return type(state)(
+        params=tree_map(arr, state.params),
+        opt_state={k: (tree_map(arr, v) if isinstance(v, dict) else arr(v))
+                   for k, v in state.opt_state.items()},
+        know=Knowledge(tg=tree_map(arr, know.tg), tsum=arr(know.tsum),
+                       rg=tree_map(arr, know.rg), rsum=arr(know.rsum),
+                       rel=arr(know.rel), sk=arr(know.sk),
+                       alive=arr(know.alive)),
+        step=np.asarray(int(state.step), np.int32))

@@ -17,6 +17,12 @@ there is no small-leaf branch: an agent's parameters are one flat row
 agent's store. The int8 blocks still restart at every leaf of that row
 (``repro_torch.common.pytree.BlockLayout``), as the reference's
 per-leaf quantization has them.
+
+``quantize_tree`` / ``dequantize_tree`` (the reference's
+``ddal_wavg/ops.py:201,217``) are the int8 round trip over a tree of
+stacked leaves that the streaming trainer's combiners push its window
+through: plain PyTorch on both devices, as in the reference, where
+they are XLA ops and no kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.common.pytree import BlockLayout
+from repro_torch.common.pytree import BlockLayout, tree_map
 from repro_torch.kernels.ddal_wavg import ref
 
 MAX_PIECES = 4096           # the kernels stage m weights in smem
@@ -211,3 +217,25 @@ def wavg(G: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 fused_wavg.launches = 0
 fused_wavg_q.launches = 0
 wavg.launches = 0
+
+
+def quantize_tree(tree, q_block: int, lead: int = 1):
+    """Every leaf's trailing (parameter) axes into int8 blocks of
+    ``q_block``, its ``lead`` leading axes kept. Returns (qtree, stree):
+    int8 leaves of the input's shapes, and fp32 scale leaves (*lead,
+    ⌈p / q_block⌉)."""
+    pairs = tree_map(lambda x: ref.quantize_rows(
+        x.reshape(x.shape[:lead] + (-1,)), q_block), tree)
+    qtree = tree_map(lambda x, pr: pr[0].reshape(x.shape), tree, pairs)
+    stree = tree_map(lambda pr: pr[1], pairs)
+    return qtree, stree
+
+
+def dequantize_tree(qtree, stree, q_block: int):
+    """The inverse of :func:`quantize_tree` → an fp32 tree of qtree's
+    shapes (the lead axes recovered from each scale leaf's rank)."""
+    def leaf(q, s):
+        lead = s.ndim - 1
+        flat = q.reshape(q.shape[:lead] + (-1,))
+        return ref.dequantize_rows(flat, s, q_block).reshape(q.shape)
+    return tree_map(leaf, qtree, stree)

@@ -24,7 +24,11 @@ holds many leaves, and the blocks restart at each
 (``repro_torch.common.pytree.BlockLayout``): the row is gathered into
 the zero-padded grid of whole blocks, quantized there with the
 reference's ops, and gathered back, so ``q`` and ``scale`` are bitwise
-the reference's ``quantize_tree``.
+the reference's ``quantize_tree``. ``quantize_rows`` /
+``dequantize_rows`` are the same wire format over rows that hold one
+leaf each (the streaming trainer's stacked leaves): the reference's
+``quantize_flat`` / ``dequantize_flat`` op for op, with the scale taken
+as above.
 """
 from __future__ import annotations
 
@@ -94,3 +98,37 @@ def dequantize_flat(q: torch.Tensor, scale: torch.Tensor,
     fp32 rows of q's shape."""
     cols = blocks.on(q.device)[0]
     return q.to(torch.float32) * scale.index_select(-1, cols)
+
+
+def quantize_rows(G: torch.Tensor, q_block: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rows of one leaf G (..., p) → (q (..., p) int8, scale (...,
+    ⌈p / q_block⌉) fp32). A short last block is zero-padded for its
+    scale's max only; ``q`` keeps G's shape."""
+    p = G.shape[-1]
+    nb = -(-p // q_block)
+    pad = nb * q_block - p
+    lead = G.shape[:-1]
+    Gf = G.to(torch.float32)
+    if pad:
+        Gf = torch.nn.functional.pad(Gf, (0, pad))
+    Gb = Gf.reshape(lead + (nb, q_block))
+    scale = torch.amax(torch.abs(Gb), dim=-1) * (1.0 / 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(Gb / safe[..., None]), -127, 127)
+    q = q.to(torch.int8).reshape(lead + (nb * q_block,))
+    return (q[..., :p] if pad else q), scale
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    q_block: int) -> torch.Tensor:
+    """The inverse of ``quantize_rows``: q · scale of each element's
+    block → fp32 of q's shape."""
+    p = q.shape[-1]
+    nb = scale.shape[-1]
+    pad = nb * q_block - p
+    lead = q.shape[:-1]
+    qp = torch.nn.functional.pad(q, (0, pad)) if pad else q
+    x = (qp.reshape(lead + (nb, q_block)).to(torch.float32)
+         * scale[..., None]).reshape(lead + (nb * q_block,))
+    return x[..., :p] if pad else x

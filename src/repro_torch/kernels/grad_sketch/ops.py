@@ -7,13 +7,18 @@ the tensors' device is the only switch. It counts its kernel launches
 in ``sketch_flat.launches``. The kernel's launch geometry is computed
 here (``sketch_geometry``), where the CPU tests can hold it.
 
-Unlike the reference's ``sketch_pytree``, which sketches leaf by leaf
-(small leaves through a materialised sign block, the rest through the
-kernel or tiled XLA) with offsets advancing by leaf size, the port
-projects an agent's whole flat row in one launch at offset 0. The
-projection is linear and its signs positional, so that equals the
-reference's per-leaf sum up to the order of the fp32 adds. Any ``dim``
-works: there is no alignment branch.
+The buffer trainer projects an agent's whole flat row in one launch
+at offset 0. The streaming trainer's gradients are trees of stacked
+(n, *param) leaves, and ``sketch_pytree`` (the reference's
+``grad_sketch/ops.py:115``) streams them leaf by leaf: each leaf is
+viewed as (n, p) and goes through ``sketch_flat`` at a running offset,
+one launch per leaf, so the (n, P) concat is never built. Leaves go in
+``jax.tree_util`` order (dict keys sorted), which fixes every offset
+and so every sign. Unlike the reference there is no small-leaf branch:
+every leaf takes the kernel on the card. The projection is linear and
+its signs positional, so the result equals the reference's up to the
+order of the fp32 adds. Any ``dim`` works: there is no alignment
+branch.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.common.pytree import tree_leaves_with_paths
 from repro_torch.kernels.grad_sketch import ref
 
 DIMS_PER_BLOCK = 128         # one sketch dim per thread
@@ -118,3 +124,33 @@ def sketch_flat(G: torch.Tensor, seed: int, dim: int, offset: int = 0
 
 
 sketch_flat.launches = 0
+
+
+def sketch_leaf(x: torch.Tensor, seed: int, dim: int, offset: int = 0
+                ) -> torch.Tensor:
+    """One stacked leaf (n, *param) → its (n, d) sketch contribution at
+    positions offset .. offset + p − 1, p = |param|. fp32 leaves are
+    viewed, never copied; another dtype is cast to fp32 first."""
+    n = x.shape[0]
+    G = x.reshape(n, -1)
+    if G.dtype != torch.float32:
+        G = G.to(torch.float32)
+    return sketch_flat(G.contiguous(), seed, dim, offset)
+
+
+def sketch_pytree(grads, seed: int, dim: int) -> torch.Tensor:
+    """A tree of stacked leaves (n, *param) → its (n, d) sketch, equal
+    to projecting the agents' flat concatenated rows at offset 0: one
+    ``sketch_flat`` per leaf, offsets advancing by leaf size in
+    ``jax.tree_util`` order."""
+    leaves = [x for _, x in tree_leaves_with_paths(grads)]
+    if not leaves:
+        raise ValueError("sketch_pytree needs at least one leaf")
+    n = leaves[0].shape[0]
+    acc = torch.zeros((n, dim), dtype=torch.float32,
+                      device=leaves[0].device)
+    offset = 0
+    for x in leaves:
+        acc = acc + sketch_leaf(x, seed, dim, offset)
+        offset += x.numel() // n
+    return acc

@@ -7,7 +7,10 @@ Within a chunk of l steps, head h:
     y[i] = Σ_{j ≤ i} (C_i · B_j) · exp(cs_i − cs_j) · dt_j · x_j
 
 with cs the inclusive cumsum of dt·A over the chunk. Inputs are read
-as fp32 whatever their dtype; the result is fp32.
+as fp32 whatever their dtype; the result is fp32. This is also the
+form a training pass differentiates (``repro_torch.models.ssd``), so
+the decay mask is applied before its exp (see ``ssd_intra_chunk``):
+the reference's order gives NaN gradients at a full chunk.
 """
 from __future__ import annotations
 
@@ -41,8 +44,13 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
     diff = cs_h[..., :, None] - cs_h[..., None, :]          # (b,nc,h,l,l)
     causal = torch.tril(torch.ones((l, l), dtype=torch.bool,
                                    device=cs.device))
-    L = torch.where(causal, torch.exp(diff), torch.zeros((), dtype=f32,
-                                                         device=cs.device))
+    # the mask goes in before the exp: the same values as the
+    # reference's where(causal, exp(diff), 0), but no exp of the
+    # positive diff above the diagonal, which overflows at a full
+    # chunk (cs_i − cs_j reaches hundreds) and turns that branch's zero
+    # cotangent into 0 · inf = NaN in a backward pass
+    L = torch.exp(torch.where(causal, diff, torch.full(
+        (), -torch.inf, dtype=f32, device=cs.device)))
     scores = torch.einsum("bcihn,bcjhn->bchij",
                           heads_of(Cc, h).to(f32), heads_of(Bc, h).to(f32))
     scores = scores * L * torch.movedim(dtc, 3, 2)[..., None, :]

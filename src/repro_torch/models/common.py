@@ -16,6 +16,25 @@ from typing import Optional, Sequence
 import torch
 
 
+def recorded(*tensors: torch.Tensor) -> bool:
+    """True when autograd records a pass over ``tensors``: grad mode is
+    on and one of them requires grad. Such a pass (a training loss)
+    takes the reference's differentiable ``"xla"`` forms; any other
+    takes the kernels (``ArchConfig`` docstring)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_pallas(field: str, impl: str) -> None:
+    """A recorded pass asked for a Pallas route, which the reference
+    cannot differentiate either: raise naming the field."""
+    if impl != "xla":
+        from repro_torch.configs.base import NotPortedError
+        raise NotPortedError(
+            f"ArchConfig.{field}={impl!r} in a pass that autograd records: "
+            f"the reference's Pallas kernel has no VJP, so only 'xla' "
+            f"trains")
+
+
 def per_row(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A (C,) weight as it is, or a (B, C) weight — one row per batch
     row, the group engine's per-slot weights — shaped to broadcast
@@ -32,8 +51,11 @@ def embed_rows(cfg, params: dict, tokens: torch.Tensor,
     values); with ``agents`` (B,), row b's from agent ``agents[b]``'s
     table of stacked planes (A, V, E)."""
     table = params["embed"]
-    rows = (table[tokens.long()] if agents is None
-            else table[agents[:, None], tokens.long()])
+    # F.embedding, not indexing: the same rows, and its backward sums a
+    # table row's gradients in a fixed order (indexing's accumulates in
+    # the order threads get to them on the CPU)
+    rows = (torch.nn.functional.embedding(tokens.long(), table)
+            if agents is None else table[agents[:, None], tokens.long()])
     return rows.to(cfg.dtype("compute"))
 
 

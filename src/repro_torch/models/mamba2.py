@@ -146,7 +146,8 @@ def mamba2_forward(cfg, p: dict, x: torch.Tensor,
     Cm = Cc.reshape(Bsz, S, s.n_groups, s.d_state)
     init_state = None if state is None else state["ssm"]
     y, final_state = ssd_chunked(xh, dt, A, Bm, Cm, s.chunk,
-                                 initial_state=init_state)
+                                 initial_state=init_state,
+                                 impl=cfg.ssd_impl)
     out = _finalize(cfg, p, y.to(torch.float32), xh, z, (Bsz, S))
     new_state = None
     if state is not None:

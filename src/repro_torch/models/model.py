@@ -8,10 +8,11 @@ and dense families:
     logits, cache = model.decode(cfg, params, batch, cache)
     logits, cache = model.decode(cfg, planes, batch, cache, agents)
 
-The dense family ("transformer") has its loss, a cache-free pass with
-no gradient on the card (the flash kernel has no backward, as the
-reference's has no VJP); the SSM family's ``loss`` raises
-``NotPortedError``.
+Both families have their loss, a cache-free pass that the streaming
+trainer differentiates: a pass that autograd records takes the
+reference's differentiable ``"xla"`` forms (attention by position, the
+einsum SSD), one with no gradient the CUDA kernels (``ArchConfig``
+docstring).
 """
 from __future__ import annotations
 
@@ -43,11 +44,6 @@ def _ssm_prefill(cfg, params, batch, cache):
     return logits, new_cache
 
 
-def _unported_loss(cfg, params, batch):
-    raise NotPortedError("the SSM family's loss is not ported to "
-                         "repro_torch yet (only serving is)")
-
-
 _FAMILIES: Dict[str, Model] = {
     "transformer": Model(
         init=tf.init_transformer,
@@ -58,7 +54,7 @@ _FAMILIES: Dict[str, Model] = {
     ),
     "ssm": Model(
         init=ssm.init_ssm_model,
-        loss=_unported_loss,
+        loss=ssm.ssm_loss,
         forward=_ssm_prefill,
         decode=ssm.ssm_decode,
         make_cache=ssm.make_ssm_cache,

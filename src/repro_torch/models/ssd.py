@@ -3,7 +3,10 @@
 
 Chunked algorithm of arXiv:2405.21060 §6: within a chunk the SSM is
 computed in its quadratic dual form (``repro_torch.kernels.ssd_scan``:
-the CUDA kernel on the card, its plain version on the CPU); across
+the CUDA kernel on the card, its plain version on the CPU; a pass that
+autograd records takes the reference's einsum form instead,
+``repro.models.ssd:79-86``, which is what the reference trains with);
+across
 chunks a first-order recurrence on the (h, p, n) states carries each
 chunk's state into the next. The reference evaluates that recurrence
 with ``lax.associative_scan``; here it is a sequential loop over the
@@ -19,20 +22,23 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.ssd_scan.ref import heads_of
+from repro_torch.models.common import recorded, refuse_pallas
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, chunk: int,
-                initial_state: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                initial_state: Optional[torch.Tensor] = None,
+                impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence SSD.
 
     x: (b, s, h, p) per-head inputs; dt: (b, s, h) positive step sizes
     (already softplus'd); A: (h,) negative decay rates; B, C:
     (b, s, g, n) projections, g groups broadcast onto the heads.
     Returns (y (b, s, h, p) in x's dtype, final_state (b, h, p, n)
-    fp32).
+    fp32). ``impl`` is ``ArchConfig.ssd_impl``: it matters only to a
+    pass that autograd records, which needs ``"xla"``.
     """
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -45,7 +51,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             F.pad(dt, (0, 0, 0, pad)), A,
                             F.pad(B, (0, 0, 0, 0, 0, pad)),
                             F.pad(C, (0, 0, 0, 0, 0, pad)), chunk,
-                            initial_state=initial_state)
+                            initial_state=initial_state, impl=impl)
         return y[:, :s], fs
     nc = s // chunk
     f32 = torch.float32
@@ -57,9 +63,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = dtc * A.to(f32)                                # (b,nc,l,h) ≤ 0
     cs = torch.cumsum(dA, dim=2)                        # inclusive
 
-    # ---- intra-chunk (dual quadratic form): the kernel -----------------
-    # (B and C by group: the kernel maps each head onto its group)
-    y_diag = ssd_ops.ssd_intra_chunk(xc, dtc, cs, Bg, Cg)
+    # ---- intra-chunk (dual quadratic form) ------------------------------
+    # a recorded pass: the reference's einsum form (its "xla" branch);
+    # otherwise the kernel (B and C by group: it maps each head onto its
+    # group)
+    if recorded(xc, dtc, cs, Bg, Cg):
+        refuse_pallas("ssd_impl", impl)
+        y_diag = ssd_ref.ssd_intra_chunk(xc, dtc, cs, Bg, Cg)
+    else:
+        y_diag = ssd_ops.ssd_intra_chunk(xc, dtc, cs, Bg, Cg)
 
     # ---- chunk states ------------------------------------------------
     Bc = heads_of(Bg, h).to(f32)                        # (b,nc,l,h,n)

@@ -15,9 +15,10 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
-                                       stack_layers)
-from repro_torch.models.common import (dense_init, embed_init, embed_rows,
-                                       head_weight, rms_norm)
+                                       stack_layers, unstack_layers)
+from repro_torch.models.common import (cross_entropy, dense_init,
+                                       embed_init, embed_rows, head_weight,
+                                       rms_norm)
 from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
                                        mamba2_decode, mamba2_forward)
 
@@ -57,8 +58,7 @@ def ssm_forward(cfg, params: dict, batch: dict,
     state is None unless a cache to continue from is given."""
     x = embed_rows(cfg, params, batch["tokens"])
     states = []
-    for i in range(cfg.n_layers):
-        lp = layer(params["layers"], i)
+    for i, lp in enumerate(unstack_layers(params["layers"], cfg.n_layers)):
         h = rms_norm(x, lp["ln"], cfg.norm_eps)
         o, new_state = mamba2_forward(
             cfg, lp["mamba"], h, None if cache is None else layer(cache, i))
@@ -86,6 +86,15 @@ def ssm_decode(cfg, params: dict, batch: dict, cache: dict,
         x = x + o
         states.append(new_state)
     return _head(cfg, params, x, agents), stack_layers(states)
+
+
+def ssm_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
+    """Token-mean cross-entropy of a cache-free pass over ``labels``
+    (−100 ignored) plus the aux term (0 for Mamba2), as the reference's
+    ``ssm_loss``. Differentiated, the pass takes the einsum SSD form
+    (``repro_torch.models.ssd``)."""
+    logits, aux, _ = ssm_forward(cfg, params, batch)
+    return cross_entropy(logits, batch["labels"]) + aux
 
 
 def make_ssm_cache(cfg, batch: int, max_len: int = 0, device=None) -> dict:

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
-                                       stack_layers)
+                                       stack_layers, unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (cross_entropy, dense_init, embed_init,
                                        embed_rows, head_weight, rms_norm)
@@ -87,8 +87,10 @@ def _run_layers(cfg, params: dict, batch: dict, cache: Optional[dict],
     positions = batch["positions"]
     x = embed_rows(cfg, params, batch["tokens"], agents)
     new_caches = []
+    views = (unstack_layers(params["layers"], cfg.n_layers)
+             if agents is None else None)
     for i in range(cfg.n_layers):
-        lp = (layer(params["layers"], i) if agents is None
+        lp = (views[i] if agents is None
               else slot_layer(params["layers"], agents, i))
         x, lc = _layer_apply(
             cfg, lp, x, positions,

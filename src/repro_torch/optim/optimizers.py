@@ -1,11 +1,21 @@
-"""Optimisers as pure (init, update) pairs over flat agent rows — the
-port of ``repro.optim.optimizers``.
+"""Optimisers as (init, update) pairs — the port of
+``repro.optim.optimizers``.
 
-Parameters, gradients and moments are (n, P) fp32 tensors, one row per
-agent (``repro_torch.common.pytree.PlaneLayout``); the step counter is
-(n,) int32. Every row is updated on its own, as the reference's
-vmapped update does, so clipping is per agent. ``torch.optim`` is not
-used: its defaults and state layout differ from the reference's.
+``init`` / ``update``: parameters, gradients and moments are (n, P)
+fp32 tensors, one row per agent (``repro_torch.common.pytree.
+PlaneLayout``); the step counter is (n,) int32 — the buffer trainer's
+form. ``tree_init`` / ``tree_update_`` (AdamW only, what the streaming
+launcher and example use): the streaming trainer's form, trees of
+stacked (n, *param) leaves as the reference's vmapped ``opt.update``
+sees them. ``tree_update_`` writes the new parameters
+and moments into the given tensors, a column chunk at a time
+(``common.pytree.column_chunks``), so an update of a 0.86 B-parameter
+group makes no copy of a whole tree; with ``rows`` ((n,) bool) only
+those agents' rows change, the elastic trainer's row select. Every row
+is updated on its own, as the reference's vmapped update does, so
+clipping is per agent (the squared norm summed leaf by leaf in
+``jax.tree_util`` order). ``torch.optim`` is not used: its defaults and
+state layout differ from the reference's.
 """
 from __future__ import annotations
 
@@ -14,7 +24,8 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.common.pytree import global_norm_clip
+from repro_torch.common.pytree import (column_chunks, global_norm_clip,
+                                       tree_leaves_with_paths, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +33,48 @@ class Optimizer:
     init: Callable[[torch.Tensor], Any]
     update: Callable[..., tuple]
     # update(grads, opt_state, params, step) -> (new_params, new_state)
+    tree_init: Optional[Callable[[Any], Any]] = None
+    tree_update_: Optional[Callable[..., None]] = None
+    # tree_update_(grads, opt_state, params, step, rows=None): in place
+
+
+def _rows(tree):
+    """The (n, p) views of a tree's stacked leaves, in leaf order."""
+    return [x.reshape(x.shape[0], -1) for _, x in tree_leaves_with_paths(tree)]
+
+
+def _clip_scale(G, clip: float) -> torch.Tensor:
+    """(n,) per-agent global-norm clip factors min(1, clip / (‖g‖ +
+    1e-6)) of the gradient rows ``G`` (a list of (n, p) views)."""
+    n = G[0].shape[0]
+    sq = torch.zeros((n,), dtype=torch.float32, device=G[0].device)
+    for g in G:
+        for cols in column_chunks(g.shape[1]):
+            gf = g[:, cols].to(torch.float32)
+            sq = sq + torch.sum(gf * gf, dim=1)
+    norm = torch.sqrt(sq)
+    limit = torch.as_tensor(clip, dtype=torch.float32, device=norm.device)
+    return torch.clamp_max(limit / (norm + 1e-6), 1.0)
+
+
+def _tree_lr(lr, step: int, device) -> torch.Tensor:
+    if callable(lr):
+        return lr(torch.tensor(int(step), dtype=torch.int32,
+                               device=device)).to(torch.float32)
+    return torch.tensor(lr, dtype=torch.float32, device=device)
+
+
+def _write(dst: torch.Tensor, new: torch.Tensor, rows) -> None:
+    """dst ← new, or only ``rows``' rows of it."""
+    if rows is None:
+        dst.copy_(new)
+    else:
+        dst.copy_(torch.where(rows[:, None], new.to(dst.dtype), dst))
+
+
+def _zeros_f32(params):
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                          device=x.device), params)
 
 
 def _lr_at(lr, step: torch.Tensor) -> torch.Tensor:
@@ -85,7 +138,41 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             delta = delta + weight_decay * params
         return params - lr_t * delta, {"m": m, "v": v, "count": count}
 
-    return Optimizer(init, update)
+    def tree_init(params):
+        first = _rows(params)[0]
+        return {"m": _zeros_f32(params), "v": _zeros_f32(params),
+                "count": torch.zeros((first.shape[0],), dtype=torch.int32,
+                                     device=first.device)}
+
+    def tree_update_(grads, state, params, step, rows=None):
+        G, P = _rows(grads), _rows(params)
+        M, V = _rows(state["m"]), _rows(state["v"])
+        dev = G[0].device
+        scale = _clip_scale(G, clip) if clip is not None else None
+        count = state["count"] + 1
+        cf = count.to(torch.float32)[:, None]
+        bc1 = 1.0 - b1 ** cf
+        bc2 = 1.0 - b2 ** cf
+        lr_t = _tree_lr(lr, step, dev)
+        for g2, p2, m2, v2 in zip(G, P, M, V):
+            for cols in column_chunks(g2.shape[1]):
+                g = g2[:, cols].to(torch.float32)
+                if scale is not None:
+                    g = g * scale[:, None]
+                m = b1 * m2[:, cols] + (1 - b1) * g
+                v = b2 * v2[:, cols] + (1 - b2) * torch.square(g)
+                pf = p2[:, cols].to(torch.float32)
+                delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+                if weight_decay:
+                    delta = delta + weight_decay * pf
+                _write(p2[:, cols], pf - lr_t * delta, rows)
+                _write(m2[:, cols], m, rows)
+                _write(v2[:, cols], v, rows)
+        state["count"].copy_(count if rows is None
+                             else torch.where(rows, count, state["count"]))
+
+    return Optimizer(init, update, tree_init=tree_init,
+                     tree_update_=tree_update_)
 
 
 def make_optimizer(name: str, lr, **kw) -> Optimizer:

@@ -135,7 +135,7 @@ def make_a2c_group(env, opt: Optimizer, spec, gen: torch.Generator, *,
     if gen.device.type != dev.type:
         raise ValueError(
             f"generator lives on {gen.device}, the group on {dev}")
-    exchange = build_exchange(spec, topology=topology,
+    exchange = build_exchange(spec, kind="buffer", topology=topology,
                               relevance=relevance, delay=delay,
                               obs_dim=env.obs_dim)
     astates, layout = init_a2c(gen, spec.n_agents, env, opt, hidden)

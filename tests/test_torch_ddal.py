@@ -247,16 +247,21 @@ UNPORTED = [
     dict(exchange_transport="faulty"), dict(knowledge_mode="streaming"),
     dict(topology="hierarchical", degree=2, pods=2),
 ]
-# the streaming trainer's settings (Slices D and E) are still refused
-STILL_UNPORTED = ("exchange_combiner", "knowledge_mode", "pods")
+# the pod dispatch (Slice E) is still refused by name; the streaming
+# trainer's settings construct since Slice D, and the buffer trainer
+# refuses the streaming combiner as the reference's build does
+STILL_UNPORTED = ("pods",)
+STREAMING_ONLY = ("exchange_combiner",)
 
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: ",".join(kw))
 def test_unported_fields_are_refused_by_name(kw):
     """The knobs that were refused before the buffer trainer's robustness
     slice now construct and run four epochs of a DDA3C group on the CPU
-    (sharing from epoch 1, so every knob is exercised); the streaming
-    trainer's settings are still refused by name."""
+    (sharing from epoch 1, so every knob is exercised); the pod dispatch
+    is still refused by name, and the streaming ``flat`` combiner
+    constructs but the buffer trainer refuses it with the reference's
+    ``ValueError``."""
     spec_kw = dict(n_agents=4, **kw)
     RefSpec(**spec_kw)                       # valid for the reference
     if any(k in kw for k in STILL_UNPORTED):
@@ -264,6 +269,13 @@ def test_unported_fields_are_refused_by_name(kw):
             GroupSpec(**spec_kw)
         return
     spec = GroupSpec(threshold=1, minibatch=1, m_pieces=4, **spec_kw)
+    if any(k in kw for k in STREAMING_ONLY):
+        with pytest.raises(ValueError, match="'store' combiner"):
+            a2c.make_a2c_group(
+                envs.CartPole(), optim.adamw(3e-3), spec,
+                torch.Generator().manual_seed(0), device="cpu",
+                hidden=HIDDEN)
+        return
     ddal, gs = a2c.make_a2c_group(
         envs.CartPole(), optim.adamw(3e-3), spec,
         torch.Generator().manual_seed(0), device="cpu", hidden=HIDDEN)

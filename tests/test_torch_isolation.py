@@ -49,7 +49,10 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.serving.group", "repro_torch.serving.metrics",
              "repro_torch.benchmarks.bench_serving",
              "repro_torch.examples.continuous_serving",
-             "repro_torch.examples.serve_batch"):
+             "repro_torch.examples.serve_batch",
+             "repro_torch.core.sharded_ddal", "repro_torch.data.synthetic",
+             "repro_torch.launch.train",
+             "repro_torch.examples.group_train_llm"):
     assert name in names, name
 print(len(names))
 """
