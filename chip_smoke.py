@@ -62,14 +62,20 @@ Phases, each printing its lines:
    (2 agents, batch 4 x 256, 12 steps, sketched relevance d 256, shares
    at steps 4 and 8; every loss finite, the window empty after each
    share, ``grad_sketch`` launched once per leaf per accumulation step
-   and no flash or SSD kernel under grad), ``[train] llama3.2-3b, 2
+   and the SSD kernel once per layer in every agent's forward, whose
+   gradient is the plain einsum form's), ``[train] llama3.2-3b, 2
    layers`` (its published widths, depth cut to 2: 4 agents on a ring,
-   exact grad_cos, int8 planes), and the sketch kernel on the trainer's
-   own leaves (signs on the 77.2 M-position embedding at offsets near
-   0.86 B, time at the largest leaf, 2 x 226.5 M positions);
+   exact grad_cos, int8 planes; the flash kernel once per layer in every
+   agent's forward), and the sketch kernel on the trainer's own leaves
+   (signs on the 77.2 M-position embedding at offsets near 0.86 B, a
+   dense (2, 2^23) slice at such an offset against its plain version,
+   time at the largest leaf, 2 x 226.5 M positions);
 5. the card against the port's CPU path: ``[train-equiv]``, the
    streaming trainer at reduced() llama3.2-3b and mamba2-780m with fp32
-   compute, 8 steps with 2 shares, from the same state and batches; small DDA3C groups with seeded
+   compute, 8 steps with 2 shares, from the same state and batches,
+   once on the models' own gradients and once on given gradients (the
+   window, its sketch and the learned relevance held step by step);
+   small DDA3C groups with seeded
    gradients, fp32 and int8 + learned relevance; a small DDADQN group
    with seeded gradients (target syncs included) and ``dqn_loss`` with
    its gradient on one seeded batch; the robustness paths (a) and (b)
@@ -1887,9 +1893,11 @@ def train_phase(torch):
     every loss finite; ``<shared>`` at steps 4 and 8 only; the window
     empty after each share and one piece fuller after each later step;
     ``grad_sketch`` launched once per parameter leaf on each of the 8
-    accumulation steps and no other kernel launched (a recorded pass
-    takes the einsum SSD form, never the SSD kernel). Returns ({kernel:
-    {path: launches}}, the positions of the largest leaf per agent)."""
+    accumulation steps, the SSD kernel once per layer in each agent's
+    forward of every step (the recorded pass runs the kernel; its
+    gradient is the plain einsum form's, ``kernels.plain_vjp``) and no
+    other kernel launched. Returns ({kernel: {path: launches}}, the
+    positions of the largest leaf per agent)."""
     import contextlib
     import io
 
@@ -1913,6 +1921,8 @@ def train_phase(torch):
     leaves = report["leaves"]
     want = {name: 0 for name in KERNELS}
     want["grad_sketch"] = leaves * TRAIN_ACCUMULATE
+    want["ssd_intra_chunk"] = (report["cfg"].n_layers * spec.n_agents
+                               * len(losses))
     expect_window, count = [], 0
     for step in range(len(losses)):
         if step >= spec.threshold:
@@ -1946,7 +1956,8 @@ def train_phase(torch):
     del report, state
     gc.collect()
     torch.cuda.empty_cache()
-    return {"grad_sketch": {TRAIN_LABEL: launched["grad_sketch"]}}, largest
+    return {name: {TRAIN_LABEL: launched[name]}
+            for name in ("grad_sketch", "ssd_intra_chunk")}, largest
 
 
 def profile_train_steps(torch, report):
@@ -2009,8 +2020,9 @@ def train_llama_phase(torch):
     relevance, int8 knowledge planes (q_block 128), built through
     ``init_train_state`` / ``make_group_train_step`` /
     ``make_group_batch``, 6 steps with shares at 2 and 4. Checks: finite
-    losses, no flash launch (the recorded pass takes the softmax
-    branch by position) and no other kernel launch."""
+    losses, the flash kernel launched once per layer in each agent's
+    forward (its gradient is the plain version's) and no other kernel.
+    Returns {kernel: {path: launches}}."""
     from repro_torch import optim
     from repro_torch.configs import get_arch_config
     from repro_torch.configs.base import GroupSpec, ShapeConfig
@@ -2055,11 +2067,15 @@ def train_llama_phase(torch):
           + ", ".join(f"{k} {v}" for k, v in launched.items()))
     check(finite, f"{LLAMA_TRAIN_LABEL}: a non-finite loss")
     check(shared == [2, 4], f"{LLAMA_TRAIN_LABEL}: shared at {shared}")
-    check(launched == {name: 0 for name in KERNELS},
-          f"{LLAMA_TRAIN_LABEL}: kernel launches {launched} under grad")
+    want = dict({name: 0 for name in KERNELS},
+                flash_attention=cfg.n_layers * 4 * 6)
+    check(launched == want,
+          f"{LLAMA_TRAIN_LABEL}: kernel launches {launched} != {want}")
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
+    return {"flash_attention": {LLAMA_TRAIN_LABEL:
+                                launched["flash_attention"]}}
 
 
 def _loose_params(torch, got, want, bound):
@@ -2077,15 +2093,92 @@ def _loose_params(torch, got, want, bound):
     return worst, over / total, worst <= bound and over <= 1e-4 * total
 
 
+def _linear_loss(params, feed):
+    """A loss whose gradient is ``feed["g"]`` exactly and whose value is
+    ``feed["loss"]``: the trainer then runs on given gradients."""
+    pl, gl = _tree_leaves(params), _tree_leaves(feed["g"])
+    a = sum((x * y).sum() for x, y in zip(pl, gl))
+    b = sum((x.detach() * y).sum() for x, y in zip(pl, gl))
+    return feed["loss"] + (a - b)
+
+
+def _fed_gradients(torch, params, step):
+    """Step ``step``'s given gradients, made on the CPU from a seed: per
+    leaf a part shared by the agents plus half as much of each agent's
+    own, so that the learned relevance is far from 0 and from 1."""
+    from repro_torch.common.pytree import tree_map
+    g = torch.Generator().manual_seed(1000 + step)
+
+    def leaf(x):
+        shared = torch.randn(x.shape[1:], generator=g)
+        own = torch.randn(x.shape, generator=g)
+        return 1e-2 * (shared + 0.5 * own)
+    return tree_map(leaf, params)
+
+
+def _fed_equiv(torch, cfg, spec, opt, start):
+    """The trainer on given gradients (``_linear_loss``) on the card and
+    on the CPU, step by step: the share flags, tg and rg bitwise; the
+    window sketch ``know.sk`` (the kernel's result) within 1e-5·Σ|g| per
+    row, Σ over the window's gradients; the learned relevance
+    ``know.rel`` within 1e-6; parameters within 1e-6. Returns (worst sk
+    error over its bound, worst rel error, worst param error, the
+    card's launches, ok)."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.core.sharded_ddal import (clone_state,
+                                               make_group_train_step)
+    cpu = clone_state(start)
+    card = _state_to(torch, clone_state(start), "cuda")
+    steps = {dev: make_group_train_step(cfg, spec, opt, loss_fn=_linear_loss)
+             for dev in ("cpu", "cuda")}
+    n = spec.n_agents
+    l1 = torch.zeros((n,), dtype=torch.float64)
+    sk_worst = rel_worst = p_worst = 0.0
+    ok = True
+    reset_launches()
+    for i in range(8):
+        g = _fed_gradients(torch, start.params, i)
+        if i >= spec.threshold:
+            l1 += sum(x.to(torch.float64).abs().reshape(n, -1).sum(1)
+                      for x in _tree_leaves(g))
+        feed = {"loss": torch.zeros((n,)), "g": g}
+        cpu, m_cpu = steps["cpu"](cpu, feed)
+        card, m_card = steps["cuda"](card, tree_map(
+            lambda x: x.to("cuda"), feed))
+        ok &= m_cpu["shared"] == m_card["shared"]
+        kc, kg = cpu.know, card.know
+        for name in ("tg", "rg"):
+            ok &= all(torch.equal(a.cpu(), b) for a, b in zip(
+                _tree_leaves(getattr(kg, name)),
+                _tree_leaves(getattr(kc, name))))
+        ok &= torch.equal(kg.tsum.cpu(), kc.tsum)
+        err = (kg.sk.cpu() - kc.sk).abs().to(torch.float64)
+        sk_worst = max(sk_worst, float((err / (1e-5 * l1[:, None] + 1e-12)
+                                        ).max()))
+        rel_worst = max(rel_worst, float((kg.rel.cpu() - kc.rel).abs().max()))
+        p_worst = max(p_worst, max(float((a.cpu() - b).abs().max())
+                                   for a, b in zip(_tree_leaves(card.params),
+                                                   _tree_leaves(cpu.params))))
+        if m_cpu["shared"]:
+            l1.zero_()
+    launched = launch_counts()
+    ok &= sk_worst <= 1.0 and rel_worst <= 1e-6 and p_worst <= 1e-6
+    return sk_worst, rel_worst, p_worst, launched, ok
+
+
 def train_equiv_phase(torch):
     """The streaming trainer on the card against the port's CPU path, at
     reduced() llama3.2-3b and mamba2-780m with fp32 compute (TF32 off),
     from the same state and the same batches: 3 agents on a ring,
     sketched relevance (d 64) and int8 planes (q_block 128), 8 steps
-    with shares at 3 and 6. Losses within rtol = atol = 1e-4; the share
-    flags equal; parameters within 2e-4 but for 1e-4 of the elements,
-    every one within 2·lr per update; the card's sketch launches one per
-    leaf per accumulation step."""
+    with shares at 3 and 6. On the models' own gradients: losses within
+    rtol = atol = 1e-4; the share flags equal; parameters within 2e-4
+    but for 1e-4 of the elements, every one within 2·lr per update; the
+    card's sketch launches one per leaf per accumulation step and the
+    model's kernel (flash or SSD) one per layer per agent per step. On
+    given gradients (``_fed_equiv``), where the two sides see the same
+    inputs: the window bitwise, its sketch, the learned relevance and
+    the parameters held step by step."""
     from repro_torch import optim
     from repro_torch.configs import get_arch_config
     from repro_torch.configs.base import GroupSpec, ShapeConfig
@@ -2127,7 +2220,10 @@ def train_equiv_phase(torch):
         worst, share, p_ok = _loose_params(torch, card[0].params,
                                            cpu[0].params, 2 * lr * 4)
         want = {name: 0 for name in KERNELS}
-        want_card = dict(want, grad_sketch=leaves * 6)
+        model_kernel = ("flash_attention" if cfg.family == "dense"
+                        else "ssd_intra_chunk")
+        want_card = dict(want, grad_sketch=leaves * 6,
+                         **{model_kernel: cfg.n_layers * 3 * 8})
         ok = (loss_ok and p_ok and card[2] == cpu[2]
               and cpu[2].count(1) == 2 and cpu[3] == want
               and card[3] == want_card)
@@ -2139,9 +2235,24 @@ def train_equiv_phase(torch):
               f", params max abs {worst:.3e}, share beyond 2e-4 "
               f"{share:.2e} (bound {2 * lr * 4:.0e}, share <= 1e-4); card "
               f"launches {card[3]['grad_sketch']} grad_sketch "
-              f"({leaves} leaves x 6 steps), others 0; CPU {cpu[4]:.1f} s, "
+              f"({leaves} leaves x 6 steps), {card[3][model_kernel]} "
+              f"{model_kernel} ({cfg.n_layers} layers x 3 agents x 8 "
+              f"steps), others 0; CPU {cpu[4]:.1f} s, "
               f"card {card[4]:.1f} s -> {'ok' if ok else 'FAIL'}")
         check(ok, f"[train-equiv] {arch}: card and CPU disagree")
+        sk_ratio, rel_err, p_err, fed_launches, fed_ok = _fed_equiv(
+            torch, cfg, spec, opt, start)
+        fed_want = dict(want, grad_sketch=leaves * 6)
+        fed_ok = fed_ok and fed_launches == fed_want
+        print(f"[train-equiv] {arch} on given gradients, same spec, card vs "
+              f"CPU step by step: tg, rg, tsum and share flags bitwise; "
+              f"know.sk worst {sk_ratio:.3e} of its bound 1e-5·Σ|g| per "
+              f"row; know.rel max abs {rel_err:.3e} (<= 1e-6); params max "
+              f"abs {p_err:.3e} (<= 1e-6); card launches "
+              f"{fed_launches['grad_sketch']} grad_sketch, others 0 -> "
+              f"{'ok' if fed_ok else 'FAIL'}")
+        check(fed_ok, f"[train-equiv] {arch}: on given gradients, card and "
+                      f"CPU disagree")
 
 
 def _state_to(torch, state, dev):
@@ -2158,11 +2269,13 @@ def sketch_leaf_phase(torch, p_big):
     """The gradient-sketch kernel on the trainer's own leaves: signs
     through the kernel bitwise at mamba2-780m's 77.2 M-position
     embedding leaf at an offset near its 0.86 B parameters (positions
-    past 2^24 and near the leaf's end), and the time of one launch at
-    the trainer's largest leaf (a stacked (48, 1536, 3072) projection:
-    2 x 226.5 M positions → 256) beside its bound. torch.matmul(G, S)
-    there would need a 232 GB S, so the yardstick is taken at (2, 2^23)
-    with the kernel beside it on the same slice."""
+    past 2^24 and near the leaf's end); a dense (2, 2^23) slice at an
+    offset near 0.86 B against the plain version (which builds S a tile
+    at a time), within 1e-5·Σ_p |G[r, p]| per row; and the time of
+    one launch at the trainer's largest leaf (a stacked (48, 1536, 3072)
+    projection: 2 x 226.5 M positions → 256) beside its bound.
+    torch.matmul(G, S) there would need a 232 GB S, so the yardstick is
+    taken on the slice, with the kernel and the plain pieces beside it."""
     from repro_torch.core.relevance import fold_seed
     from repro_torch.kernels.grad_sketch import ops, ref
 
@@ -2186,13 +2299,29 @@ def sketch_leaf_phase(torch, p_big):
     b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
                   else (ops_ms, "operations"))
     del G
-    cut = 2 ** 23
+    cut, piece, off = 2 ** 23, 2 ** 18, 850_000_000
     Gs = torch.randn((2, cut), generator=g, device="cuda")
-    ms_s, _ = time_ms(torch, lambda: ops.sketch_flat(Gs, seed, d), 20)
+
+    def plain():                      # S a tile of positions at a time
+        return ref.sketch_flat(Gs, seed, d, offset=off)
+    got = ops.sketch_flat(Gs, seed, d, offset=off)
+    err = (got - plain()).abs()
+    gate = 1e-5 * Gs.abs().sum(1, keepdim=True)
+    print(f"[kernel] grad_sketch dense (2, 2^23, {d}) at offset {off:,} "
+          f"against its plain version: max abs "
+          f"{float(err.max()):.3e}, worst {float((err / gate).max()):.3e} "
+          f"of 1e-5·Σ|G| per row -> "
+          f"{'ok' if bool((err <= gate).all()) else 'FAIL'}")
+    check(bool((err <= gate).all()),
+          "sketch kernel disagrees with its plain version on a dense slice "
+          "near 0.86 B")
+    ms_s, _ = time_ms(torch, lambda: ops.sketch_flat(Gs, seed, d,
+                                                     offset=off), 20)
+    plain_s, _ = time_ms(torch, plain, 3)
     S = torch.empty((cut, d), device="cuda")          # outside the timing
-    for start in range(0, cut, 2 ** 18):
-        S[start:start + 2 ** 18] = ref.sign_block(seed, start, 2 ** 18, d,
-                                                  "cuda")
+    for start in range(0, cut, piece):
+        S[start:start + piece] = ref.sign_block(seed, off + start, piece, d,
+                                                "cuda")
     lib_ms, _ = time_ms(torch, lambda: torch.matmul(Gs, S), 20)
     del S, Gs
     torch.cuda.empty_cache()
@@ -2200,10 +2329,11 @@ def sketch_leaf_phase(torch, p_big):
           f"(2, {p_big:,}, {d}): device {ms:.5f} ms ({b_ms / ms:.1%} of the "
           f"{b_ms:.5f} ms bound, {b_by}: 2·n·P·d fp32 flops at 67 TFLOP/s "
           f"vs 4·n·P bytes at 3.35 TB/s), host per call {host:.5f} ms; at "
-          f"(2, 2^23, {d}): kernel {ms_s:.5f} ms, torch.matmul(G, S) with "
-          f"S built outside the timing {lib_ms:.5f} ms")
+          f"(2, 2^23, {d}): kernel {ms_s:.5f} ms, plain "
+          f"{plain_s:.5f} ms, torch.matmul(G, S) with S built outside the "
+          f"timing {lib_ms:.5f} ms")
     return dict(big_ms=ms, big_bound_ms=b_ms, big_p=p_big, slice_ms=ms_s,
-                slice_lib_ms=lib_ms)
+                slice_plain_ms=plain_s, slice_lib_ms=lib_ms)
 
 
 def _cut_to_two_layers(torch, arch):
@@ -3075,7 +3205,7 @@ def main() -> int:
         lap("slot engines")
         train_launches, largest_leaf = train_phase(torch)
         lap("train mamba2-780m")
-        train_llama_phase(torch)
+        llama_train_launches = train_llama_phase(torch)
         lap("train llama")
         train_equiv_phase(torch)
         lap("train-equiv")
@@ -3083,7 +3213,8 @@ def main() -> int:
             torch, largest_leaf)
         lap("sketch at the largest leaf")
         for paths in (serve_launches, llama_launches, score_launches,
-                      *slot_launches, train_launches):
+                      *slot_launches, train_launches,
+                      llama_train_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)

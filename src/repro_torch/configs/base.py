@@ -309,23 +309,25 @@ class ArchConfig:
     ``attention_impl`` or dtype raises ``ValueError``.
 
     ``ssd_impl`` and ``attention_impl`` are validated against the
-    reference's values and decide one thing, the route of a pass that
-    autograd records (``torch.is_grad_enabled()`` and an input that
-    requires grad: a training step's loss). Such a pass takes the
-    reference's ``"xla"`` branch, which is all the reference can
-    differentiate too: the cache-free attention masks by position
-    (``causal_mask_bias``) and runs ``softmax_attention`` at
-    ``attention_scores_dtype``; the SSD runs the einsum intra-chunk form
-    of ``repro.models.ssd``. A recorded pass with ``"pallas"`` or
+    reference's values and decide one thing: a pass that autograd
+    records (``torch.is_grad_enabled()`` and an input that requires
+    grad: a training step's loss) with ``"pallas"`` or
     ``"pallas_interpret"`` raises :class:`NotPortedError`, as the
-    reference's Pallas kernels have no VJP. A pass with no gradient
-    (serving, scoring under ``torch.no_grad()``) ignores both fields
-    and takes the kernels: CUDA tensors the SSD intra-chunk kernel and
-    the flash attention, CPU tensors their plain versions
-    (``repro_torch.kernels.ssd_scan.ops``,
-    ``repro_torch.kernels.flash_attention.ops``). The route is chosen
-    before any launch, and the kernel wrappers still refuse inputs that
-    require grad.
+    reference's Pallas kernels have no VJP and only its ``"xla"`` branch
+    trains. Every pass otherwise takes the kernels, recorded or not:
+    the cache-free attention calls the flash attention (causal by
+    index) and the SSD the intra-chunk kernel, on CUDA tensors the
+    kernels and on CPU tensors their plain versions
+    (``repro_torch.kernels.flash_attention.ops``,
+    ``repro_torch.kernels.ssd_scan.ops``). A recorded pass calls them
+    through ``kernels.plain_vjp``: the forward is the kernel's and the
+    gradient the plain version's vector-Jacobian product at the same
+    inputs (the plain SSD is the reference's einsum form; the plain
+    attention masks by index and scores in fp32, which by position and
+    at ``attention_scores_dtype="float32"`` is the reference's
+    ``"xla"`` branch). ``attention_scores_dtype`` applies to the
+    attention over a KV cache. The kernel wrappers still refuse inputs
+    that require grad.
     """
     name: str
     family: str

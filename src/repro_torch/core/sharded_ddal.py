@@ -58,7 +58,7 @@ from repro_torch.common.pytree import (column_chunks, init_stacked,
                                        tree_leaves_with_paths, tree_map)
 from repro_torch.configs.base import DTYPES, NotPortedError
 from repro_torch.core.weighting import training_experience
-from repro_torch.kernels.ddal_wavg import ref as wavg_ref
+from repro_torch.kernels.ddal_wavg import ops as wavg_ops
 
 EPS = 1e-12
 
@@ -151,6 +151,20 @@ def init_train_state(cfg, spec, opt, seed: int = 0, exchange=None,
 # ---------------------------------------------------------------------
 # eq. 4 over the window: the combiners' arithmetic
 # ---------------------------------------------------------------------
+def _dead_rows_zeroed(x: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """``x`` (A, ...) with the rows of agents not ``alive`` set to 0."""
+    m = alive.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(m, x, torch.zeros_like(x))
+
+
+def _int8_roundtrip(tree, q_block: int):
+    """A tree of stacked (A, ...) leaves, or one (A, p) tensor, through
+    the int8 wire format and back to fp32 (``ddal_wavg.ops.
+    quantize_tree`` / ``dequantize_tree``)."""
+    q, s = wavg_ops.quantize_tree(tree, q_block, lead=1)
+    return wavg_ops.dequantize_tree(q, s, q_block)
+
+
 def _gate(x2: torch.Tensor, cols: slice, alive, q_block: int
           ) -> torch.Tensor:
     """One column chunk of a window leaf as the combine reads it: dead
@@ -159,19 +173,17 @@ def _gate(x2: torch.Tensor, cols: slice, alive, q_block: int
     whole int8 blocks, so the round trip is the leaf's."""
     c = x2[:, cols]
     if alive is not None:
-        c = torch.where(alive[:, None], c, torch.zeros_like(c))
+        c = _dead_rows_zeroed(c, alive)
     if q_block > 0:
-        q, s = wavg_ref.quantize_rows(c, q_block)
-        c = wavg_ref.dequantize_rows(q, s, q_block)
+        c = _int8_roundtrip(c, q_block)
     return c
 
 
 def _scalars(know: Knowledge, alive):
     if alive is None:
         return know.tsum, know.rsum
-    zero = torch.zeros_like(know.tsum)
-    return (torch.where(alive, know.tsum, zero),
-            torch.where(alive, know.rsum, zero))
+    return (_dead_rows_zeroed(know.tsum, alive),
+            _dead_rows_zeroed(know.rsum, alive))
 
 
 def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
@@ -247,11 +259,12 @@ def _edge_weights(know: Knowledge, nbr, mask, rel, alive=None):
     return M, tden, Rd, rden
 
 
-def _edge_sums(know: Knowledge, nbr, mask, rel):
+def _edge_sums(know: Knowledge, nbr, mask, rel, weights=None):
     """The reference's ``_edge_sums``: eq. 4 numerators and denominators
     over one edge list, (tnum, tden, rnum, rden), the numerators trees
-    of (A, *param) fp32 leaves (Mᵀ·tg and Rdᵀ·rg over the agent axis)."""
-    M, tden, Rd, rden = _edge_weights(know, nbr, mask, rel)
+    of (A, *param) fp32 leaves (Mᵀ·tg and Rdᵀ·rg over the agent axis).
+    ``weights``: ``_edge_weights``' result, if it is already known."""
+    M, tden, Rd, rden = weights or _edge_weights(know, nbr, mask, rel)
     tnum = tree_map(lambda g: torch.tensordot(
         M.T, g.to(torch.float32), dims=1), know.tg)
     rnum = tree_map(lambda g: torch.tensordot(
@@ -285,16 +298,14 @@ def _combine_topo(know: Knowledge, topo, out=None, alive=None,
                   q_block: int = 0):
     """eq. 4 with neighbour-local normalisation: both terms of each
     destination sum over its in-edges only (``_edge_sums`` then
-    ``_finish_combine``, a chunk at a time)."""
+    ``_finish_combine``, a column chunk at a time, the edge weights
+    formed once)."""
     nbr, mask, rel = topo_tables(topo, know.tsum.device)
-    M, tden, Rd, rden = _edge_weights(know, nbr, mask, rel, alive)
-    tden = torch.clamp_min(tden, EPS)[:, None]
-    rden = torch.clamp_min(rden, EPS)[:, None]
+    weights = _edge_weights(know, nbr, mask, rel, alive)
 
     def fold(tg, rg):
-        t = M.T @ tg.to(torch.float32)
-        r = Rd.T @ rg.to(torch.float32)
-        return 0.5 * (t / tden + r / rden)
+        chunk = know._replace(tg=tg, rg=rg)
+        return _finish_combine(*_edge_sums(chunk, nbr, mask, rel, weights))
     return _eq4(know, fold, out, alive, q_block)
 
 
@@ -341,13 +352,10 @@ def mask_knowledge(know: Knowledge, alive) -> Knowledge:
     a = torch.as_tensor(alive, dtype=torch.bool, device=know.tsum.device)
 
     def rows(x):
-        m = a.reshape((-1,) + (1,) * (x.ndim - 1))
-        return torch.where(m, x, torch.zeros_like(x))
-    zero = torch.zeros_like(know.tsum)
+        return _dead_rows_zeroed(x, a)
     return know._replace(
         tg=tree_map(rows, know.tg), rg=tree_map(rows, know.rg),
-        tsum=torch.where(a, know.tsum, zero),
-        rsum=torch.where(a, know.rsum, zero),
+        tsum=rows(know.tsum), rsum=rows(know.rsum),
         sk=None if know.sk is None else rows(know.sk))
 
 
@@ -359,12 +367,8 @@ def quantize_knowledge_roundtrip(know: Knowledge, q_block: int
     0``; ``q_block <= 0`` is the identity."""
     if q_block <= 0:
         return know
-    from repro_torch.kernels.ddal_wavg import ops as wavg_ops
-
-    def rt(tree):
-        q, s = wavg_ops.quantize_tree(tree, q_block, lead=1)
-        return wavg_ops.dequantize_tree(q, s, q_block)
-    return know._replace(tg=rt(know.tg), rg=rt(know.rg))
+    return know._replace(tg=_int8_roundtrip(know.tg, q_block),
+                         rg=_int8_roundtrip(know.rg, q_block))
 
 
 def clone_state(state: TrainState) -> TrainState:

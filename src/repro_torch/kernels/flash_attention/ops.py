@@ -27,7 +27,9 @@ contiguous) and k and v by kv head ``h // (H / K)``, so they make no
 swap copy and no GQA repeat; the plain version repeats k and v onto
 the heads, the same values. Head dims 16, 32, 64 and 128, any S,
 causal attention with an optional sliding window, and no gradient:
-the reference kernel has no VJP.
+the reference kernel has no VJP. A pass that autograd records calls
+``flash_attention_with_vjp``: the kernel's forward, the plain
+version's vector-Jacobian product (``kernels.plain_vjp``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import NotPortedError
 from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.plain_vjp import with_plain_vjp
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_BH = 65535               # grid y (heads) and z (batch)
@@ -135,6 +138,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_with_vjp(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: Optional[int] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """Causal :func:`flash_attention` that autograd can differentiate:
+    the forward is the wrapper's (the kernel on the card), the backward
+    the VJP of the plain version (``ref.attention``) at the same
+    inputs."""
+    return with_plain_vjp(flash_attention, ref.attention, (q, k, v),
+                          causal=True, window=window, scale=scale)
 
 
 def _raise_on(lib, status, what):

@@ -8,8 +8,10 @@ CPU tensors the plain version (``ref``), and nothing else: the
 tensors' device is the only switch. The kernel has no backward (the
 reference's Pallas kernel defines no VJP), so a CUDA call that
 autograd would record (grad mode on, an input that requires grad)
-raises ``NotPortedError`` rather than drop that input's gradient. The kernel's launches are counted in
-``ssd_intra_chunk.launches``.
+raises ``NotPortedError`` rather than drop that input's gradient; such a
+pass calls ``ssd_intra_chunk_with_vjp``, the kernel's forward with the
+plain version's vector-Jacobian product (``kernels.plain_vjp``). The
+kernel's launches are counted in ``ssd_intra_chunk.launches``.
 
 B and C may carry g groups instead of h heads (g dividing h): the
 kernel then reads head k's projections from group k // (h / g), and
@@ -43,6 +45,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import NotPortedError
+from repro_torch.kernels.plain_vjp import with_plain_vjp
 from repro_torch.kernels.ssd_scan import ref
 
 MAX_P = 64                   # the kernel's output tile is 64 columns wide
@@ -179,6 +182,17 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
 
 
 ssd_intra_chunk.launches = 0
+
+
+def ssd_intra_chunk_with_vjp(xc: torch.Tensor, dtc: torch.Tensor,
+                             cs: torch.Tensor, Bc: torch.Tensor,
+                             Cc: torch.Tensor) -> torch.Tensor:
+    """:func:`ssd_intra_chunk` that autograd can differentiate: the
+    forward is the wrapper's (the kernel on the card), the backward the
+    VJP of the plain version (``ref.ssd_intra_chunk``, the einsum form
+    the reference trains with) at the same inputs."""
+    return with_plain_vjp(ssd_intra_chunk, ref.ssd_intra_chunk,
+                          (xc, dtc, cs, Bc, Cc))
 
 
 def _raise_on(lib, status, what):

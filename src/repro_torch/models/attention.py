@@ -90,18 +90,17 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     leading batch axis, one row's weights each (the group engine's
     per-slot weights: (B, E, F) products and (B, F) biases).
 
-    Without a cache, a pass that autograd records (a training loss)
-    takes the reference's ``"xla"`` branch (its ``attention.py:158-163``):
-    ``causal_mask_bias`` by position and ``softmax_attention`` at
-    ``cfg.attention_scores_dtype``; ``attention_impl`` other than
-    ``"xla"`` raises ``NotPortedError`` there. A pass with no gradient
-    calls the flash attention, as the reference's ``_maybe_pallas``
-    does: causal by index, ``window = cfg.sliding_window``, scale 1/√D,
-    so it assumes each row's positions are 0..S−1; the tensors' device
-    chooses the CUDA kernel or its plain version. With a cache it writes
-    the new keys and values into their slots, then attends over the
-    slots with ``causal_mask_bias`` by position and
-    ``softmax_attention``.
+    Without a cache it calls the flash attention, as the reference's
+    ``_maybe_pallas`` does: causal by index, ``window =
+    cfg.sliding_window``, scale 1/√D, so it assumes each row's positions
+    are 0..S−1; the tensors' device chooses the CUDA kernel or its plain
+    version. A pass that autograd records (a training loss) goes
+    through ``flash_attention_with_vjp``, whose backward is the plain
+    version's, and refuses an ``attention_impl`` other than ``"xla"``
+    with ``NotPortedError`` (the reference's Pallas kernel has no VJP).
+    With a cache it writes the new keys and values into their slots,
+    then attends over the slots with ``causal_mask_bias`` by position
+    and ``softmax_attention``.
     """
     B, S, _ = x.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -119,14 +118,11 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
 
     scale = 1.0 / (D ** 0.5)
     new_cache = layer_cache
-    if layer_cache is None and recorded(q, k, v):
-        refuse_pallas("attention_impl", cfg.attention_impl)
-        bias = causal_mask_bias(positions, positions, cfg.sliding_window)
-        out = softmax_attention(q, k, v, bias, scale,
-                                DTYPES[cfg.attention_scores_dtype])
-    elif layer_cache is None:
-        out = fa_ops.flash_attention(q, k, v, causal=True,
-                                     window=cfg.sliding_window, scale=scale)
+    if layer_cache is None:
+        if recorded(q, k, v):
+            refuse_pallas("attention_impl", cfg.attention_impl)
+        out = fa_ops.flash_attention_with_vjp(
+            q, k, v, window=cfg.sliding_window, scale=scale)
     else:
         slots = _slots_for(cfg, positions)
         kc = _write_slots(layer_cache["k"], k, slots)

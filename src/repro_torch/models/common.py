@@ -19,8 +19,8 @@ import torch
 def recorded(*tensors: torch.Tensor) -> bool:
     """True when autograd records a pass over ``tensors``: grad mode is
     on and one of them requires grad. Such a pass (a training loss)
-    takes the reference's differentiable ``"xla"`` forms; any other
-    takes the kernels (``ArchConfig`` docstring)."""
+    refuses a Pallas ``attention_impl`` / ``ssd_impl``, as the
+    reference does (``ArchConfig`` docstring)."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 

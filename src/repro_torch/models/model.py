@@ -9,10 +9,10 @@ and dense families:
     logits, cache = model.decode(cfg, planes, batch, cache, agents)
 
 Both families have their loss, a cache-free pass that the streaming
-trainer differentiates: a pass that autograd records takes the
-reference's differentiable ``"xla"`` forms (attention by position, the
-einsum SSD), one with no gradient the CUDA kernels (``ArchConfig``
-docstring).
+trainer differentiates: every such pass runs the CUDA kernels (flash
+attention, the SSD intra-chunk form), and one that autograd records
+takes each kernel's gradient from its plain version
+(``repro_torch.kernels.plain_vjp``; ``ArchConfig`` docstring).
 """
 from __future__ import annotations
 

@@ -4,11 +4,10 @@
 Chunked algorithm of arXiv:2405.21060 §6: within a chunk the SSM is
 computed in its quadratic dual form (``repro_torch.kernels.ssd_scan``:
 the CUDA kernel on the card, its plain version on the CPU; a pass that
-autograd records takes the reference's einsum form instead,
-``repro.models.ssd:79-86``, which is what the reference trains with);
-across
-chunks a first-order recurrence on the (h, p, n) states carries each
-chunk's state into the next. The reference evaluates that recurrence
+autograd records differentiates it through the plain version, the
+reference's einsum form of ``repro.models.ssd:79-86``); across chunks a
+first-order recurrence on the (h, p, n) states carries each chunk's
+state into the next. The reference evaluates that recurrence
 with ``lax.associative_scan``; here it is a sequential loop over the
 chunks, the same products and sums in another fp32 order (the tests
 state the tolerance). All decay factors are exp of non-positive
@@ -22,7 +21,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.ssd_scan.ref import heads_of
 from repro_torch.models.common import recorded, refuse_pallas
 
@@ -64,14 +62,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     cs = torch.cumsum(dA, dim=2)                        # inclusive
 
     # ---- intra-chunk (dual quadratic form) ------------------------------
-    # a recorded pass: the reference's einsum form (its "xla" branch);
-    # otherwise the kernel (B and C by group: it maps each head onto its
-    # group)
+    # the kernel (B and C by group: it maps each head onto its group);
+    # a recorded pass takes its gradient from the plain einsum form
     if recorded(xc, dtc, cs, Bg, Cg):
         refuse_pallas("ssd_impl", impl)
-        y_diag = ssd_ref.ssd_intra_chunk(xc, dtc, cs, Bg, Cg)
-    else:
-        y_diag = ssd_ops.ssd_intra_chunk(xc, dtc, cs, Bg, Cg)
+    y_diag = ssd_ops.ssd_intra_chunk_with_vjp(xc, dtc, cs, Bg, Cg)
 
     # ---- chunk states ------------------------------------------------
     Bc = heads_of(Bg, h).to(f32)                        # (b,nc,l,h,n)

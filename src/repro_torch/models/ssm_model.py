@@ -91,8 +91,8 @@ def ssm_decode(cfg, params: dict, batch: dict, cache: dict,
 def ssm_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
     """Token-mean cross-entropy of a cache-free pass over ``labels``
     (−100 ignored) plus the aux term (0 for Mamba2), as the reference's
-    ``ssm_loss``. Differentiated, the pass takes the einsum SSD form
-    (``repro_torch.models.ssd``)."""
+    ``ssm_loss``. Differentiated, the pass runs the SSD kernel and takes
+    its gradient from the einsum form (``repro_torch.models.ssd``)."""
     logits, aux, _ = ssm_forward(cfg, params, batch)
     return cross_entropy(logits, batch["labels"]) + aux
 

@@ -115,7 +115,18 @@ def momentum(lr, beta: float = 0.9, clip: Optional[float] = None
 def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay: float = 0.0, clip: Optional[float] = 1.0
           ) -> Optimizer:
-    """AdamW with fp32 moments and the reference's defaults."""
+    """AdamW with fp32 moments and the reference's defaults. The flat
+    ``update`` and the tree's ``tree_update_`` run one body
+    (``adam_step``), the second a column chunk at a time."""
+    def adam_step(g, m, v, p, bc1, bc2, lr_t):
+        """(new p, m, v) from the clipped fp32 gradient ``g``."""
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        if weight_decay:
+            delta = delta + weight_decay * p
+        return p - lr_t * delta, m, v
+
     def init(params):
         n = params.shape[0]
         return {"m": torch.zeros_like(params, dtype=torch.float32),
@@ -128,15 +139,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
             grads, _ = global_norm_clip(grads, clip)
         count = state["count"] + 1
         cf = count.to(torch.float32).unsqueeze(-1)
-        m = b1 * state["m"] + (1 - b1) * grads
-        v = b2 * state["v"] + (1 - b2) * torch.square(grads)
-        bc1 = 1.0 - b1 ** cf
-        bc2 = 1.0 - b2 ** cf
-        lr_t = _lr_at(lr, step)
-        delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if weight_decay:
-            delta = delta + weight_decay * params
-        return params - lr_t * delta, {"m": m, "v": v, "count": count}
+        new, m, v = adam_step(grads, state["m"], state["v"], params,
+                              1.0 - b1 ** cf, 1.0 - b2 ** cf,
+                              _lr_at(lr, step))
+        return new, {"m": m, "v": v, "count": count}
 
     def tree_init(params):
         first = _rows(params)[0]
@@ -159,13 +165,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 g = g2[:, cols].to(torch.float32)
                 if scale is not None:
                     g = g * scale[:, None]
-                m = b1 * m2[:, cols] + (1 - b1) * g
-                v = b2 * v2[:, cols] + (1 - b2) * torch.square(g)
-                pf = p2[:, cols].to(torch.float32)
-                delta = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-                if weight_decay:
-                    delta = delta + weight_decay * pf
-                _write(p2[:, cols], pf - lr_t * delta, rows)
+                new, m, v = adam_step(g, m2[:, cols], v2[:, cols],
+                                      p2[:, cols].to(torch.float32), bc1,
+                                      bc2, lr_t)
+                _write(p2[:, cols], new, rows)
                 _write(m2[:, cols], m, rows)
                 _write(v2[:, cols], v, rows)
         state["count"].copy_(count if rows is None

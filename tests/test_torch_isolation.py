@@ -52,7 +52,8 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.examples.serve_batch",
              "repro_torch.core.sharded_ddal", "repro_torch.data.synthetic",
              "repro_torch.launch.train",
-             "repro_torch.examples.group_train_llm"):
+             "repro_torch.examples.group_train_llm",
+             "repro_torch.kernels.plain_vjp"):
     assert name in names, name
 print(len(names))
 """

@@ -17,9 +17,11 @@
   masks them, which overflows and makes its gradient NaN; the port
   masks first, so its forward is bitwise the reference's and its
   gradient finite;
-* the route rule: a pass that autograd records never calls the flash or
-  SSD kernel wrappers and refuses a Pallas ``attention_impl`` /
-  ``ssd_impl``; a pass with no gradient still calls both wrappers.
+* the route rule: a pass that autograd records calls the flash or SSD
+  kernel wrapper once per layer, as a pass with no gradient does, and
+  its gradients equal bitwise those of the same loss differentiated
+  through the plain versions (``kernels.plain_vjp``); it refuses a
+  Pallas ``attention_impl`` / ``ssd_impl``.
 """
 from __future__ import annotations
 
@@ -190,22 +192,35 @@ def _count(monkeypatch, module, name):
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "mamba2-780m"])
 def test_route_rule_recorded_pass_skips_kernels(arch, monkeypatch):
+    """The name is older than the rule: a recorded pass now runs the
+    kernel wrappers' forwards, with the plain versions' gradients."""
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
     cfg = get_arch_config(arch).reduced()
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator().manual_seed(0), "cpu")
     batch = syn.make_agent_batch(cfg, ShapeConfig("t", 40, 2, "train"),
                                  syn.StreamSpec(), 0, 0, "cpu")
-    flash = _count(monkeypatch, fa_ops, "flash_attention")
-    ssd = _count(monkeypatch, ssd_ops, "ssd_intra_chunk")
     leaves = [x.requires_grad_(True) for _, x in
               tree_leaves_with_paths(params)]
+    with monkeypatch.context() as plain:
+        plain.setattr(fa_ops, "flash_attention_with_vjp",
+                      lambda q, k, v, **kw: fa_ref.attention(q, k, v, **kw))
+        plain.setattr(ssd_ops, "ssd_intra_chunk_with_vjp",
+                      ssd_ref.ssd_intra_chunk)
+        want_loss = model.loss(cfg, params, batch)
+        want = torch.autograd.grad(want_loss, leaves)
+    flash = _count(monkeypatch, fa_ops, "flash_attention")
+    ssd = _count(monkeypatch, ssd_ops, "ssd_intra_chunk")
+    kernel = flash if cfg.family == "dense" else ssd
     loss = model.loss(cfg, params, batch)
-    torch.autograd.grad(loss, leaves)
-    assert not flash and not ssd                 # recorded: no kernel
+    got = torch.autograd.grad(loss, leaves)
+    assert len(flash) + len(ssd) == len(kernel) == cfg.n_layers
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     with torch.no_grad():
         model.loss(cfg, params, batch)
-    kernel = flash if cfg.family == "dense" else ssd
-    assert len(kernel) == cfg.n_layers           # no grad: the kernel
+    assert len(kernel) == 2 * cfg.n_layers       # no grad: the kernel too
     field, impl = (("attention_impl", "pallas") if cfg.family == "dense"
                    else ("ssd_impl", "pallas_interpret"))
     pallas = dataclasses.replace(cfg, **{field: impl})
