@@ -21,10 +21,12 @@ Phases, each printing its lines:
    4096 and n = 1), the SSD intra-chunk dual form (bf16 on the tensor
    cores at the tile, group and window edges, fp32 on the CUDA cores;
    each within its gate, two launches bitwise equal, both kernels run;
-   inputs that require grad refused) and the flash attention
-   (bf16 on the tensor cores, fp32 on the CUDA cores; each within its
-   gate, two launches bitwise equal, with its TFLOP/s over the tiles
-   it visits and the blocks per SM of every flash instance); and both
+   inputs that require grad refused; also at zamba2-7b's n = 64) and
+   the flash attention (bf16 on the tensor cores, fp32 on the CUDA
+   cores; each within its gate, two launches bitwise equal, with its
+   TFLOP/s over the tiles it visits and the blocks per SM of every
+   flash instance; ``[kernel] flash_attention D=112`` at zamba2-7b's
+   head dim, (2, 4096, 32, 32, 112), a ragged S, a window, GQA); and both
    share steps on the robustness paths' inputs (T and R discounted by
    0.95**age, pieces past the staleness cutoff, quarantined pieces,
    an agent with no valid piece), bitwise;
@@ -48,11 +50,17 @@ Phases, each printing its lines:
    scoring 2 x 4096 ids through ``get_model(cfg).forward`` / ``.loss``
    without a cache (``[score]``: the flash kernel in every layer), with
    a profile of one scoring pass, and its ``ServeEngine.decode`` under
-   ``torch.cuda.set_sync_debug_mode("error")`` (``[nosync]``); the slot
+   ``torch.cuda.set_sync_debug_mode("error")`` (``[nosync]``); the
+   hybrid zamba2-7b at its published widths and depth served the same
+   way (``[serve] zamba2-7b``: the SSD kernel in each of its 65 Mamba2
+   layers per prefill, no flash) and scored (``[score] zamba2-7b``: 16
+   flash launches, one per call of the shared block, and 65 SSD
+   launches per pass), with a profile of one pass; the slot
    engines at full width and depth: ``[continuous] mamba2-780m`` (8
    requests through 2 slots), ``[group] mamba2-780m`` (4 agents, 4
    slots, 16 requests, a hot swap after 8) and ``[group] llama3.2-3b``
-   (2 agents, 2 slots, 4 requests), each request's first token against
+   (2 agents, 2 slots, 4 requests), ``[group] zamba2-7b`` (2 agents'
+   bf16 planes, 2 slots, 4 requests), each request's first token against
    the fixed-batch engine on its admitted planes and one synchronizing
    call per step, ``[exact]`` the same engines in fp32 compute with
    every token equal, and ``[load] mamba2-780m``, the load bench's twin
@@ -84,6 +92,10 @@ Phases, each printing its lines:
    mamba2-780m's and llama3.2-3b's widths cut to 2 layers with fp32
    compute; the llama scoring pass at the same cut; the continuous and
    group engines at both cuts (step logits within 1e-4, tokens equal);
+   ``[equiv] zamba2-7b``: its widths cut to one super-block of one
+   Mamba2 layer and the tail layer, fp32, LoRA ``b`` drawn non-zero,
+   served on the [serve] prompts (prefill logits within 1e-4, tokens
+   equal) and scored (logits within 1e-4, the loss within 1e-4);
 6. a profile of a few main-path epochs of the quickstart group, of
    the fourth run's configuration and of the DDADQN n = 2 group (the
    device's busy share, the ops that take the time and the host-clock
@@ -158,6 +170,14 @@ LLAMA_SERVE_ARGV = ["--arch", LLAMA, "--full", "--serve", "engine=batch",
                     "1024", "--serve", "max_new_tokens=32", "--serve",
                     "max_len=1056"]
 LLAMA_SERVE_LABEL = "[serve] llama3.2-3b"
+# the hybrid: zamba2-7b at its published widths and depth (16 super-blocks
+# of 4 Mamba2 layers around a shared attention block, one tail layer)
+ZAMBA = "zamba2-7b"
+ZAMBA_SERVE_ARGV = ["--arch", ZAMBA] + LLAMA_SERVE_ARGV[2:]
+ZAMBA_SERVE_LABEL = "[serve] zamba2-7b"
+ZAMBA_SCORE_LABEL = "[score] zamba2-7b"
+# the SSD kernel at zamba2-7b's scoring pass: the first shape with n = 64
+ZAMBA_SSD_LABEL = "zamba2-7b scoring, n = 64"
 FA_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, as the Pallas kernel is held
 # the training path: the streaming trainer's launcher at mamba2-780m's
 # published widths and depth, 2 agents, share steps 4 and 8
@@ -231,6 +251,39 @@ def launch_counts():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+def kernel_layers(cfg):
+    """(SSD launches, flash launches) of one cache-free pass of ``cfg``:
+    one SSD launch per Mamba2 layer, one flash launch per attention
+    layer (the hybrid: per call of its shared block). A pass with a
+    cache launches the SSD kernels alone."""
+    if cfg.family == "ssm":
+        return cfg.n_layers, 0
+    if cfg.family == "hybrid":
+        hy = cfg.hybrid
+        return (hy.n_super_blocks * hy.mamba_per_block + hy.tail_mamba,
+                hy.n_super_blocks)
+    return 0, cfg.n_layers
+
+
+def widths(cfg):
+    """The published widths of ``cfg`` for a phase's line."""
+    out = []
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        out.append(f"{s.expand * cfg.d_model // s.head_dim} SSD heads of "
+                   f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}")
+    if cfg.family != "ssm":
+        out.append(f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
+                   f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+    if cfg.hybrid is not None:
+        hy = cfg.hybrid
+        out.append(f"{hy.n_super_blocks} super-blocks of "
+                   f"{hy.mamba_per_block} Mamba2 layers and the shared "
+                   f"block with rank-{hy.lora_rank} LoRA, "
+                   f"{hy.tail_mamba} tail layer")
+    return ", ".join(out)
+
+
 def device_phase(torch):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -279,10 +332,11 @@ def build_phase():
                   f"(fp32 CUDA cores, bf16 tensor cores x 1, 2, 3 heads a "
                   f"block): {report}")
         if name == "flash_attention":
-            check(len(report) == 8 and all(st == ld == 0 for _, _, st, ld
-                                           in report),
-                  f"flash_attention: ptxas reports spills or not the 8 "
-                  f"instances (fp32 / bf16 x D = 16, 32, 64, 128): {report}")
+            check(len(report) == 10 and all(st == ld == 0 for _, _, st, ld
+                                            in report),
+                  f"flash_attention: ptxas reports spills or not the 10 "
+                  f"instances (fp32 / bf16 x D = 16, 32, 64, 112, 128): "
+                  f"{report}")
     print(f"[build] {len(SOURCES)} sources built in parallel and loaded "
           f"in {secs:.2f} s")
     return instances
@@ -858,7 +912,11 @@ def ssd_kernel_phase(torch, built):
               False, False),
              ("the slot engines' B = 1 prefill, nc = 4", (1, 4, 256, 48, 64,
                                                          128, 1), bf16, 0,
-              False, False)] + [
+              False, False),
+             (ZAMBA_SSD_LABEL, (2, 16, 256, 112, 64, 64, 1), bf16, 0,
+              False, True),
+             ("zamba2-7b prefill, n = 64", (2, 4, 256, 112, 64, 64, 1),
+              bf16, 0, False, False)] + [
         (f"bf16 {label}", shape, bf16, 0, False, False)
         for label, shape in SSD_BF16_EDGES]
     row, instances_run = {}, set()
@@ -938,9 +996,12 @@ def ssd_kernel_phase(torch, built):
               f"outside the timing {lib_ms:.5f} ms ({ms / lib_ms:.2f}x); "
               f"host per call: kernel {host:.5f} ms, plain "
               f"{plain_host:.5f} ms, matmuls {lib_host:.5f} ms")
-        if not row:
-            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+        if not row:
+            row = numbers
+        elif label == ZAMBA_SSD_LABEL:
+            row["zamba2"] = numbers
     per_sm = {k: ops.blocks_per_sm(k) for k in range(1, ops.MAX_HEADS + 1)}
     print(f"[kernel] ssd_intra_chunk instances run: "
           f"{sorted(instances_run)}; bf16 blocks one SM holds, by heads a "
@@ -1012,38 +1073,15 @@ def _fa_within_gate(torch, got, want):
     return bool(((g - w).abs() <= 2.0 ** -7 * w.abs() + 2e-5).all())
 
 
-def flash_kernel_phase(torch):
-    """The flash-attention kernels against their plain version: the
-    scoring path's shape in bf16 (the tensor-core kernel) and fp32 (the
-    CUDA-core kernel), a window of 512 at S = 4096, windows smaller than
-    a tile and across 128-row tiles, ragged S, MQA, D = 16, 32 and 64,
-    each within its gate and launched twice, bitwise equal; then the
-    blocks per SM of every instance. Returns the numbers at the scoring
-    path's (B, S, H, K, D) = (2, 4096, 24, 8, 128) in bf16."""
+def _flash_cases(torch, cases):
+    """Each case's kernel against the plain version: within its gate,
+    launched twice, bitwise equal; the timed ones beside the plain
+    version, ``scaled_dot_product_attention`` and the bound. Returns
+    the numbers of the first timed case."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
     f32, bf16 = torch.float32, torch.bfloat16
-    # (label, (B, S, H, K, D), window, dtype, timed)
-    path = (SCORE_B, SCORE_S, 24, 8, 128)
-    cases = [("scoring path", path, None, bf16, True),
-             ("scoring path", path, None, f32, True),
-             ("window 512", path, 512, bf16, True),
-             ("window 512", (1, SCORE_S, 24, 8, 128), 512, f32, False),
-             ("window 5, smaller than a tile", (1, 300, 4, 2, 128), 5, f32,
-              False),
-             ("window 40", (2, 300, 4, 2, 64), 40, bf16, False),
-             ("ragged S = 4000", (1, 4000, 24, 8, 128), None, bf16, False),
-             ("ragged S = 80", (2, 80, 4, 4, 32), None, f32, False),
-             ("MQA, D = 64", (2, 513, 8, 1, 64), None, f32, False),
-             ("MQA, D = 64", (2, 513, 8, 1, 64), None, bf16, False),
-             ("D = 16, one token", (1, 1, 2, 1, 16), None, f32, False),
-             ("S = 129, one row past a 128-row tile", (1, 129, 4, 2, 128),
-              None, bf16, False),
-             ("window 127 across 128-row tiles", (1, 700, 4, 2, 128), 127,
-              bf16, False),
-             ("D = 16", (2, 333, 6, 3, 16), None, bf16, False),
-             ("D = 32, window 100", (2, 333, 6, 3, 32), 100, bf16, False)]
     row = {}
     for seed, (label, (B, S, H, K, D), window, dtype, timed) in enumerate(
             cases):
@@ -1102,9 +1140,73 @@ def flash_kernel_phase(torch):
         if not row:
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    return row
+
+
+def flash_kernel_phase(torch):
+    """The flash-attention kernels against their plain version: the
+    scoring path's shape in bf16 (the tensor-core kernel) and fp32 (the
+    CUDA-core kernel), a window of 512 at S = 4096, windows smaller than
+    a tile and across 128-row tiles, ragged S, MQA, D = 16, 32 and 64,
+    each within its gate and launched twice, bitwise equal; then the
+    blocks per SM of every instance. Returns the numbers at the scoring
+    path's (B, S, H, K, D) = (2, 4096, 24, 8, 128) in bf16."""
+    from repro_torch.kernels.flash_attention import ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (label, (B, S, H, K, D), window, dtype, timed)
+    path = (SCORE_B, SCORE_S, 24, 8, 128)
+    cases = [("scoring path", path, None, bf16, True),
+             ("scoring path", path, None, f32, True),
+             ("window 512", path, 512, bf16, True),
+             ("window 512", (1, SCORE_S, 24, 8, 128), 512, f32, False),
+             ("window 5, smaller than a tile", (1, 300, 4, 2, 128), 5, f32,
+              False),
+             ("window 40", (2, 300, 4, 2, 64), 40, bf16, False),
+             ("ragged S = 4000", (1, 4000, 24, 8, 128), None, bf16, False),
+             ("ragged S = 80", (2, 80, 4, 4, 32), None, f32, False),
+             ("MQA, D = 64", (2, 513, 8, 1, 64), None, f32, False),
+             ("MQA, D = 64", (2, 513, 8, 1, 64), None, bf16, False),
+             ("D = 16, one token", (1, 1, 2, 1, 16), None, f32, False),
+             ("S = 129, one row past a 128-row tile", (1, 129, 4, 2, 128),
+              None, bf16, False),
+             ("window 127 across 128-row tiles", (1, 700, 4, 2, 128), 127,
+              bf16, False),
+             ("D = 16", (2, 333, 6, 3, 16), None, bf16, False),
+             ("D = 32, window 100", (2, 333, 6, 3, 32), 100, bf16, False)]
+    row = _flash_cases(torch, cases)
     print("[kernel] flash_attention blocks per SM (256 threads each): "
           + ", ".join(f"{str(dt)[6:]} D = {D} {ops.blocks_per_sm(dt, D)}"
                       for dt in (f32, bf16) for D in ops.HEAD_DIMS))
+    return row
+
+
+def flash_d112_phase(torch):
+    """[kernel] flash_attention D=112, zamba2-7b's shared block: its
+    scoring shape (B, S, H, K, D) = (2, 4096, 32, 32, 112) in bf16 (the
+    tensor-core kernel: 7 k-steps, 14 output n-tiles) and fp32 (the
+    CUDA-core kernel: 7 columns a thread, one at a time), a ragged
+    S = 4000, a window of 512 and GQA (32, 8), each within the flash
+    gates and launched twice, bitwise equal; the bf16 scoring shape
+    timed beside the plain version, ``scaled_dot_product_attention``
+    and the bound; the blocks one SM holds of both D = 112 instances.
+    Returns the numbers of the bf16 scoring shape."""
+    from repro_torch.kernels.flash_attention import ops
+    f32, bf16 = torch.float32, torch.bfloat16
+    path = (SCORE_B, SCORE_S, 32, 32, 112)
+    row = _flash_cases(torch, [
+        ("D=112 zamba2-7b scoring", path, None, bf16, True),
+        ("D=112 zamba2-7b scoring", path, None, f32, True),
+        ("D=112 ragged S = 4000", (1, 4000, 32, 32, 112), None, bf16, False),
+        ("D=112 window 512", path, 512, bf16, False),
+        ("D=112 window 512", (1, 1100, 32, 32, 112), 512, f32, False),
+        ("D=112 GQA (32, 8)", (SCORE_B, SCORE_S, 32, 8, 112), None, bf16,
+         False),
+        ("D=112 GQA (32, 8)", (1, 700, 32, 8, 112), None, f32, False)])
+    per_sm = {str(dt)[6:]: ops.blocks_per_sm(dt, 112) for dt in (f32, bf16)}
+    print(f"[kernel] flash_attention D=112 blocks per SM (256 threads "
+          f"each): {per_sm}")
+    check(all(n >= 1 for n in per_sm.values()),
+          f"a D = 112 flash instance does not fit an SM: {per_sm}")
     return row
 
 
@@ -1752,13 +1854,15 @@ def _llama_batch(torch, cfg, B, S, seed=0):
             "positions": pos}
 
 
-def score_phase(torch, cfg, params):
-    """The scoring path: llama3.2-3b at its published widths and depth
-    (fp32 weights drawn from seed 0, bf16 compute) scores B = 2 rows of
-    S = 4096 ids through ``get_model(cfg).forward(..., None)`` and
-    ``.loss`` under ``torch.no_grad()``: one warm-up pass, then, with
+def score_phase(torch, cfg, params, label=SCORE_LABEL):
+    """A scoring path: llama3.2-3b or zamba2-7b at its published widths
+    and depth (fp32 weights drawn from seed 0, bf16 compute) scores B = 2
+    rows of S = 4096 ids through ``get_model(cfg).forward(..., None)``
+    and ``.loss`` under ``torch.no_grad()``: one warm-up pass, then, with
     the launch counts zeroed, one forward (logits checked) and
-    SCORE_PASSES timed loss passes. Returns {kernel: {path: launches}}."""
+    SCORE_PASSES timed loss passes; flash launches once per attention
+    layer (zamba2: per call of the shared block) and SSD once per Mamba2
+    layer in every pass. Returns {kernel: {path: launches}}."""
     from repro_torch.models import get_model
 
     model = get_model(cfg)
@@ -1786,35 +1890,40 @@ def score_phase(torch, cfg, params):
     ms = [t * 1e3 for t in times]
     tokens = SCORE_B * SCORE_S
     best = min(ms)
-    print(f"{SCORE_LABEL}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, fp32 "
+    # random weights, logits after the final norm: of variance
+    # d_model·0.02² through a tied embedding, ~0.77 through a drawn head
+    # (a truncated normal of fan-in scale)
+    var = cfg.d_model * 4e-4 if cfg.tie_embeddings else 0.774
+    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{widths(cfg)}, vocab {cfg.vocab_size}, fp32 "
           f"weights, {cfg.compute_dtype} compute; {SCORE_B} x {SCORE_S} "
           f"tokens; loss passes ms " + ", ".join(f"{t:.2f}" for t in ms)
           + f" (best {best:.2f}: {tokens / best * 1e3:,.0f} tokens/s); "
           f"loss " + ", ".join(f"{x:.5f}" for x in losses)
-          + f" (ln V = {math.log(cfg.vocab_size):.5f}, ln V + "
-          f"d_model·0.02²/2 = "
-          f"{math.log(cfg.vocab_size) + cfg.d_model * 2e-4:.5f}); logits "
+          + f" (ln V = {math.log(cfg.vocab_size):.5f}, ln V + var/2 = "
+          f"{math.log(cfg.vocab_size) + var / 2:.5f}); logits "
           f"{shape} "
           f"finite {finite}; peak memory {peak / 2 ** 30:.3f} GiB; "
           f"{passes} passes, launches "
           + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    ssd, flash = kernel_layers(cfg)
     want = {name: 0 for name in KERNELS}
-    want["flash_attention"] = cfg.n_layers * passes
-    check(launched == want, f"{SCORE_LABEL}: launches {launched} != {want} "
-                            f"({cfg.n_layers} layers x {passes} passes)")
+    want["flash_attention"] = flash * passes
+    want["ssd_intra_chunk"] = ssd * passes
+    check(launched == want, f"{label}: launches {launched} != {want} "
+                            f"({flash} attention and {ssd} SSD layers x "
+                            f"{passes} passes)")
     check(cache is None and finite
           and shape == (SCORE_B, SCORE_S, cfg.vocab_size),
-          f"{SCORE_LABEL}: non-finite or misshapen logits, or a cache")
+          f"{label}: non-finite or misshapen logits, or a cache")
     # random weights: after the final norm the logits have variance
     # d_model·0.02² (1.23), so the loss sits near ln V + 0.61 = 12.38
     ln_v = math.log(cfg.vocab_size)
     check(all(math.isfinite(x) and ln_v - 0.5 < x < ln_v + 1.5
               for x in losses) and max(losses) - min(losses) < 1e-3,
-          f"{SCORE_LABEL}: loss {losses} not within (ln V − 0.5, ln V + "
+          f"{label}: loss {losses} not within (ln V − 0.5, ln V + "
           f"1.5) or not repeatable")
-    return {"flash_attention": {SCORE_LABEL: launched["flash_attention"]}}
+    return {name: {label: launched[name]} for name, n in want.items() if n}
 
 
 def serve_phase(torch, argv, label):
@@ -1822,9 +1931,10 @@ def serve_phase(torch, argv, label):
     ``repro_torch.launch.serve`` called as a function with ``argv`` (4
     requests of up to 1023 prompt tokens, 2 slots, 32 greedy tokens),
     with every kernel's launch count zeroed just before the call and
-    read just after: mamba2-780m's prefill runs the SSD kernel in every
-    layer, llama3.2-3b's none (prefill passes a cache, as in the
-    reference). Returns ({kernel: {path: launches}}, prompts)."""
+    read just after: mamba2-780m's and zamba2-7b's prefill runs the SSD
+    kernel in every Mamba2 layer, llama3.2-3b's none, and neither runs
+    the flash kernel (prefill passes a cache, as in the reference).
+    Returns ({kernel: {path: launches}}, prompts)."""
     import contextlib
     import io
 
@@ -1850,16 +1960,10 @@ def serve_phase(torch, argv, label):
         print(f"[serve]   {ln}")
     calls = report["prefill_calls"]
     want = {name: 0 for name in KERNELS}
-    if cfg.family == "ssm":
-        s = cfg.ssm
-        want["ssd_intra_chunk"] = cfg.n_layers * calls
-        widths = (f"{s.expand * cfg.d_model // s.head_dim} SSD heads of "
-                  f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}")
-    else:
-        widths = (f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
-                  f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+    want["ssd_intra_chunk"] = kernel_layers(cfg)[0] * calls
     lens = [len(pr) for pr in report["prompts"]]
-    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {widths}"
+    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{widths(cfg)}"
           f", vocab {cfg.vocab_size}, {cfg.compute_dtype} compute; "
           f"{len(lens)} requests, prompt lengths {lens}, {calls} prefill "
           f"calls; prefill ms per batch "
@@ -1870,7 +1974,8 @@ def serve_phase(torch, argv, label):
           f"{peak / 2 ** 30:.3f} GiB; launches "
           + ", ".join(f"{k} {v}" for k, v in launched.items()))
     check(launched == want, f"{label}: launches {launched} != {want} "
-                            f"({cfg.n_layers} layers x {calls} prefills)")
+                            f"({kernel_layers(cfg)[0]} SSD layers x {calls} "
+                            f"prefills, no flash: prefill passes a cache)")
     outs = report["outputs"]
     check(calls == 2 and len(outs) == 2
           and all(o.shape == (2, 32) and o.dtype == torch.int32
@@ -2347,15 +2452,36 @@ def _cut_to_two_layers(torch, arch):
                                     "cpu")
 
 
-def equiv_serve_phase(torch, arch, prompts, cut=None):
+def _cut_hybrid(torch):
+    """zamba2-7b at its published widths cut to one super-block of one
+    Mamba2 layer and the tail layer, fp32 compute, its weights drawn on
+    the host from seed 0 and every LoRA ``b`` drawn non-zero (the
+    init's zeros would leave the merge untested)."""
+    from repro_torch.configs import HybridConfig, get_arch_config
+    from repro_torch.models import get_model
+
+    cfg = get_arch_config(ZAMBA).with_(
+        n_layers=3, compute_dtype="float32",
+        hybrid=HybridConfig(n_super_blocks=1, mamba_per_block=1,
+                            tail_mamba=1, lora_rank=128))
+    params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for fac in params["lora"].values():
+        fac["b"] = torch.randn(fac["b"].shape, generator=gen) * 0.05
+    return cfg, params
+
+
+def equiv_serve_phase(torch, arch, prompts, cut=None,
+                      depth="2 layers"):
     """The card against the port's CPU path on the [serve] prompts, at
-    ``arch``'s widths cut to 2 layers with fp32 compute, on the same
+    ``arch``'s widths cut to ``depth`` with fp32 compute, on the same
     weights (drawn on the host, copied to the card): prefill logits
-    within rtol = atol = 1e-4 (matmuls and, for mamba2-780m, the SSD
-    kernel sum in another fp32 order than the CPU), the 32 greedy
-    tokens of every request equal; the SSD kernel launched once per
-    layer per prefill on the card for mamba2-780m, no kernel for
-    llama3.2-3b (its prefill passes a cache), none on the CPU."""
+    within rtol = atol = 1e-4 (matmuls and, for mamba2-780m and
+    zamba2-7b, the SSD kernel sum in another fp32 order than the CPU),
+    the 32 greedy tokens of every request equal; the SSD kernel
+    launched once per Mamba2 layer per prefill on the card, no flash
+    kernel (prefill passes a cache), none on the CPU."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
 
@@ -2382,12 +2508,11 @@ def equiv_serve_phase(torch, arch, prompts, cut=None):
         same = same and torch.equal(out_g, out_c)
     want = {name: 0 for name in KERNELS}
     want_cuda = dict(want)
-    if cfg.family == "ssm":
-        want_cuda["ssd_intra_chunk"] = cfg.n_layers * len(errs)
+    want_cuda["ssd_intra_chunk"] = kernel_layers(cfg)[0] * len(errs)
     ok = (all(torch.allclose(g[0], c[0], rtol=1e-4, atol=1e-4) for g, c in
               zip(results["cuda"], results["cpu"])) and same
           and launched == {"cpu": want, "cuda": want_cuda})
-    print(f"[equiv] serve {arch} widths, 2 layers, fp32, {len(prompts)} "
+    print(f"[equiv] serve {arch} widths, {depth}, fp32, {len(prompts)} "
           f"requests x 32 greedy tokens, card vs CPU: prefill logits max abs "
           f"{max(errs):.3e} (max rel {max(rels):.3e}; rtol=atol=1e-4), "
           f"greedy tokens equal {same}, card launches "
@@ -2397,13 +2522,14 @@ def equiv_serve_phase(torch, arch, prompts, cut=None):
     check(ok, f"card and CPU serving paths disagree: {arch}")
 
 
-def equiv_score_phase(torch, cut):
+def equiv_score_phase(torch, cut, arch=LLAMA, depth="2 layers"):
     """The scoring path on the card against the port's CPU path at
-    llama3.2-3b's widths cut to 2 layers with fp32 compute, on the same
+    ``arch``'s widths cut to ``depth`` with fp32 compute, on the same
     weights, 2 rows of 320 ids: logits within rtol = atol = 1e-4 and
-    the loss within 1e-5 (the flash kernel, on the card, against its
-    plain version, on the CPU, and matmuls summed in other orders); the
-    kernel launched once per layer on the card, never on the CPU."""
+    the loss within a relative 1e-5 (the flash and SSD kernels, on the
+    card, against their plain versions, on the CPU, and matmuls summed
+    in other orders); each kernel launched once per layer it serves in
+    each of the two passes on the card, never on the CPU."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.models import get_model
 
@@ -2419,18 +2545,21 @@ def equiv_score_phase(torch, cut):
             reset_launches()
             logits, _ = model.forward(cfg, p, b, None)
             out[dev] = (logits.cpu(), float(model.loss(cfg, p, b)))
-            launched[dev] = launch_counts()["flash_attention"]
+            launched[dev] = {k: n for k, n in launch_counts().items() if n}
+    ssd, flash = kernel_layers(cfg)
+    want_cuda = {k: 2 * n for k, n in (("ssd_intra_chunk", ssd),
+                                       ("flash_attention", flash)) if n}
     d = (out["cuda"][0] - out["cpu"][0]).abs()
     loss_err = abs(out["cuda"][1] - out["cpu"][1])
     ok = (torch.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=1e-4)
           and loss_err <= 1e-5 * abs(out["cpu"][1])
-          and launched == {"cpu": 0, "cuda": 2 * cfg.n_layers})
-    print(f"[equiv] score {LLAMA} widths, 2 layers, fp32, 2 x 320 ids, card "
+          and launched == {"cpu": {}, "cuda": want_cuda})
+    print(f"[equiv] score {arch} widths, {depth}, fp32, 2 x 320 ids, card "
           f"vs CPU: logits max abs {float(d.max()):.3e} (rtol=atol=1e-4), "
-          f"loss {out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f} (rel 1e-5), "
-          f"flash_attention launches {launched} (forward + loss) -> "
+          f"loss {out['cuda'][1]:.6f} vs {out['cpu'][1]:.6f} (rel "
+          f"1e-5), launches {launched} (forward + loss) -> "
           f"{'ok' if ok else 'FAIL'}")
-    check(ok, "card and CPU scoring paths disagree")
+    check(ok, f"card and CPU scoring paths disagree: {arch}")
 
 
 def profile_serve_phase(torch, prompts, ssd_kernels):
@@ -2515,12 +2644,13 @@ def profile_serve_phase(torch, prompts, ssd_kernels):
                       for k, vs in times.items()))
 
 
-def profile_score_phase(torch, cfg, params, flash_kernels):
+def profile_score_phase(torch, cfg, params, libraries, label=SCORE_LABEL):
     """The device's busy share and the ops that take the time over one
     full-width scoring pass (the loss of SCORE_B x SCORE_S ids), after
     the warm-up of the [score] phase, with the share of the busy time of
-    every kernel of the flash library (``flash_kernels``: the instances
-    ptxas reported when it was built, whatever they are named)."""
+    every kernel of each library the pass runs (``libraries``: {"flash"
+    or "SSD": the instances ptxas reported when it was built, whatever
+    they are named})."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels.cuda_build import short_name
@@ -2545,17 +2675,20 @@ def profile_score_phase(torch, cfg, params, flash_kernels):
                      getattr(ev, "cuda_time_total", 0.0)),
              getattr(ev, "self_cpu_time_total", 0.0))
             for ev in prof.key_averages()]
-    fa = [r for r in rows if short_name(r[0]) in flash_kernels]
-    fa_us = sum(r[2] for r in fa)
-    print(f"[profile] score {LLAMA}, one loss pass over {SCORE_B} x "
+    shares = []
+    for lib, names in libraries.items():
+        mine = [r for r in rows if short_name(r[0]) in names]
+        us = sum(r[2] for r in mine)
+        shares.append(f"the {lib} library's kernels {us / 1e3:.3f} ms "
+                      f"({us / max(busy_us, 1e-9):.1%} of the busy time) in "
+                      f"{sum(r[1] for r in mine)} calls of "
+                      f"{sorted(short_name(r[0]) for r in mine)}")
+        check(bool(mine), f"{label}: no kernel of the {lib} library in the "
+                          f"profile (its kernels: {sorted(names)})")
+    print(f"[profile] score {cfg.name}, one loss pass over {SCORE_B} x "
           f"{SCORE_S} ids: wall {wall * 1e3:.1f} ms, device busy "
           f"{busy_us / 1e3:.2f} ms ({busy_us / (wall * 1e6):.1%}), "
-          f"{len(kernels)} device kernels, the flash library's kernels "
-          f"{fa_us / 1e3:.3f} ms ({fa_us / max(busy_us, 1e-9):.1%} of the "
-          f"busy time) in {sum(r[1] for r in fa)} calls of "
-          f"{sorted(short_name(r[0]) for r in fa)}")
-    check(bool(fa), f"{SCORE_LABEL}: no kernel of the flash library in the "
-                    f"profile (its kernels: {sorted(flash_kernels)})")
+          f"{len(kernels)} device kernels, " + "; ".join(shares))
     for what, col in (("device", 2), ("self host", 3)):
         for key, count, dev_us, cpu_us in sorted(rows,
                                                  key=lambda r: -r[col])[:8]:
@@ -2796,20 +2929,29 @@ def _single_agent_steps(torch, cfg, params, serve, prompts, slots):
     return clock
 
 
+# the stacked layer trees of each family's planes, with their depth axes
+# after the agent axis: (A, L, ...), the hybrid's (A, nb, mpb, ...) and
+# its shared block (A, ...)
+LAYER_TREES = {"layers": 1, "mamba_blocks": 2, "shared": 0}
+
+
 def _product_probe(torch, cfg, planes, slots):
     """Whether cuBLAS gives a row the same sums in the group step's
     per-slot batched product, (slots, 1, K) @ (slots, K, N), as in the
     fixed-batch engine's (slots, K) @ (K, N), for each matrix of
-    agent 0's layer 0 at the compute dtype, on seeded rows → (bitwise
-    count, total, the (name, K, N) that differ)."""
+    agent 0's first layer (and the hybrid's shared block) at the
+    compute dtype, on seeded rows → (bitwise count, total, the (name,
+    K, N) that differ)."""
     from repro_torch.common.pytree import tree_leaves_with_paths
     gen = torch.Generator(device="cuda").manual_seed(0)
     cdt = cfg.dtype("compute")
     differ, total = [], 0
-    for path, leaf in tree_leaves_with_paths(planes["layers"]):
-        if leaf.ndim != 4 or "conv" in str(path[-2]):   # (A, L, K, N)
-            continue                                    # products only
-        w = leaf[0, 0].to(cdt)
+    leaves = [(path, leaf[(0,) * (1 + depth)])
+              for key, depth in LAYER_TREES.items() if key in planes
+              for path, leaf in tree_leaves_with_paths(planes[key], (key,))
+              if leaf.ndim == 3 + depth and "conv" not in str(path[-2])]
+    for path, w in leaves:                              # products only
+        w = w.to(cdt)
         K, N = w.shape
         x = torch.randn((slots, 1, K), generator=gen, device="cuda").to(cdt)
         total += 1
@@ -2818,9 +2960,12 @@ def _product_probe(torch, cfg, planes, slots):
     return total - len(differ), total, differ
 
 
-def group_phase(torch, arch, n_agents, slots, n_requests):
+def group_phase(torch, arch, n_agents, slots, n_requests,
+                param_dtype="float32"):
     """[group] ``arch`` at its published widths and depth: ``n_agents``
-    agents' fp32 planes (agent a from seed a), ``slots`` slots,
+    agents' planes in ``param_dtype`` (agent a from seed a; zamba2-7b
+    in bf16, where two agents' fp32 planes and a second published set
+    would not fit the card), ``slots`` slots,
     ``n_requests`` requests (the launcher's draw, seed 0, prompt-len
     1024) round-robin over the agents, 16 greedy tokens, and planes from
     seeds 100 + a published (handed over) after half the requests
@@ -2829,8 +2974,8 @@ def group_phase(torch, arch, n_agents, slots, n_requests):
     (agreement in every token and the bf16 drift printed, ``_agree``;
     ``[exact]`` holds every token in fp32); requests admitted after the
     swap carry version 1;
-    SSD launches 48 per admission for mamba2-780m, none for
-    llama3.2-3b. Then one step
+    SSD launches one per Mamba2 layer per admission (48 for
+    mamba2-780m, 65 for zamba2-7b), none for llama3.2-3b. Then one step
     with every slot live and nothing queued, under
     ``torch.cuda.set_sync_debug_mode("warn")``: exactly one
     synchronizing call (the step's device→host copy)."""
@@ -2843,7 +2988,7 @@ def group_phase(torch, arch, n_agents, slots, n_requests):
                                      ParamStore, ServeConfig, ServeMetrics)
 
     label = f"[group] {arch}"
-    cfg = get_arch_config(arch)
+    cfg = get_arch_config(arch).with_(param_dtype=param_dtype)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2877,8 +3022,7 @@ def group_phase(torch, arch, n_agents, slots, n_requests):
     peak = torch.cuda.max_memory_allocated()
     recorder.remove()
     want = {name: 0 for name in KERNELS}
-    if cfg.family == "ssm":
-        want["ssd_intra_chunk"] = cfg.n_layers * n_requests
+    want["ssd_intra_chunk"] = kernel_layers(cfg)[0] * n_requests
     results = dict(engine.results)
     versions = {r.rid: metrics.traces[r.rid].version for r in reqs}
     alone = {r.rid: _alone(torch, cfg,
@@ -2910,7 +3054,8 @@ def group_phase(torch, arch, n_agents, slots, n_requests):
              tree_leaves_with_paths(planes_by_version[0])) / 1e9
     same_sums, n_mats, differ = _product_probe(torch, cfg,
                                                planes_by_version[0], slots)
-    print(f"{label}: {n_agents} agents' fp32 planes ({gb:.2f} GB), {slots} "
+    print(f"{label}: {n_agents} agents' {param_dtype} planes ({gb:.2f} GB), "
+          f"{slots} "
           f"slots, {n_requests} requests round-robin, 16 greedy tokens, "
           f"publish after {n_requests // 2} finished, in {secs:.2f} s; group "
           f"{clock.summary()}; single-agent ContinuousBatcher at {slots} "
@@ -2935,7 +3080,7 @@ def group_phase(torch, arch, n_agents, slots, n_requests):
                    f"engine's: {bad}")
     check(len(syncs) == 1, f"{label}: {len(syncs)} synchronizing calls in "
                            f"one step, not the one copy: {syncs}")
-    if cfg.family != "ssm":
+    if not want["ssd_intra_chunk"]:
         return {}
     return {"ssd_intra_chunk": {label: launched["ssd_intra_chunk"]}}
 
@@ -3177,6 +3322,7 @@ def main() -> int:
         table["ssd_intra_chunk"] = ssd_kernel_phase(torch,
                                                     instances["ssd_scan"])
         table["flash_attention"] = flash_kernel_phase(torch)
+        table["flash_attention"]["zamba2"] = flash_d112_phase(torch)
         lap("kernels")
         launches = main_path_phase(torch)
         lap("main paths")
@@ -3191,14 +3337,35 @@ def main() -> int:
             llama, torch.Generator(device="cuda").manual_seed(0), "cuda")
         score_launches = score_phase(torch, llama, params)
         profile_score_phase(torch, llama, params,
-                            instances["flash_attention"])
+                            {"flash": instances["flash_attention"]})
         nosync_decode_phase(torch, llama, params)
         del params
+        gc.collect()
         torch.cuda.empty_cache()
         lap("score")
+        # the hybrid: served, then scored with a profile of one pass
+        # the same draw over zamba2's vocabulary: the same lengths
+        zserve_launches, zprompts = serve_phase(torch, ZAMBA_SERVE_ARGV,
+                                                ZAMBA_SERVE_LABEL)
+        gc.collect()
+        torch.cuda.empty_cache()
+        zamba = get_arch_config(ZAMBA)
+        params = get_model(zamba).init(
+            zamba, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        zscore_launches = score_phase(torch, zamba, params,
+                                      ZAMBA_SCORE_LABEL)
+        profile_score_phase(torch, zamba, params,
+                            {"flash": instances["flash_attention"],
+                             "SSD": instances["ssd_scan"]},
+                            ZAMBA_SCORE_LABEL)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("zamba2")
         slot_launches = [continuous_phase(torch),
                          group_phase(torch, SLOT_ARCH, 4, 4, 16),
                          group_phase(torch, LLAMA, 2, 2, 4),
+                         group_phase(torch, ZAMBA, 2, 2, 4, "bfloat16"),
                          load_phase(torch)]
         exact_slots_phase(torch, SLOT_ARCH, 4)
         exact_slots_phase(torch, LLAMA, 2)
@@ -3213,8 +3380,8 @@ def main() -> int:
             torch, largest_leaf)
         lap("sketch at the largest leaf")
         for paths in (serve_launches, llama_launches, score_launches,
-                      *slot_launches, train_launches,
-                      llama_train_launches):
+                      zserve_launches, zscore_launches, *slot_launches,
+                      train_launches, llama_train_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)
@@ -3228,6 +3395,13 @@ def main() -> int:
         del cut
         for arch in (SLOT_ARCH, LLAMA):
             equiv_slots_phase(torch, arch)
+        cut = _cut_hybrid(torch)
+        depth = "1 super-block of 1 Mamba2 layer + 1 tail layer"
+        equiv_serve_phase(torch, ZAMBA, zprompts, cut, depth)
+        equiv_score_phase(torch, cut, ZAMBA, depth)
+        del cut
+        print(f"[equiv] {ZAMBA}: card against CPU at its widths, {depth}, "
+              f"fp32, LoRA b drawn: serve and score ok")
         lap("serving equivalence")
         profile_phase(torch)
         profile_serve_phase(torch, prompts, instances["ssd_scan"])
@@ -3244,7 +3418,8 @@ def main() -> int:
     kernels = [dict(name=name, **{k: table[name][k] for k in (
         "route", "source", "replaces", "launches", "launches_by_path",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")})
+        "library_ms")}, **({"zamba2": table[name]["zamba2"]}
+                           if "zamba2" in table[name] else {}))
         for name in KERNELS]
     check_finite = all(math.isfinite(k["ms"]) for k in kernels)
     if not check_finite:

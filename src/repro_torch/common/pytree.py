@@ -12,6 +12,7 @@ a reference pytree and a port tree the same way.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Any, List, Sequence, Tuple
 
@@ -72,11 +73,16 @@ def unstack_layers(tree, n: int):
     return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
-def slot_layer(tree, agents: torch.Tensor, i: int):
-    """Layer ``i`` of each row's agent from agents' stacked trees
-    (leaves (A, n_layers, ...)) → leaves (B, ...) for the (B,) long
-    index ``agents``: a gather, B copies of one layer."""
-    return tree_map(lambda t: t.select(1, i).index_select(0, agents), tree)
+def slot_layer(tree, agents: torch.Tensor, *index: int):
+    """Layer ``index`` of each row's agent from agents' stacked trees
+    (leaves (A, n_layers, ...), or (A, d1, d2, ...) with one index per
+    depth axis, or (A, ...) with none) → leaves (B, ...) for the (B,)
+    long index ``agents``: a gather, B copies of one layer."""
+    def pick(t):
+        for i in index:
+            t = t.select(1, i)
+        return t.index_select(0, agents)
+    return tree_map(pick, tree)
 
 
 def stack_layers(trees):
@@ -85,17 +91,19 @@ def stack_layers(trees):
     return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
-def init_stacked(n_layers: int, draw):
-    """``draw()`` called ``n_layers`` times, each layer's tree copied
-    into its slot of leaves stacked on axis 0 as soon as it is drawn,
-    so a model's weights are never held twice (the reference draws them
-    all at once under ``vmap``)."""
+def init_stacked(n_layers, draw):
+    """``draw()`` called once per layer, each layer's tree copied into
+    its slot of leaves stacked on axis 0 as soon as it is drawn, so a
+    model's weights are never held twice (the reference draws them all
+    at once under ``vmap``). ``n_layers`` is a count, or a tuple of
+    counts for nested stacks (leaves (d1, d2, ...)), filled in
+    row-major order."""
+    lead = (n_layers,) if isinstance(n_layers, int) else tuple(n_layers)
     first = draw()
-    stacked = tree_map(
-        lambda t: t.new_empty((n_layers,) + tuple(t.shape)), first)
-    for i in range(n_layers):
-        tree_map(lambda dst, src: dst.copy_(src), layer(stacked, i),
-                 first if i == 0 else draw())
+    stacked = tree_map(lambda t: t.new_empty(lead + tuple(t.shape)), first)
+    for n, idx in enumerate(itertools.product(*map(range, lead))):
+        tree_map(lambda dst, src: dst[idx].copy_(src), stacked,
+                 first if n == 0 else draw())
     return stacked
 
 

@@ -4,11 +4,16 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, SSMConfig  # noqa: F401
+from repro_torch.configs.base import (ArchConfig, HybridConfig,  # noqa: F401
+                                      SSMConfig)
 
 _ARCH_MODULES = {
+    "granite-3-8b": "granite_3_8b",
     "llama3.2-3b": "llama3_2_3b",
     "mamba2-780m": "mamba2_780m",
+    "qwen2-7b": "qwen2_7b",
+    "yi-34b": "yi_34b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -1,6 +1,6 @@
 """Configuration dataclasses — the port's copies of
 ``repro.configs.base.GroupSpec`` (DDAL group configuration, paper §5),
-``ArchConfig`` and ``SSMConfig``.
+``ArchConfig``, ``SSMConfig`` and ``HybridConfig``.
 
 The fields, defaults and validation are the reference's, so a spec
 that the reference rejects is rejected here with the same
@@ -12,7 +12,7 @@ never silently ignored: only the multi-device settings remain
 settings construct; which combiner, delay and estimator a trainer
 accepts is checked where the reference checks it, in
 ``repro_torch.core.exchange.build_exchange``. ``ArchConfig`` and
-``SSMConfig`` (the model zoo) are copied for the SSM and dense
+``SSMConfig`` (the model zoo) are copied for the SSM, dense and hybrid
 families only; the other families raise :class:`NotPortedError`.
 ``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's.
 """
@@ -274,10 +274,11 @@ class GroupSpec:
 
 
 # ---------------------------------------------------------------------
-# Model zoo: the SSM family (Mamba2) and the dense transformer family
+# Model zoo: the SSM family (Mamba2), the dense transformer family and
+# the hybrid (Mamba2 super-blocks around a shared attention block)
 # ---------------------------------------------------------------------
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-PORTED_FAMILIES = ("ssm", "dense")
+PORTED_FAMILIES = ("ssm", "dense", "hybrid")
 SSD_IMPLS = ("xla", "pallas_interpret")
 ATTENTION_IMPLS = ("xla", "pallas", "pallas_interpret")
 ROPE_MODES = ("standard", "mrope", "none")
@@ -296,17 +297,29 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: N super-blocks of (mamba_per_block Mamba2 layers +
+    one SHARED attention/MLP block) plus tail Mamba2 layers — the
+    reference's fields and defaults."""
+    n_super_blocks: int = 16
+    mamba_per_block: int = 4
+    tail_mamba: int = 1
+    lora_rank: int = 128       # per-call-site LoRA on the shared block
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     """The port's copy of ``repro.configs.base.ArchConfig``, cut to the
-    fields the SSM and dense families read (``mrope_sections``, the
-    hybrid and modality fields, ``first_k_dense``, ``remat``,
+    fields the SSM, dense and hybrid families read (``mrope_sections``,
+    the modality fields, ``first_k_dense``, ``remat``,
     ``unroll_layers``, ``moe_dispatch``, ``mla_absorb`` and
     ``max_position`` are not copied). ``moe``, ``mla`` and
     ``cross_attention`` are kept so that a config asking for them is
     refused: set, they raise :class:`NotPortedError`, as do
-    ``rope_mode="mrope"`` and a family other than ``"ssm"`` or
-    ``"dense"``; an unknown family, ``rope_mode``, ``ssd_impl``,
-    ``attention_impl`` or dtype raises ``ValueError``.
+    ``rope_mode="mrope"`` and a family outside ``PORTED_FAMILIES``; an
+    unknown family, ``rope_mode``, ``ssd_impl``, ``attention_impl`` or
+    dtype raises ``ValueError``, and so does a hybrid config without
+    both ``ssm`` and ``hybrid``.
 
     ``ssd_impl`` and ``attention_impl`` are validated against the
     reference's values and decide one thing: a pass that autograd
@@ -347,6 +360,7 @@ class ArchConfig:
     moe: Optional[object] = None        # unported: must stay None
     mla: Optional[object] = None        # unported: must stay None
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     cross_attention: bool = False       # unported: must stay False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
@@ -370,13 +384,17 @@ class ArchConfig:
                     f"ported to repro_torch yet")
         if self.family == "ssm" and self.ssm is None:
             raise ValueError("an ssm-family ArchConfig needs ssm=SSMConfig")
-        if self.family == "dense" and not (
+        if self.family == "hybrid" and (self.ssm is None
+                                        or self.hybrid is None):
+            raise ValueError("a hybrid ArchConfig needs ssm=SSMConfig and "
+                             "hybrid=HybridConfig")
+        if self.family in ("dense", "hybrid") and not (
                 self.n_heads >= 1 and self.n_kv_heads >= 1
                 and self.n_heads % self.n_kv_heads == 0
                 and self.head_dim >= 2 and self.head_dim % 2 == 0):
             raise ValueError(
-                f"a dense ArchConfig needs n_kv_heads dividing n_heads and "
-                f"an even head_dim, got n_heads={self.n_heads}, "
+                f"a {self.family} ArchConfig needs n_kv_heads dividing "
+                f"n_heads and an even head_dim, got n_heads={self.n_heads}, "
                 f"n_kv_heads={self.n_kv_heads}, head_dim={self.head_dim}")
         if self.rope_mode not in ROPE_MODES:
             raise ValueError(f"unknown rope_mode {self.rope_mode!r}; "
@@ -409,7 +427,9 @@ class ArchConfig:
         """Smoke-test variant, the reference's numbers: 2 layers,
         d_model ≤ 256, vocab ≤ 512, fp32; ≤ 4 heads of 32 with the kv
         heads cut to divide them, d_ff ≤ 512, a sliding window of 16
-        where there is one; ssm d_state 16, head_dim 16, chunk 32."""
+        where there is one; ssm d_state 16, head_dim 16, chunk 32; a
+        hybrid gets 3 layers: one super-block of one Mamba2 layer, one
+        tail layer, LoRA rank 8."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
@@ -422,6 +442,11 @@ class ArchConfig:
             compute_dtype="float32")
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=32)
+        if self.hybrid is not None:
+            kw["hybrid"] = replace(self.hybrid, n_super_blocks=1,
+                                   mamba_per_block=1, tail_mamba=1,
+                                   lora_rank=8)
+            kw["n_layers"] = 3
         if self.sliding_window is not None:
             kw["sliding_window"] = 16
         return replace(self, **kw)

@@ -14,9 +14,10 @@ delay lines keep their int8 planes, and their per-leaf scale leaves
 (…, ⌈size / q_block⌉) are laid side by side in leaf order into the
 port's scale columns (``BlockLayout``). The model zoo's params keep
 the reference's pytree as they are (``ssm_params``,
-``transformer_params``), and Mamba2 decode states and transformer KV
-caches go both ways (``ssm_state``, ``ssm_state_to_numpy``,
-``kv_cache``, ``kv_cache_to_numpy``). The streaming trainer's
+``transformer_params``, ``hybrid_params``), and Mamba2 decode states,
+transformer KV caches and hybrid caches go both ways (``ssm_state``,
+``ssm_state_to_numpy``, ``kv_cache``, ``kv_cache_to_numpy``,
+``hybrid_cache``, ``hybrid_cache_to_numpy``). The streaming trainer's
 ``TrainState`` goes both ways too (``train_state``, ``train_tree``):
 its trees of stacked leaves keep the reference's pytree as they are.
 """
@@ -283,6 +284,13 @@ def _array_to_tensor(x, device) -> torch.Tensor:
     return _t(x, device)
 
 
+def _tensor_to_array(x: torch.Tensor) -> np.ndarray:
+    """A tensor → a numpy array on the host; bf16 as fp32, which holds
+    every bf16 value exactly."""
+    x = x.detach().to("cpu")
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+
 def ssm_params(params, device="cpu") -> dict:
     """The reference's SSM-model params (``repro.models.ssm_model``:
     numpy leaves, the layers' leaves stacked on axis 0) → the port's,
@@ -306,9 +314,7 @@ def ssm_state(state, device="cpu") -> dict:
 def ssm_state_to_numpy(state) -> dict:
     """The port's Mamba2 decode state → numpy arrays (bf16 tails as
     fp32), for the reference's functions."""
-    return {k: state[k].detach().to("cpu").to(
-        torch.float32 if state[k].dtype == torch.bfloat16
-        else state[k].dtype).numpy() for k in SSM_STATE_KEYS}
+    return {k: _tensor_to_array(state[k]) for k in SSM_STATE_KEYS}
 
 
 # ---------------------------------------------------------------------
@@ -336,18 +342,61 @@ def kv_cache(cache, device="cpu") -> dict:
     if set(cache) != {"layers"} or set(cache["layers"]) != {"kv"} \
             or set(cache["layers"]["kv"]) != set(KV_KEYS):
         raise ValueError(f"not a transformer KV cache: keys {sorted(cache)}")
-    kv = cache["layers"]["kv"]
-    return {"layers": {"kv": {k: _array_to_tensor(kv[k], device)
-                              for k in KV_KEYS}}}
+    return {"layers": {"kv": _kv(cache["layers"]["kv"], device)}}
+
+
+def _kv(kv, device) -> dict:
+    return {k: _array_to_tensor(kv[k], device) for k in KV_KEYS}
 
 
 def kv_cache_to_numpy(cache) -> dict:
     """The port's KV cache → numpy arrays (bf16 k and v as fp32), for
     the reference's functions."""
-    kv = cache["layers"]["kv"]
-    return {"layers": {"kv": {k: kv[k].detach().to("cpu").to(
-        torch.float32 if kv[k].dtype == torch.bfloat16
-        else kv[k].dtype).numpy() for k in KV_KEYS}}}
+    return {"layers": {"kv": _kv_to_numpy(cache["layers"]["kv"])}}
+
+
+def _kv_to_numpy(kv) -> dict:
+    return {k: _tensor_to_array(kv[k]) for k in KV_KEYS}
+
+
+# ---------------------------------------------------------------------
+# the hybrid (zamba2): params and caches
+# ---------------------------------------------------------------------
+HYBRID_KEYS = {"embed", "final_norm", "lm_head", "shared", "mamba_blocks",
+               "lora"}
+
+
+def hybrid_params(params, device="cpu") -> dict:
+    """The reference's hybrid params (``repro.models.hybrid``: numpy
+    leaves, ``mamba_blocks`` stacked (nb, mpb, ...), ``lora`` (nb, ...),
+    ``tail`` (tail, ...)) → the port's, which keep the same pytree and
+    dtypes."""
+    if not HYBRID_KEYS <= set(params) or set(params["shared"]) != {
+            "ln1", "ln2", "attn", "mlp"}:
+        raise ValueError(f"not a hybrid param tree: keys {sorted(params)}")
+    return tree_map(lambda x: _array_to_tensor(x, device), params)
+
+
+def hybrid_cache(cache, device="cpu") -> dict:
+    """A reference hybrid cache (``{"mamba": (nb, mpb, B, ...), "kv":
+    {"k", "v", "pos"} (nb, B, ...), "tail": (tail, B, ...)}``) → the
+    port's."""
+    if set(cache) != {"mamba", "kv", "tail"} \
+            or set(cache["kv"]) != set(KV_KEYS):
+        raise ValueError(f"not a hybrid cache: keys {sorted(cache)}")
+    return {"mamba": ssm_state(cache["mamba"], device),
+            "kv": _kv(cache["kv"], device),
+            "tail": (None if cache["tail"] is None
+                     else ssm_state(cache["tail"], device))}
+
+
+def hybrid_cache_to_numpy(cache) -> dict:
+    """The port's hybrid cache → numpy arrays (bf16 as fp32), for the
+    reference's functions."""
+    return {"mamba": ssm_state_to_numpy(cache["mamba"]),
+            "kv": _kv_to_numpy(cache["kv"]),
+            "tail": (None if cache["tail"] is None
+                     else ssm_state_to_numpy(cache["tail"]))}
 
 
 # ---------------------------------------------------------------------
@@ -395,12 +444,7 @@ def train_tree(state):
     from repro_torch.core.sharded_ddal import Knowledge
 
     def arr(x):
-        if x is None:
-            return None
-        x = x.detach().to("cpu")
-        if x.dtype == torch.bfloat16:
-            x = x.to(torch.float32)
-        return x.numpy()
+        return None if x is None else _tensor_to_array(x)
     know = state.know
     return type(state)(
         params=tree_map(arr, state.params),

@@ -22,7 +22,7 @@
 //   strides over b, s and the head with the head dim contiguous (bf16: the
 //   pointers and those strides 16-byte aligned, for cp.async);
 //   o (B, S, H, D) contiguous, in q's dtype.
-// D in {16, 32, 64, 128}; any S (the ragged last tile is masked here, never
+// D in {16, 32, 64, 112, 128}; any S (the ragged last tile is masked here, never
 // padded by a copy); H a multiple of K.
 //
 // Two kernels, one per input dtype; nothing falls back from one to the other.
@@ -61,7 +61,10 @@
 //     the 128 x 64 tiles per (b, h) at S = 4096, 3 % above the kept pairs;
 //     O(S W) with a window), a warp skips a visited tile that is wholly masked
 //     for its 16 rows, and the mask is applied only on tiles that cut it.
-//   Shared memory: 104,448 B at D = 128 (q, two k / v stages).
+//   Shared memory: 104,448 B at D = 128 (q, two k / v stages), 92,160 B at
+//   D = 112 (rows of 120 bf16 = 240 B: eight rows start 112 B apart mod
+//   128 B, in eight distinct 16-byte bank groups, so ldmatrix stays
+//   conflict-free; KS = 7 k-steps, 14 output n-tiles, 7 ldmatrix pairs).
 //
 // fp32 inputs: flash_fwd_fp32_kernel, on the CUDA cores in IEEE fp32 (the
 //   tensor cores would round to TF32 and leave the reference's rtol = atol =
@@ -113,12 +116,16 @@ constexpr int LD = BQ + 4;     // stride of the transposed tiles: 16-byte rows
 static_assert(BQ == BK, "the diagonal tile is the block's own rows");
 
 // Output columns of one thread: N = D / 16, loaded VW at a time from shared
-// memory, in G groups; column (g, c) is g * 16 * VW + tx * VW + c.
+// memory, in G groups; column (g, c) is g * 16 * VW + tx * VW + c. VW is the
+// widest of 4, 2 and 1 that divides N, so the G * VW columns are all N (at
+// D = 112, N = 7: VW = 1, G = 7).
 template <int D>
 struct Cols {
   static constexpr int N = D / 16;
-  static constexpr int VW = N < 4 ? N : 4;
+  static constexpr int VW = N % 4 == 0 ? 4 : (N % 2 == 0 ? 2 : 1);
   static constexpr int G = N / VW;
+  static_assert(D % 16 == 0 && N % VW == 0 && G * VW == N,
+                "every output column of a thread in some group");
   static constexpr int LDV = D + 4;            // v row stride
   static constexpr int KV = (D * LD > BK * LDV) ? D * LD : BK * LDV;
   static constexpr int BYTES = (D * LD + KV + BK * LD) * 4;
@@ -584,6 +591,7 @@ bool instance(int dtype, int D, Instance* out) {
     case 16: *out = instance_d<16>(dtype); return true;
     case 32: *out = instance_d<32>(dtype); return true;
     case 64: *out = instance_d<64>(dtype); return true;
+    case 112: *out = instance_d<112>(dtype); return true;
     case 128: *out = instance_d<128>(dtype); return true;
     default: return false;
   }

@@ -25,7 +25,8 @@ and nothing falls back from one to the other or to the plain version:
 Both read q, k and v in their layout with their strides (the head dim
 contiguous) and k and v by kv head ``h // (H / K)``, so they make no
 swap copy and no GQA repeat; the plain version repeats k and v onto
-the heads, the same values. Head dims 16, 32, 64 and 128, any S,
+the heads, the same values. Head dims 16, 32, 64, 112 (zamba2-7b's
+shared block) and 128, any S,
 causal attention with an optional sliding window, and no gradient:
 the reference kernel has no VJP. A pass that autograd records calls
 ``flash_attention_with_vjp``: the kernel's forward, the plain
@@ -43,7 +44,7 @@ from repro_torch.configs.base import NotPortedError
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.plain_vjp import with_plain_vjp
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 MAX_BH = 65535               # grid y (heads) and z (batch)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (query rows per block, keys per tile) of each dtype's kernel

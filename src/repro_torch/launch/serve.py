@@ -19,10 +19,18 @@ restores a group's planes from a ``ParamStore`` checkpoint (written by
 either package) and prints the restored version. ``--device``
 (default ``cuda``) picks the card or the host. Without ``--full`` the
 arch runs ``reduced()``.
-``--arch`` defaults to the reference's, ``llama3.2-3b``; ``mamba2-780m``
-is the other ported arch. A transformer's KV cache holds ``max_len``
-positions (default 128), so a longer prompt plus its new tokens needs
-``--serve max_len=``.
+``--arch`` defaults to the reference's, ``llama3.2-3b``; the other
+ported archs are ``mamba2-780m``, the hybrid ``zamba2-7b`` (Mamba2
+super-blocks around a shared attention block with per-call-site LoRA)
+and the dense ``qwen2-7b``, ``granite-3-8b`` and ``yi-34b`` (whose fp32
+weights, ~137 GB, exceed one 80 GB card: run it without ``--full``).
+The KV cache of a transformer or of the hybrid's shared block holds
+``max_len`` positions (default 128), so a longer prompt plus its new
+tokens needs ``--serve max_len=``::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --full --requests 4 --prompt-len 1024 --serve engine=batch \\
+        --serve max_new_tokens=32 --serve max_len=1056
 
 ``main`` prints the reference's per-request lines. ``engine=batch``
 then prints the prefill time of each batch and the decode rate (host
@@ -72,7 +80,9 @@ def draw_prompts(vocab_size: int, requests: int, prompt_len: int,
 
 def _parser():
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--arch", default="llama3.2-3b")
+    p.add_argument("--arch", default="llama3.2-3b",
+                   help="llama3.2-3b (default), mamba2-780m, zamba2-7b, "
+                        "qwen2-7b, granite-3-8b or yi-34b")
     p.add_argument("--requests", type=int, default=6)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--serve", action="append", default=[],

@@ -1,3 +1,4 @@
-"""The model zoo (port of ``repro.models``): the SSM family (Mamba2) and
-the dense transformer family (llama)."""
+"""The model zoo (port of ``repro.models``): the SSM family (Mamba2),
+the dense transformer family (llama, qwen2, granite, yi) and the hybrid
+(zamba2)."""
 from repro_torch.models.model import Model, get_model  # noqa: F401

@@ -60,17 +60,28 @@ def make_kv_cache(cfg, batch: int, max_len: int, n_layers: int,
 
 
 def _write_slots(buf: torch.Tensor, new: torch.Tensor,
-                 slot_idx: torch.Tensor) -> torch.Tensor:
+                 slot_idx: torch.Tensor,
+                 drop_past: bool = False) -> torch.Tensor:
     """A copy of ``buf`` (B, Smax, ...) with the per-batch rows ``new``
     (B, T, ...) scattered into slots ``slot_idx`` (B, T). Slots must lie
     in [0, Smax): the reference drops writes beyond the cache silently,
     torch indexing does not, so callers check first
-    (``transformer_forward``)."""
+    (``transformer_forward``). With ``drop_past`` the writes at slots
+    past the cache are dropped, as the reference's are: they go to one
+    spare row past the copy, which is cut off."""
     B, T = slot_idx.shape
-    bidx = torch.arange(B, device=buf.device)[:, None].expand(B, T)
-    out = buf.clone()
-    out[bidx, slot_idx.long()] = new.to(buf.dtype)
-    return out
+    if not drop_past:
+        bidx = torch.arange(B, device=buf.device)[:, None].expand(B, T)
+        out = buf.clone()
+        out[bidx, slot_idx.long()] = new.to(buf.dtype)
+        return out
+    smax, rest = buf.shape[1], tuple(buf.shape[2:])
+    flat = buf.new_empty((B * smax + 1,) + rest)
+    flat[:-1] = buf.reshape((B * smax,) + rest)
+    s = slot_idx.long()
+    rows = torch.arange(B, device=buf.device)[:, None] * smax + s
+    flat[torch.where(s < smax, rows, B * smax)] = new.to(buf.dtype)
+    return flat[:-1].view(buf.shape)
 
 
 def _slots_for(cfg, positions: torch.Tensor) -> torch.Tensor:
@@ -81,7 +92,8 @@ def _slots_for(cfg, positions: torch.Tensor) -> torch.Tensor:
 
 
 def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                   layer_cache: Optional[dict] = None):
+                   layer_cache: Optional[dict] = None,
+                   drop_past: bool = False):
     """GQA self-attention.
 
     x: (B, S, E); positions: (B, S); layer_cache: this layer's slice of
@@ -100,7 +112,9 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     with ``NotPortedError`` (the reference's Pallas kernel has no VJP).
     With a cache it writes the new keys and values into their slots,
     then attends over the slots with ``causal_mask_bias`` by position
-    and ``softmax_attention``.
+    and ``softmax_attention``; ``drop_past`` drops the writes at slots
+    past the cache instead of requiring that none be made (the hybrid's
+    right-padded prefill, whose pads past ``max_len`` still run on).
     """
     B, S, _ = x.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -125,9 +139,9 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
             q, k, v, window=cfg.sliding_window, scale=scale)
     else:
         slots = _slots_for(cfg, positions)
-        kc = _write_slots(layer_cache["k"], k, slots)
-        vc = _write_slots(layer_cache["v"], v, slots)
-        pc = _write_slots(layer_cache["pos"], positions, slots)
+        kc = _write_slots(layer_cache["k"], k, slots, drop_past)
+        vc = _write_slots(layer_cache["v"], v, slots, drop_past)
+        pc = _write_slots(layer_cache["pos"], positions, slots, drop_past)
         new_cache = {"k": kc, "v": vc, "pos": pc}
         bias = causal_mask_bias(positions, pc, cfg.sliding_window, pc >= 0)
         out = softmax_attention(q, kc, vc, bias, scale,

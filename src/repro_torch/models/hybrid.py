@@ -1,0 +1,242 @@
+"""Zamba2-style hybrid — the port of ``repro.models.hybrid``: super-blocks
+of Mamba2 layers, each followed by one call of a SHARED attention/MLP
+block whose seven weights take a per-call-site LoRA delta
+(arXiv:2411.15242), then tail Mamba2 layers.
+
+Parameters keep the reference's pytree: ``{"embed", "final_norm",
+"lm_head", "shared": {"ln1", "attn", "ln2", "mlp"}, "mamba_blocks":
+{"ln", "mamba"} (leaves (nb, mpb, ...)), "lora": {name: {"a", "b"}}
+(leaves (nb, ...)), "tail": {"ln", "mamba"} (leaves (tail, ...))}``, and
+so does the cache (``{"mamba": (nb, mpb, B, ...), "kv": {"k", "v",
+"pos"} (nb, B, ...), "tail": (tail, B, ...)}``). The reference scans
+over the super-blocks and the layers; here Python loops take each
+one's views.
+
+Every cache-free pass runs the SSD kernel in each Mamba2 sub-layer and
+the flash attention in each call of the shared block
+(``repro_torch.models.attention``); a pass with a cache attends over
+its slots instead, as the reference does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.common.device import resolve_device
+from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
+                                       stack_layers, tree_map,
+                                       unstack_layers)
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (cross_entropy, dense_init,
+                                       embed_init, embed_rows, rms_norm)
+from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
+                                       mamba2_decode, mamba2_forward)
+from repro_torch.models.mlp import init_swiglu, swiglu
+
+_LORA_TARGETS = {
+    "attn": ("wq", "wk", "wv", "wo"),
+    "mlp": ("w_gate", "w_up", "w_down"),
+}
+
+
+def _lora_shapes(cfg) -> dict:
+    E, H, K, D, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.head_dim, cfg.d_ff)
+    return {
+        "wq": (E, H * D), "wk": (E, K * D), "wv": (E, K * D),
+        "wo": (H * D, E),
+        "w_gate": (E, F), "w_up": (E, F), "w_down": (F, E),
+    }
+
+
+def _init_lora(cfg, gen: torch.Generator, shapes: dict, device) -> dict:
+    """One call site's factors: ``a`` (din, r) of fan-in scale, ``b``
+    (r, dout) zero, so the delta starts at 0, as in the reference."""
+    r = cfg.hybrid.lora_rank
+    dt = cfg.dtype("param")
+    return {name: {"a": dense_init(gen, (din, r), dt, device=device),
+                   "b": torch.zeros((r, dout), dtype=dt, device=device)}
+            for name, (din, dout) in shapes.items()}
+
+
+def _merge_lora(shared: dict, lora: dict, cdt: torch.dtype) -> dict:
+    """Effective weights for one call site: W + A·B, each cast to the
+    compute dtype first and the sum formed in it, as the reference
+    does. With per-row weights (leaves (B, ...), the group engine's
+    slots) the products are batched, one row's delta each."""
+    out = dict(shared)
+    out["attn"] = dict(shared["attn"])
+    out["mlp"] = dict(shared["mlp"])
+    for grp, names in _LORA_TARGETS.items():
+        for n in names:
+            delta = lora[n]["a"].to(cdt) @ lora[n]["b"].to(cdt)
+            out[grp][n] = shared[grp][n].to(cdt) + delta
+    return out
+
+
+def init_hybrid(cfg, gen: Optional[torch.Generator], device=None) -> dict:
+    """The parameters on ``device`` (``None``: the card); ``gen`` must
+    live on that device. The nested stacks are filled one layer at a
+    time (22.7 GB of fp32 weights at zamba2-7b)."""
+    hy = cfg.hybrid
+    dev = resolve_device(device)
+    dt = cfg.dtype("param")
+    E = cfg.d_model
+
+    def ones():
+        return torch.ones((E,), dtype=dt, device=dev)
+
+    params = {
+        "embed": embed_init(gen, (cfg.vocab_size, E), dt, dev),
+        "final_norm": ones(),
+        "lm_head": dense_init(gen, (E, cfg.vocab_size), dt, device=dev),
+    }
+    params["shared"] = {
+        "ln1": ones(),
+        "attn": attn.init_self_attention(cfg, gen, dev),
+        "ln2": ones(),
+        "mlp": init_swiglu(gen, E, cfg.d_ff, dt, dev),
+    }
+
+    def one_mamba():
+        return {"ln": ones(), "mamba": init_mamba2(cfg, gen, dev)}
+
+    params["mamba_blocks"] = init_stacked(
+        (hy.n_super_blocks, hy.mamba_per_block), one_mamba)
+    shapes = _lora_shapes(cfg)
+    params["lora"] = init_stacked(
+        hy.n_super_blocks, lambda: _init_lora(cfg, gen, shapes, dev))
+    if hy.tail_mamba:
+        params["tail"] = init_stacked(hy.tail_mamba, one_mamba)
+    return params
+
+
+def _shared_block(cfg, weights: dict, x: torch.Tensor,
+                  positions: torch.Tensor, kv_cache: Optional[dict],
+                  decode: bool):
+    h = rms_norm(x, weights["ln1"], cfg.norm_eps)
+    a, new_kv = attn.self_attention(cfg, weights["attn"], h, positions,
+                                    kv_cache, drop_past=not decode)
+    x = x + a
+    h2 = rms_norm(x, weights["ln2"], cfg.norm_eps)
+    x = x + swiglu(weights["mlp"], h2, cfg.dtype("compute"))
+    return x, new_kv
+
+
+def _mamba_sublayer(cfg, lp: dict, x: torch.Tensor,
+                    lstate: Optional[dict], decode: bool):
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    fn = mamba2_decode if decode else mamba2_forward
+    o, new_state = fn(cfg, lp["mamba"], h, lstate)
+    return x + o, new_state
+
+
+def hybrid_forward(cfg, params: dict, batch: dict,
+                   cache: Optional[dict] = None, decode: bool = False,
+                   agents: Optional[torch.Tensor] = None):
+    """Full-sequence pass (scoring / prefill), or with ``decode`` one
+    token. Returns (logits, aux = 0, new cache or None). A prefill into
+    a cache runs its whole right-padded width, which may pass the KV
+    slots: the KV writes past them are dropped, as the reference's are,
+    while the pads run on through the Mamba2 states, which keep them.
+    The caller checks that the real tokens fit (``api.prefill``), and a
+    decode step's caller checks the fit too. With ``agents`` (B,) (long, on the planes' device),
+    ``params`` are stacked planes (leaves (A, ...)) and row b runs under
+    agent ``agents[b]``'s weights, each gathered at its own depth just
+    before it runs: the shared block once a step, a call site's LoRA
+    factors and each Mamba2 layer as they come (B copies of one)."""
+    hy = cfg.hybrid
+    nb, mpb, nt = hy.n_super_blocks, hy.mamba_per_block, hy.tail_mamba
+    cdt = cfg.dtype("compute")
+    positions = batch["positions"]
+    want_cache = cache is not None
+    x = embed_rows(cfg, params, batch["tokens"], agents)
+    if agents is None:
+        shared = params["shared"]
+        blocks = [unstack_layers(b, mpb) for b in
+                  unstack_layers(params["mamba_blocks"], nb)]
+        loras = unstack_layers(params["lora"], nb)
+        tails = unstack_layers(params["tail"], nt) if nt else []
+    else:
+        shared = slot_layer(params["shared"], agents)
+
+    def state(key, *index):
+        """This layer's slice of ``cache[key]``, None without a cache."""
+        if not want_cache:
+            return None
+        tree = cache[key]
+        for i in index:
+            tree = layer(tree, i)
+        return tree
+
+    new_m, new_kv = [], []
+    for i in range(nb):
+        states = []
+        for j in range(mpb):
+            lp = (blocks[i][j] if agents is None
+                  else slot_layer(params["mamba_blocks"], agents, i, j))
+            x, st = _mamba_sublayer(cfg, lp, x, state("mamba", i, j),
+                                    decode)
+            states.append(st)
+        lora = (loras[i] if agents is None
+                else slot_layer(params["lora"], agents, i))
+        x, kv = _shared_block(cfg, _merge_lora(shared, lora, cdt), x,
+                              positions, state("kv", i), decode)
+        new_m.append(states)
+        new_kv.append(kv)
+
+    new_tail = []
+    for j in range(nt):
+        lp = (tails[j] if agents is None
+              else slot_layer(params["tail"], agents, j))
+        x, st = _mamba_sublayer(cfg, lp, x, state("tail", j), decode)
+        new_tail.append(st)
+
+    norm, head = params["final_norm"], params["lm_head"]
+    if agents is not None:
+        norm, head = norm[agents], head[agents]
+    x = rms_norm(x, norm, cfg.norm_eps)
+    logits = x @ head.to(cdt)
+    new_cache = None
+    if want_cache:
+        new_cache = {"mamba": stack_layers([stack_layers(s)
+                                            for s in new_m]),
+                     "kv": stack_layers(new_kv),
+                     "tail": stack_layers(new_tail) if nt else None}
+    return logits, torch.zeros((), dtype=torch.float32), new_cache
+
+
+def hybrid_decode(cfg, params: dict, batch: dict, cache: dict,
+                  agents: Optional[torch.Tensor] = None):
+    """One-token decode. batch: tokens (B, 1), positions (B, 1), which
+    the caller has checked against the cache (``check_fits``): nothing
+    here reads a value back from the card. ``agents``: as
+    :func:`hybrid_forward`."""
+    logits, _, new_cache = hybrid_forward(cfg, params, batch, cache,
+                                          decode=True, agents=agents)
+    return logits, new_cache
+
+
+def hybrid_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
+    """Token-mean cross-entropy of a cache-free pass over ``labels``
+    (−100 ignored) plus the aux term (0)."""
+    logits, aux, _ = hybrid_forward(cfg, params, batch)
+    return cross_entropy(logits, batch["labels"]) + aux
+
+
+def make_hybrid_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    hy = cfg.hybrid
+    nb, mpb = hy.n_super_blocks, hy.mamba_per_block
+    return {
+        "mamba": tree_map(
+            lambda x: x.reshape((nb, mpb) + tuple(x.shape[1:])),
+            make_mamba_state(cfg, batch, nb * mpb, device=device)),
+        "kv": attn.make_kv_cache(cfg, batch, max_len, nb, device=device),
+        "tail": make_mamba_state(cfg, batch, hy.tail_mamba, device=device),
+    }
+
+
+def kv_pos(cache: dict) -> torch.Tensor:
+    """The KV cache's slot positions (nb, B, slots)."""
+    return cache["kv"]["pos"]

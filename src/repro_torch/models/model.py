@@ -1,5 +1,5 @@
-"""Public model API — the port of ``repro.models.model`` for the SSM
-and dense families:
+"""Public model API — the port of ``repro.models.model`` for the SSM,
+dense and hybrid families:
 
     model = get_model(cfg)
     params = model.init(cfg, generator, device)
@@ -8,18 +8,22 @@ and dense families:
     logits, cache = model.decode(cfg, params, batch, cache)
     logits, cache = model.decode(cfg, planes, batch, cache, agents)
 
-Both families have their loss, a cache-free pass that the streaming
+Every family has its loss, a cache-free pass that the streaming
 trainer differentiates: every such pass runs the CUDA kernels (flash
 attention, the SSD intra-chunk form), and one that autograd records
 takes each kernel's gradient from its plain version
 (``repro_torch.kernels.plain_vjp``; ``ArchConfig`` docstring).
+``kv_pos`` is None for a model without a KV cache (the SSM family),
+else the cache → its slots' positions (…, B, slots): the serving
+engines check a fit against those slots.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from repro_torch.configs.base import ArchConfig, NotPortedError
+from repro_torch.models import hybrid as hy
 from repro_torch.models import ssm_model as ssm
 from repro_torch.models import transformer as tf
 
@@ -31,6 +35,7 @@ class Model:
     forward: Callable            # full-seq: (cfg, params, batch, cache)
     decode: Callable             # (cfg, params, batch, cache[, agents])
     make_cache: Callable         # (cfg, batch_size, max_len, device)
+    kv_pos: Optional[Callable] = None    # cache -> (..., B, slots)
 
 
 def _tf_prefill(cfg, params, batch, cache):
@@ -44,6 +49,11 @@ def _ssm_prefill(cfg, params, batch, cache):
     return logits, new_cache
 
 
+def _hy_prefill(cfg, params, batch, cache):
+    logits, _, new_cache = hy.hybrid_forward(cfg, params, batch, cache=cache)
+    return logits, new_cache
+
+
 _FAMILIES: Dict[str, Model] = {
     "transformer": Model(
         init=tf.init_transformer,
@@ -51,6 +61,7 @@ _FAMILIES: Dict[str, Model] = {
         forward=_tf_prefill,
         decode=tf.transformer_decode,
         make_cache=tf.make_transformer_cache,
+        kv_pos=lambda cache: cache["layers"]["kv"]["pos"],
     ),
     "ssm": Model(
         init=ssm.init_ssm_model,
@@ -58,6 +69,14 @@ _FAMILIES: Dict[str, Model] = {
         forward=_ssm_prefill,
         decode=ssm.ssm_decode,
         make_cache=ssm.make_ssm_cache,
+    ),
+    "hybrid": Model(
+        init=hy.init_hybrid,
+        loss=hy.hybrid_loss,
+        forward=_hy_prefill,
+        decode=hy.hybrid_decode,
+        make_cache=hy.make_hybrid_cache,
+        kv_pos=hy.kv_pos,
     ),
 }
 

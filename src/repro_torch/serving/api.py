@@ -26,6 +26,7 @@ import torch
 from repro_torch.common.pytree import tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import get_model
+from repro_torch.models.transformer import check_fits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,19 +57,33 @@ def build_prefill_batch(cfg: ArchConfig, tokens: torch.Tensor
     return {"tokens": tokens, "positions": pos}
 
 
+def host_ints(lengths) -> np.ndarray:
+    """Lengths as a host array: a card tensor is read back (one
+    sync), anything else is already on the host."""
+    if torch.is_tensor(lengths):
+        return lengths.detach().to("cpu").numpy()
+    return np.asarray(lengths)
+
+
 def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
             lengths: torch.Tensor, max_len: int) -> Tuple[torch.Tensor, Any]:
     """Prefill a fresh B-slot cache; next-token logits come from each
     prompt's LAST real token. tokens: (B, P); lengths: (B,), a tensor
     or host ints. A dense model's KV cache must hold the P positions
-    (``ValueError`` naming ``max_len``, checked from the shape).
+    (``ValueError`` naming ``max_len``, checked from the shape); the
+    hybrid's must hold each row's real tokens (checked only where P
+    passes ``max_len``: then card lengths are read back once).
 
     As in the reference, the whole right-padded (B, P) block runs
     through the model: a transformer's KV cache also holds the pad
     tokens of a shorter row (at positions past its length, masked until
     decode overwrites them), and an SSM's state after prefill has
-    absorbed them, so that row decodes on from there."""
-    B = tokens.shape[0]
+    absorbed them, so that row decodes on from there. The hybrid's
+    Mamba2 states absorb the pads past ``max_len`` too, whose KV writes
+    are dropped, as in the reference."""
+    B, P = tokens.shape[:2]
+    if P > max_len and model.kv_pos is not None:
+        check_fits(cfg, int(np.max(host_ints(lengths))) - 1, max_len)
     cache = model.make_cache(cfg, B, max_len, device=tokens.device)
     logits, cache = model.forward(cfg, params,
                                   build_prefill_batch(cfg, tokens), cache)
@@ -136,7 +151,9 @@ def cache_batch_dims(cfg: ArchConfig, max_len: int) -> Any:
     as the reference finds it: the cache's shapes at B = 1 and B = 2
     differ in that dim alone. Both caches are built on the ``meta``
     device, so nothing is allocated. Transformer caches are (L, B,
-    ...), and so is the Mamba2 state: every leaf gives 1."""
+    ...), and so is the Mamba2 state: every leaf gives 1. The hybrid's
+    Mamba2 states are (nb, mpb, B, ...), 2, and its KV cache and tail
+    states 1."""
     model = get_model(cfg)
     s1 = model.make_cache(cfg, 1, max_len, device="meta")
     s2 = model.make_cache(cfg, 2, max_len, device="meta")

@@ -26,6 +26,7 @@ from repro_torch.serving.api import (
     ServeConfig,
     StopCriteria,
     decode_batch,
+    host_ints,
     last_logits,
     prefill,
 )
@@ -70,15 +71,15 @@ class ServeEngine:
         ``lengths`` (B,): the prompt lengths, from the host (a list, a
         numpy array or a CPU tensor: then nothing here reads a value
         back from the card) or on the card (then read back once, to
-        check the fit). A dense model's KV cache must hold the last
-        position written, max(lengths) + max_new_tokens − 2, else
-        ``ValueError`` names ``max_len``, before any step runs."""
+        check the fit). A model's KV cache (dense, hybrid) must hold
+        the last position written, max(lengths) + max_new_tokens − 2,
+        else ``ValueError`` names ``max_len``, before any step runs."""
         cfg = self.cfg
         dev = first_logits.device
-        if cfg.family == "dense" and self.serve.max_new_tokens > 1:
-            check_fits(cfg, int(np.max(_host_ints(lengths)))
+        if self.model.kv_pos is not None and self.serve.max_new_tokens > 1:
+            check_fits(cfg, int(np.max(host_ints(lengths)))
                        + self.serve.max_new_tokens - 2,
-                       cache["layers"]["kv"]["pos"].shape[-1])
+                       self.model.kv_pos(cache).shape[-1])
         if torch.is_tensor(lengths):
             pos = lengths.to(device=dev, dtype=torch.int32,
                              non_blocking=True)
@@ -108,14 +109,6 @@ class ServeEngine:
         :meth:`decode` takes them."""
         first_logits, cache = self.prefill(prompts, lengths)
         return self.decode(first_logits, cache, lengths, generator)
-
-
-def _host_ints(lengths) -> np.ndarray:
-    """Lengths as a host array: a card tensor is read back (one
-    sync), anything else is already on the host."""
-    if torch.is_tensor(lengths):
-        return lengths.detach().to("cpu").numpy()
-    return np.asarray(lengths)
 
 
 def serve_batches(requests: Sequence[Sequence[int]], batch_size: int,

@@ -5,7 +5,7 @@
 The plain version is held to the Pallas kernel (run in interpret mode,
 as ``tests/test_kernels.py`` runs it) and to the reference's oracle at
 the reference's six test shapes plus a GQA ratio of 3 (llama3.2-3b's
-24 / 8 heads), fp32 at the reference's own rtol = atol = 2e-5 and bf16
+24 / 8 heads) and zamba2-7b's head dim of 112, fp32 at the reference's own rtol = atol = 2e-5 and bf16
 at its 3e-2. On the CPU the wrapper runs its plain version; the CUDA
 kernels are held against it on the card by
 ``tests/test_torch_flash_attention_gpu.py`` and ``chip_smoke.py``. The
@@ -36,7 +36,9 @@ SHAPES = [(2, 128, 4, 2, 32, None, 64),
           (1, 256, 4, 2, 32, 64, 64),
           (1, 64, 2, 1, 16, 16, 32),        # MQA + window
           (2, 80, 4, 4, 32, None, 32),      # padded seq (80 % 32 != 0)
-          (1, 100, 6, 2, 32, None, 32)]     # GQA ratio 3, ragged
+          (1, 100, 6, 2, 32, None, 32),     # GQA ratio 3, ragged
+          (1, 160, 2, 2, 112, None, 64),    # zamba2-7b's head dim
+          (1, 160, 4, 1, 112, 48, 64)]      # the same, MQA + window
 
 
 def qkv(seed, B, S, H, K, D):
@@ -179,6 +181,7 @@ def _outside_bf16_gate(got, want):
     (1, 256, 4, 2, 64, None),        # causal, two 128-row query tiles
     (1, 384, 4, 2, 64, 100),         # a window that starts inside tiles
     (2, 200, 4, 2, 32, None),        # ragged S: 200 = 128 + 72
+    (1, 200, 2, 2, 112, None),       # D = 112: 7 k-steps, 14 n-tiles
 ])
 def test_tensor_core_arithmetic_within_one_bf16_unit(B, S, H, K, D, win):
     """The bf16 kernel's arithmetic, emulated tile by tile, lands within

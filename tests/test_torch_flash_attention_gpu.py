@@ -68,6 +68,8 @@ def within_gate(got, want):
     (2, 80, 4, 4, 32, None),
     (1, 1, 2, 1, 16, None),          # one token
     (2, 513, 8, 1, 64, None),        # MQA, D = 64
+    (2, 4096, 32, 32, 112, None),    # zamba2-7b scoring, D = 112
+    (1, 4000, 32, 8, 112, 512),      # D = 112: ragged S, window, GQA
 ])
 def test_kernel_matches_plain(B, S, H, K, D, window, dtype):
     dev = _card()
@@ -94,11 +96,13 @@ def test_kernel_matches_plain(B, S, H, K, D, window, dtype):
     (2, 333, 6, 3, 16, None),        # the smaller head dims
     (2, 333, 6, 3, 32, 100),
     (2, 333, 6, 2, 64, None),
+    (1, 129, 4, 4, 112, None),       # D = 112 at the tile edges
+    (1, 700, 4, 2, 112, 127),
 ])
 def test_bf16_kernel_at_tile_edges(B, S, H, K, D, window):
     """The tensor-core kernel's tile edges: S around 128-row query tiles
-    and 64-key tiles, windows that start inside a query tile, D = 16, 32
-    and 64; within one bf16 unit, two launches bitwise equal."""
+    and 64-key tiles, windows that start inside a query tile, D = 16, 32,
+    64 and 112; within one bf16 unit, two launches bitwise equal."""
     dev = _card()
     q, k, v = qkv(S * 7 + D, B, S, H, K, D, dev, torch.bfloat16)
     got = ops.flash_attention(q, k, v, window=window)

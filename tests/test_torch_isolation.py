@@ -53,7 +53,11 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.core.sharded_ddal", "repro_torch.data.synthetic",
              "repro_torch.launch.train",
              "repro_torch.examples.group_train_llm",
-             "repro_torch.kernels.plain_vjp"):
+             "repro_torch.kernels.plain_vjp",
+             "repro_torch.models.hybrid", "repro_torch.configs.zamba2_7b",
+             "repro_torch.configs.qwen2_7b",
+             "repro_torch.configs.granite_3_8b",
+             "repro_torch.configs.yi_34b"):
     assert name in names, name
 print(len(names))
 """

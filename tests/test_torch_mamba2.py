@@ -105,8 +105,8 @@ def test_published_and_reduced_configs_equal_the_reference():
 
 def test_unported_families_and_bad_fields_are_refused():
     base = get_arch_config(ARCH)
-    with pytest.raises(NotPortedError, match="family='hybrid'"):
-        ArchConfig(name="x", family="hybrid", n_layers=1, d_model=8,
+    with pytest.raises(NotPortedError, match="family='audio'"):
+        ArchConfig(name="x", family="audio", n_layers=1, d_model=8,
                    n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
     with pytest.raises(ValueError, match="unknown family"):
         base.with_(family="rnn")
@@ -117,7 +117,7 @@ def test_unported_families_and_bad_fields_are_refused():
     assert base.with_(ssd_impl="pallas_interpret").ssd_impl == \
         "pallas_interpret"
     with pytest.raises(KeyError, match="unported"):
-        get_arch_config("qwen2-7b")
+        get_arch_config("qwen3-moe-30b-a3b")
     assert base.with_(n_layers=2).ssm == SSMConfig(d_state=128, head_dim=64,
                                                     chunk=256)
 
