@@ -26,7 +26,9 @@ Phases, each printing its lines:
    cores; each within its gate, two launches bitwise equal, with its
    TFLOP/s over the tiles it visits and the blocks per SM of every
    flash instance; ``[kernel] flash_attention D=112`` at zamba2-7b's
-   head dim, (2, 4096, 32, 32, 112), a ragged S, a window, GQA); and both
+   head dim, (2, 4096, 32, 32, 112), a ragged S, a window, GQA;
+   ``[kernel] flash_attention GQA 8`` at qwen3-moe-30b-a3b's (2, 4096,
+   32, 4, 128), a ragged S, a window, fp32); and both
    share steps on the robustness paths' inputs (T and R discounted by
    0.95**age, pieces past the staleness cutoff, quarantined pieces,
    an agent with no valid piece), bitwise;
@@ -55,12 +57,23 @@ Phases, each printing its lines:
    way (``[serve] zamba2-7b``: the SSD kernel in each of its 65 Mamba2
    layers per prefill, no flash) and scored (``[score] zamba2-7b``: 16
    flash launches, one per call of the shared block, and 65 SSD
-   launches per pass), with a profile of one pass; the slot
-   engines at full width and depth: ``[continuous] mamba2-780m`` (8
+   launches per pass), with a profile of one pass; the MoE pair at its
+   published widths and depth, one model on the card at a time:
+   ``[serve] qwen3-moe-30b-a3b`` (bf16 weights, 56.9 GiB, through
+   ``ServeEngine``, its decode under ``set_sync_debug_mode("error")``,
+   and the ``ContinuousBatcher``), ``[score] qwen3-moe-30b-a3b`` (48
+   flash launches a pass, the experts' aux term printed) with a profile
+   of one pass, ``[serve] deepseek-v2-lite-16b`` through the launcher
+   (fp32 weights; MLA takes the absorbed branch at every prefill and
+   decode step) and ``[score] deepseek-v2-lite-16b`` (no kernel: MLA
+   scores with the materialised softmax, as the reference does); the
+   slot engines at full width and depth: ``[continuous] mamba2-780m`` (8
    requests through 2 slots), ``[group] mamba2-780m`` (4 agents, 4
    slots, 16 requests, a hot swap after 8) and ``[group] llama3.2-3b``
    (2 agents, 2 slots, 4 requests), ``[group] zamba2-7b`` (2 agents'
-   bf16 planes, 2 slots, 4 requests), each request's first token against
+   bf16 planes, 2 slots, 4 requests), ``[group] deepseek-v2-lite-16b, 6
+   layers`` (its widths, layer 0 + 5 MoE layers, 2 agents' bf16
+   planes), each request's first token against
    the fixed-batch engine on its admitted planes and one synchronizing
    call per step, ``[exact]`` the same engines in fp32 compute with
    every token equal, and ``[load] mamba2-780m``, the load bench's twin
@@ -96,6 +109,13 @@ Phases, each printing its lines:
    Mamba2 layer and the tail layer, fp32, LoRA ``b`` drawn non-zero,
    served on the [serve] prompts (prefill logits within 1e-4, tokens
    equal) and scored (logits within 1e-4, the loss within 1e-4);
+   ``[equiv] qwen3-moe-30b-a3b`` and ``[equiv] deepseek-v2-lite-16b``:
+   their widths cut to 2 layers (deepseek: layer 0 + 1 MoE layer), fp32,
+   served on the [serve] prompts (prefill logits within 1e-4, 8 greedy
+   tokens equal; every router call's experts equal), through the
+   continuous batcher (8 greedy
+   tokens equal) and scored (logits within 1e-4, the loss within 1e-5
+   relative);
 6. a profile of a few main-path epochs of the quickstart group, of
    the fourth run's configuration and of the DDADQN n = 2 group (the
    device's busy share, the ops that take the time and the host-clock
@@ -178,6 +198,18 @@ ZAMBA_SERVE_LABEL = "[serve] zamba2-7b"
 ZAMBA_SCORE_LABEL = "[score] zamba2-7b"
 # the SSD kernel at zamba2-7b's scoring pass: the first shape with n = 64
 ZAMBA_SSD_LABEL = "zamba2-7b scoring, n = 64"
+# the MoE pair: qwen3-moe-30b-a3b (48 layers of 128 experts, top-8, GQA
+# 32 / 4) with bf16 weights (fp32 would take 122 GB), served from the
+# library; deepseek-v2-lite-16b (MLA, 2 shared + 64 routed experts,
+# top-6, a leading dense layer) with fp32 weights through the launcher
+QWEN = "qwen3-moe-30b-a3b"
+QWEN_SERVE_LABEL = "[serve] qwen3-moe-30b-a3b"
+QWEN_SCORE_LABEL = "[score] qwen3-moe-30b-a3b"
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_SERVE_ARGV = ["--arch", DEEPSEEK] + LLAMA_SERVE_ARGV[2:]
+DEEPSEEK_SERVE_LABEL = "[serve] deepseek-v2-lite-16b"
+DEEPSEEK_SCORE_LABEL = "[score] deepseek-v2-lite-16b"
+DEEPSEEK_GROUP_LAYERS = 6           # layer 0 + 5 MoE layers
 FA_TOL = dict(rtol=2e-5, atol=2e-5)    # fp32, as the Pallas kernel is held
 # the training path: the streaming trainer's launcher at mamba2-780m's
 # published widths and depth, 2 agents, share steps 4 and 8
@@ -254,10 +286,13 @@ def launch_counts():
 def kernel_layers(cfg):
     """(SSD launches, flash launches) of one cache-free pass of ``cfg``:
     one SSD launch per Mamba2 layer, one flash launch per attention
-    layer (the hybrid: per call of its shared block). A pass with a
-    cache launches the SSD kernels alone."""
+    layer (the hybrid: per call of its shared block; none for MLA, which
+    scores with the materialised softmax, as the reference does). A
+    pass with a cache launches the SSD kernels alone."""
     if cfg.family == "ssm":
         return cfg.n_layers, 0
+    if cfg.mla is not None:
+        return 0, 0
     if cfg.family == "hybrid":
         hy = cfg.hybrid
         return (hy.n_super_blocks * hy.mamba_per_block + hy.tail_mamba,
@@ -272,9 +307,22 @@ def widths(cfg):
         s = cfg.ssm
         out.append(f"{s.expand * cfg.d_model // s.head_dim} SSD heads of "
                    f"{s.head_dim}, d_state {s.d_state}, chunk {s.chunk}")
-    if cfg.family != "ssm":
+    if cfg.mla is not None:
+        m = cfg.mla
+        out.append(f"{cfg.n_heads} MLA heads, latent rank "
+                   f"{m.kv_lora_rank}, nope / rope / v dims "
+                   f"{m.qk_nope_dim} / {m.qk_rope_dim} / {m.v_dim}")
+    elif cfg.family != "ssm":
         out.append(f"{cfg.n_heads} query / {cfg.n_kv_heads} kv heads of "
-                   f"{cfg.head_dim}, d_ff {cfg.d_ff}")
+                   f"{cfg.head_dim}" + ("" if cfg.moe else
+                                        f", d_ff {cfg.d_ff}"))
+    if cfg.moe is not None:
+        e = cfg.moe
+        out.append(f"{e.n_experts} experts of {e.expert_ff}, top-{e.top_k}, "
+                   f"{e.n_shared} shared, capacity factor "
+                   f"{e.capacity_factor}")
+    if cfg.first_k_dense:
+        out.append(f"layer 0 dense, d_ff {cfg.dense_ff}")
     if cfg.hybrid is not None:
         hy = cfg.hybrid
         out.append(f"{hy.n_super_blocks} super-blocks of "
@@ -1210,6 +1258,23 @@ def flash_d112_phase(torch):
     return row
 
 
+def flash_gqa8_phase(torch):
+    """[kernel] flash_attention GQA 8, qwen3-moe-30b-a3b's attention: its
+    scoring shape (B, S, H, K, D) = (2, 4096, 32, 4, 128) in bf16 (8
+    query heads on each kv head, a ratio no earlier path runs), timed
+    beside the plain version, ``scaled_dot_product_attention`` and the
+    bound; a ragged S = 4000, a window of 512 and fp32, each within the
+    flash gates and launched twice, bitwise equal. Returns the numbers
+    of the bf16 scoring shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    path = (SCORE_B, SCORE_S, 32, 4, 128)
+    return _flash_cases(torch, [
+        ("GQA 8 qwen3-moe-30b-a3b scoring", path, None, bf16, True),
+        ("GQA 8 ragged S = 4000", (1, 4000, 32, 4, 128), None, bf16, False),
+        ("GQA 8 window 512", (1, 1100, 32, 4, 128), 512, bf16, False),
+        ("GQA 8", (1, 1100, 32, 4, 128), None, f32, False)])
+
+
 def _mean(x):
     return float(x.float().mean()) if x.numel() else float("nan")
 
@@ -1748,11 +1813,17 @@ def dqn_equivalence_phase(torch):
     check(ok, "card and CPU disagree on dqn_loss or its gradient")
 
 
+PROFILE_EPOCHS = 2      # sharing epochs under the profiler, per group
+
+
 def profile_phase(torch):
-    """Device busy share and time by op over a few main-path epochs, for
-    the quickstart group, for the fourth main-path run's configuration
-    (learned sketched relevance, int8 planes) and for the DDADQN n = 2
-    group."""
+    """Device busy share and time by op over PROFILE_EPOCHS main-path
+    epochs (each a share step at minibatch 2), for the quickstart group,
+    for the fourth main-path run's configuration (learned sketched
+    relevance, int8 planes), for the DDADQN n = 2 group and for the
+    robustness path (b); then the host-clock split of an epoch, over 3
+    epochs. The profiler's own accounting of ~40,000 kernels an epoch
+    sets this phase's time, so the window stays short."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import optim
@@ -1789,7 +1860,7 @@ def profile_phase(torch):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            gs, _ = ddal.run(gs, gen, 6)
+            gs, _ = ddal.run(gs, gen, PROFILE_EPOCHS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = []
@@ -1806,7 +1877,7 @@ def profile_phase(torch):
                 if "wavg_kernel" in r[0] or "wavg_q_kernel" in r[0]
                 or "sketch_" in r[0] or "ssd_chunk_" in r[0]]
 
-        def wall_of(fn, reps=10):
+        def wall_of(fn, reps=3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
@@ -1824,7 +1895,8 @@ def profile_phase(torch):
         epoch_s = wall_of(epoch)
         gen_s = wall_of(lambda: ddal.gen_grads(state["gs"].agent_states,
                                                gen))
-        print(f"[profile] {label}, 6 sharing epochs: wall {wall:.3f} s, "
+        print(f"[profile] {label}, {PROFILE_EPOCHS} sharing epochs: wall "
+              f"{wall:.3f} s, "
               f"device busy {busy_us / 1e3:.2f} ms "
               f"({busy_us / (wall * 1e6):.1%}), {len(kernels)} device "
               f"kernels; the port's kernels (name, calls, device us, "
@@ -1855,15 +1927,19 @@ def _llama_batch(torch, cfg, B, S, seed=0):
 
 
 def score_phase(torch, cfg, params, label=SCORE_LABEL):
-    """A scoring path: llama3.2-3b or zamba2-7b at its published widths
-    and depth (fp32 weights drawn from seed 0, bf16 compute) scores B = 2
+    """A scoring path: llama3.2-3b, zamba2-7b, qwen3-moe-30b-a3b or
+    deepseek-v2-lite-16b at its published widths and depth (weights
+    drawn from seed 0 in ``cfg.param_dtype``, bf16 compute) scores B = 2
     rows of S = 4096 ids through ``get_model(cfg).forward(..., None)``
     and ``.loss`` under ``torch.no_grad()``: one warm-up pass, then, with
-    the launch counts zeroed, one forward (logits checked) and
-    SCORE_PASSES timed loss passes; flash launches once per attention
-    layer (zamba2: per call of the shared block) and SSD once per Mamba2
-    layer in every pass. Returns {kernel: {path: launches}}."""
+    the launch counts zeroed, one forward (logits checked, and its
+    cross-entropy: the loss less it is the MoE layers' auxiliary term)
+    and SCORE_PASSES timed loss passes; flash launches once per
+    attention layer (zamba2: per call of the shared block; MLA: none)
+    and SSD once per Mamba2 layer in every pass. Returns {kernel: {path:
+    launches}}."""
     from repro_torch.models import get_model
+    from repro_torch.models.common import cross_entropy
 
     model = get_model(cfg)
     batch = _llama_batch(torch, cfg, SCORE_B, SCORE_S)
@@ -1876,6 +1952,7 @@ def score_phase(torch, cfg, params, label=SCORE_LABEL):
         torch.cuda.synchronize()
         finite = bool(torch.isfinite(logits).all())
         shape = tuple(logits.shape)
+        ce = float(cross_entropy(logits, batch["labels"]))
         del logits
         times, losses = [], []
         for _ in range(SCORE_PASSES):
@@ -1894,12 +1971,14 @@ def score_phase(torch, cfg, params, label=SCORE_LABEL):
     # d_model·0.02² through a tied embedding, ~0.77 through a drawn head
     # (a truncated normal of fan-in scale)
     var = cfg.d_model * 4e-4 if cfg.tie_embeddings else 0.774
+    aux = losses[0] - ce
     print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{widths(cfg)}, vocab {cfg.vocab_size}, fp32 "
+          f"{widths(cfg)}, vocab {cfg.vocab_size}, {cfg.param_dtype} "
           f"weights, {cfg.compute_dtype} compute; {SCORE_B} x {SCORE_S} "
           f"tokens; loss passes ms " + ", ".join(f"{t:.2f}" for t in ms)
           + f" (best {best:.2f}: {tokens / best * 1e3:,.0f} tokens/s); "
           f"loss " + ", ".join(f"{x:.5f}" for x in losses)
+          + f" = cross-entropy {ce:.5f} + aux {aux:.5f}"
           + f" (ln V = {math.log(cfg.vocab_size):.5f}, ln V + var/2 = "
           f"{math.log(cfg.vocab_size) + var / 2:.5f}); logits "
           f"{shape} "
@@ -1917,12 +1996,18 @@ def score_phase(torch, cfg, params, label=SCORE_LABEL):
           and shape == (SCORE_B, SCORE_S, cfg.vocab_size),
           f"{label}: non-finite or misshapen logits, or a cache")
     # random weights: after the final norm the logits have variance
-    # d_model·0.02² (1.23), so the loss sits near ln V + 0.61 = 12.38
+    # d_model·0.02² (1.23), so the cross-entropy sits near ln V + 0.61 =
+    # 12.38; the MoE aux term is positive (about 0.01·k + 0.001·(ln
+    # Ne)² a layer with balanced routing), 0 for a dense model
     ln_v = math.log(cfg.vocab_size)
-    check(all(math.isfinite(x) and ln_v - 0.5 < x < ln_v + 1.5
-              for x in losses) and max(losses) - min(losses) < 1e-3,
-          f"{label}: loss {losses} not within (ln V − 0.5, ln V + "
-          f"1.5) or not repeatable")
+    check(all(math.isfinite(x) for x in losses)
+          and ln_v - 0.5 < ce < ln_v + 1.5
+          and max(losses) - min(losses) < 1e-3
+          and (0 < aux < 1.0 * cfg.n_layers if cfg.moe is not None
+               else abs(aux) < 1e-3),
+          f"{label}: loss {losses} (cross-entropy {ce}, aux {aux}) not "
+          f"within (ln V − 0.5, ln V + 1.5) plus its aux, or not "
+          f"repeatable")
     return {name: {label: launched[name]} for name, n in want.items() if n}
 
 
@@ -1932,23 +2017,35 @@ def serve_phase(torch, argv, label):
     requests of up to 1023 prompt tokens, 2 slots, 32 greedy tokens),
     with every kernel's launch count zeroed just before the call and
     read just after: mamba2-780m's and zamba2-7b's prefill runs the SSD
-    kernel in every Mamba2 layer, llama3.2-3b's none, and neither runs
-    the flash kernel (prefill passes a cache, as in the reference).
+    kernel in every Mamba2 layer, llama3.2-3b's and deepseek-v2-lite-16b's
+    none, and none runs the flash kernel (prefill passes a cache, as in
+    the reference). With MLA (deepseek), every prefill into the wider
+    cache and every decode step takes the absorbed branch: the
+    expanded one's ``softmax_attention`` is counted and must not run.
     Returns ({kernel: {path: launches}}, prompts)."""
     import contextlib
     import io
 
     from repro_torch.configs import get_arch_config
     from repro_torch.launch import serve
+    from repro_torch.models import attention
 
     cfg = get_arch_config(argv[argv.index("--arch") + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
+    expanded = []
+    plain_softmax = attention.softmax_attention
+    if cfg.mla is not None:
+        attention.softmax_attention = (
+            lambda *a, **kw: expanded.append(1) or plain_softmax(*a, **kw))
     reset_launches()
-    with contextlib.redirect_stdout(out):
-        report = serve.main(argv)
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(out):
+            report = serve.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        attention.softmax_attention = plain_softmax
     launched = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     # the launcher's per-slot lines print ~1000-id prompts: summarise
@@ -1976,6 +2073,12 @@ def serve_phase(torch, argv, label):
     check(launched == want, f"{label}: launches {launched} != {want} "
                             f"({kernel_layers(cfg)[0]} SSD layers x {calls} "
                             f"prefills, no flash: prefill passes a cache)")
+    if cfg.mla is not None:
+        print(f"{label}: MLA's expanded branch ran {len(expanded)} times "
+              f"(every prefill, S <= {max(lens)} queries into 1056 slots, "
+              f"and every decode step take the absorbed branch)")
+        check(not expanded, f"{label}: MLA took the expanded branch "
+                            f"{len(expanded)} times")
     outs = report["outputs"]
     check(calls == 2 and len(outs) == 2
           and all(o.shape == (2, 32) and o.dtype == torch.int32
@@ -1988,6 +2091,99 @@ def serve_phase(torch, argv, label):
           f"{label}: non-finite or misshapen prefill logits")
     return ({name: {label: launched[name]} for name, n in want.items() if n},
             report["prompts"])
+
+
+def moe_serve_phase(torch, cfg, params, label=QWEN_SERVE_LABEL):
+    """[serve] qwen3-moe-30b-a3b at its published widths and depth with
+    bf16 weights (fp32 ones would take 122 GB), through the library's
+    entry points, as the launcher has no dtype flag: the [serve] prompts
+    (the launcher's draw, seed 0, prompt-len 1024: 871, 596, 1001, 802
+    ids) through ``ServeEngine`` in batches of 2 (prefill, then 32
+    greedy tokens, the decode under
+    ``torch.cuda.set_sync_debug_mode("error")`` with host lengths: a
+    synchronizing call raises), then through the ``ContinuousBatcher``
+    (2 slots, prompt_pad 16; ``[equiv] qwen3-moe-30b-a3b`` holds its
+    tokens against the CPU path). No flash launch (prefill passes a
+    cache)."""
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.serving import (ContinuousBatcher, ServeConfig,
+                                     ServeEngine, serve_batches)
+
+    prompts = draw_prompts(cfg.vocab_size, 4, 1024, 0)
+    serve = ServeConfig(max_len=1056, max_new_tokens=32)
+    engine = ServeEngine(cfg, params, serve)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    prefill_ms, decode_s, outs, errors = [], [], [], []
+    for toks, lens in serve_batches(prompts, 2, device="cpu"):
+        toks = toks.to("cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(toks, lens)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = engine.decode(logits, cache, lens)
+        except RuntimeError as exc:
+            errors.append(str(exc).splitlines()[0])
+            continue
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t1)
+        prefill_ms.append((t1 - t0) * 1e3)
+        finite = bool(torch.isfinite(logits.float()).all())
+        outs.append((out.cpu(), finite, tuple(logits.shape)))
+    check(not errors, f"{label}: decode synchronized with the card: "
+                      f"{errors}")
+    launched_batch = launch_counts()
+    peak_batch = torch.cuda.max_memory_allocated()
+    decoded = sum(o.shape[0] * (o.shape[1] - 1) for o, _, _ in outs)
+    batcher = ContinuousBatcher(cfg, params, serve, batch_size=2,
+                                prompt_pad=16)
+    reset_launches()
+    with _StepClock() as clock:
+        t0 = time.perf_counter()
+        results = batcher.run(prompts)
+        secs = time.perf_counter() - t0
+    launched_cont = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{widths(cfg)}, vocab {cfg.vocab_size}, {cfg.param_dtype} "
+          f"weights, {cfg.compute_dtype} compute; ServeEngine: 4 requests, "
+          f"prompt lengths {[len(p) for p in prompts]}, 2 prefill calls; "
+          f"prefill ms per batch " + ", ".join(f"{ms:.2f}" for ms in
+                                              prefill_ms)
+          + f" (the first includes the card's warm-up); decode "
+          f"{decoded / sum(decode_s):.1f} tok/s over {sum(decode_s):.3f} s "
+          f"under set_sync_debug_mode('error'); peak memory "
+          f"{peak_batch / 2 ** 30:.3f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launched_batch.items()))
+    for (out, _, _), (_, lens) in zip(outs, serve_batches(prompts, 2,
+                                                          device="cpu")):
+        for row in range(out.shape[0]):
+            print(f"[serve]   prompt of {int(lens[row])} ids -> "
+                  f"{out[row].tolist()}")
+    print(f"{label}: ContinuousBatcher, 2 slots, prompt_pad 16, in "
+          f"{secs:.2f} s; decode {clock.summary()}; peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches "
+          + ", ".join(f"{k} {v}" for k, v in launched_cont.items()))
+    none = {name: 0 for name in KERNELS}
+    check(launched_batch == none and launched_cont == none,
+          f"{label}: launches {launched_batch} / {launched_cont}, want none "
+          f"(prefill passes a cache)")
+    check(len(outs) == 2 and all(
+        o.shape == (2, 32) and bool(((o >= 0) & (o < cfg.vocab_size)).all())
+        and fin and shape == (2, cfg.vocab_size) for o, fin, shape in outs),
+        f"{label}: not 4 requests x 32 tokens in the vocabulary, or "
+        f"non-finite prefill logits")
+    check(sorted(results) == list(range(4))
+          and all(len(v) == 32 and all(0 <= t < cfg.vocab_size for t in v)
+                  for v in results.values()),
+          f"{label}: the ContinuousBatcher did not complete every request "
+          f"with 32 tokens in the vocabulary")
 
 
 def train_phase(torch):
@@ -2441,31 +2637,38 @@ def sketch_leaf_phase(torch, p_big):
                 slice_plain_ms=plain_s, slice_lib_ms=lib_ms)
 
 
-def _cut_to_two_layers(torch, arch):
-    """``arch`` at its published widths cut to 2 layers with fp32
-    compute, and its weights drawn on the host from seed 0."""
-    from repro_torch.configs import get_arch_config
+def _host_init(torch, cfg, seed):
+    """``cfg``'s weights drawn on the card from ``seed`` (a host draw of
+    a published width takes seconds a layer) and copied to the host."""
+    from repro_torch.common.pytree import tree_map
     from repro_torch.models import get_model
 
+    params = get_model(cfg).init(
+        cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    return tree_map(lambda t: t.cpu(), params)
+
+
+def _cut_to_two_layers(torch, arch):
+    """``arch`` at its published widths cut to 2 layers with fp32
+    compute, and its weights from seed 0 on the host."""
+    from repro_torch.configs import get_arch_config
+
     cfg = get_arch_config(arch).with_(n_layers=2, compute_dtype="float32")
-    return cfg, get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                    "cpu")
+    return cfg, _host_init(torch, cfg, 0)
 
 
 def _cut_hybrid(torch):
     """zamba2-7b at its published widths cut to one super-block of one
-    Mamba2 layer and the tail layer, fp32 compute, its weights drawn on
-    the host from seed 0 and every LoRA ``b`` drawn non-zero (the
-    init's zeros would leave the merge untested)."""
+    Mamba2 layer and the tail layer, fp32 compute, its weights from seed
+    0 on the host and every LoRA ``b`` drawn non-zero (the init's zeros
+    would leave the merge untested)."""
     from repro_torch.configs import HybridConfig, get_arch_config
-    from repro_torch.models import get_model
 
     cfg = get_arch_config(ZAMBA).with_(
         n_layers=3, compute_dtype="float32",
         hybrid=HybridConfig(n_super_blocks=1, mamba_per_block=1,
                             tail_mamba=1, lora_rank=128))
-    params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0),
-                                 "cpu")
+    params = _host_init(torch, cfg, 0)
     gen = torch.Generator().manual_seed(1)
     for fac in params["lora"].values():
         fac["b"] = torch.randn(fac["b"].shape, generator=gen) * 0.05
@@ -2473,20 +2676,20 @@ def _cut_hybrid(torch):
 
 
 def equiv_serve_phase(torch, arch, prompts, cut=None,
-                      depth="2 layers"):
+                      depth="2 layers", new_tokens=32):
     """The card against the port's CPU path on the [serve] prompts, at
     ``arch``'s widths cut to ``depth`` with fp32 compute, on the same
-    weights (drawn on the host, copied to the card): prefill logits
+    weights (``_host_init``): prefill logits
     within rtol = atol = 1e-4 (matmuls and, for mamba2-780m and
     zamba2-7b, the SSD kernel sum in another fp32 order than the CPU),
-    the 32 greedy tokens of every request equal; the SSD kernel
+    the ``new_tokens`` greedy tokens of every request equal; the SSD kernel
     launched once per Mamba2 layer per prefill on the card, no flash
     kernel (prefill passes a cache), none on the CPU."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.serving import ServeConfig, ServeEngine, serve_batches
 
     cfg, params = cut or _cut_to_two_layers(torch, arch)
-    serve = ServeConfig(max_len=1056, max_new_tokens=32)
+    serve = ServeConfig(max_len=1056, max_new_tokens=new_tokens)
     results, launched, secs = {}, {}, {}
     for dev in ("cpu", "cuda"):
         engine = ServeEngine(cfg, tree_map(lambda t: t.to(dev), params),
@@ -2513,7 +2716,8 @@ def equiv_serve_phase(torch, arch, prompts, cut=None,
               zip(results["cuda"], results["cpu"])) and same
           and launched == {"cpu": want, "cuda": want_cuda})
     print(f"[equiv] serve {arch} widths, {depth}, fp32, {len(prompts)} "
-          f"requests x 32 greedy tokens, card vs CPU: prefill logits max abs "
+          f"requests x {new_tokens} greedy tokens, card vs CPU: prefill "
+          f"logits max abs "
           f"{max(errs):.3e} (max rel {max(rels):.3e}; rtol=atol=1e-4), "
           f"greedy tokens equal {same}, card launches "
           + ", ".join(f"{k} {v}" for k, v in launched["cuda"].items())
@@ -2961,7 +3165,7 @@ def _product_probe(torch, cfg, planes, slots):
 
 
 def group_phase(torch, arch, n_agents, slots, n_requests,
-                param_dtype="float32"):
+                param_dtype="float32", n_layers=None):
     """[group] ``arch`` at its published widths and depth: ``n_agents``
     agents' planes in ``param_dtype`` (agent a from seed a; zamba2-7b
     in bf16, where two agents' fp32 planes and a second published set
@@ -2975,7 +3179,11 @@ def group_phase(torch, arch, n_agents, slots, n_requests,
     ``[exact]`` holds every token in fp32); requests admitted after the
     swap carry version 1;
     SSD launches one per Mamba2 layer per admission (48 for
-    mamba2-780m, 65 for zamba2-7b), none for llama3.2-3b. Then one step
+    mamba2-780m, 65 for zamba2-7b), none for llama3.2-3b and
+    deepseek-v2-lite-16b (its depth cut to ``n_layers``: layer 0 and 5
+    MoE layers, as two full agents' bf16 planes and a publish would need
+    ~94 GB; every MLA, router and expert weight gathered per slot, and
+    ``layer0``'s planes without a depth index). Then one step
     with every slot live and nothing queued, under
     ``torch.cuda.set_sync_debug_mode("warn")``: exactly one
     synchronizing call (the step's device→host copy)."""
@@ -2987,8 +3195,10 @@ def group_phase(torch, arch, n_agents, slots, n_requests,
     from repro_torch.serving import (GroupRequest, GroupServeEngine,
                                      ParamStore, ServeConfig, ServeMetrics)
 
-    label = f"[group] {arch}"
+    label = f"[group] {arch}" + (f", {n_layers} layers" if n_layers else "")
     cfg = get_arch_config(arch).with_(param_dtype=param_dtype)
+    if n_layers:
+        cfg = cfg.with_(n_layers=n_layers)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3199,21 +3409,19 @@ def _record_logits(fn, sink):
 def equiv_slots_phase(torch, arch):
     """[equiv] continuous and group at ``arch``'s widths cut to 2 layers
     with fp32 compute, card against the port's CPU path on the same
-    weights (2 agents for the group, the second from seed 1): 4 requests
+    weights (drawn on the card, copied to the host; 2 agents for the
+    group, the second from seed 1): 4 requests
     (the launcher's draw, seed 1, prompt-len 64) through 2 slots, 8 greedy
     tokens; every decode step's logits within rtol = atol = 1e-4 and the
     tokens equal."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch_config
     from repro_torch.launch.serve import draw_prompts
-    from repro_torch.models import get_model
     from repro_torch.serving import (ContinuousBatcher, GroupRequest,
                                      GroupServeEngine, ServeConfig)
 
     cfg = get_arch_config(arch).with_(n_layers=2, compute_dtype="float32")
-    model = get_model(cfg)
-    p0, p1 = (model.init(cfg, torch.Generator().manual_seed(s), "cpu")
-              for s in (0, 1))
+    p0, p1 = (_host_init(torch, cfg, s) for s in (0, 1))
     planes = tree_map(lambda a, b: torch.stack([a, b]), p0, p1)
     prompts = draw_prompts(cfg.vocab_size, 4, 64, 1)
     serve = ServeConfig(max_len=128, max_new_tokens=8)
@@ -3247,6 +3455,75 @@ def equiv_slots_phase(torch, arch):
               f"{results['cuda'] == results['cpu']} -> "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"card and CPU {engine_name} engines disagree: {arch}")
+
+
+def equiv_moe_phase(torch, arch):
+    """[equiv] ``arch`` (qwen3-moe-30b-a3b or deepseek-v2-lite-16b) at its
+    published widths cut to 2 layers (deepseek: layer 0 and one MoE
+    layer), fp32, its weights drawn on the card from seed 0 and copied
+    to the host: the card against the port's CPU path on the [serve]
+    prompts (the launcher's draw over its vocabulary: 871, 596, 1001 and
+    802 ids). The fixed-batch engine's prefill logits within rtol = atol
+    = 1e-4 and 8 greedy tokens equal (``equiv_serve_phase``; the CPU
+    side reads every expert at each decode step), the
+    experts every router call picks equal on both sides, in the same
+    order, the ContinuousBatcher's
+    8 greedy tokens of every request equal, and the cache-free loss
+    within 1e-5 relative with its logits within 1e-4
+    (``equiv_score_phase``); flash launches exact (qwen3-moe: one per
+    layer in each cache-free pass on the card; deepseek: none, MLA)."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.serve import draw_prompts
+    from repro_torch.models import moe
+    from repro_torch.serving import ContinuousBatcher, ServeConfig
+
+    cfg = get_arch_config(arch).with_(n_layers=2, compute_dtype="float32")
+    prompts = draw_prompts(cfg.vocab_size, 4, 1024, 0)
+    params = _host_init(torch, cfg, 0)
+    depth = "layer 0 + 1 MoE layer" if cfg.first_k_dense else "2 layers"
+    routes = {"cpu": [], "cuda": []}
+    plain_top_k = moe.top_k
+
+    def recorded(probs, k):
+        vals, idx = plain_top_k(probs, k)
+        routes[probs.device.type].append(idx.cpu())
+        return vals, idx
+
+    moe.top_k = recorded
+    try:
+        equiv_serve_phase(torch, arch, prompts, (cfg, params), depth,
+                          new_tokens=8)
+    finally:
+        moe.top_k = plain_top_k
+    calls = len(routes["cuda"])
+    differ = sum(int((g != w).any(-1).sum())
+                 for g, w in zip(routes["cuda"], routes["cpu"]))
+    tokens = sum(int(w[..., 0].numel()) for w in routes["cpu"])
+    ok = calls == len(routes["cpu"]) > 0 and differ == 0
+    print(f"[equiv] experts {arch}: {calls} router calls (prefills and "
+          f"decode steps) over {tokens} token rows, top-{cfg.moe.top_k} of "
+          f"{cfg.moe.n_experts}: expert ids differ at {differ} tokens -> "
+          + ("ok" if ok else "FAIL"))
+    check(ok, f"card and CPU route tokens to other experts: {arch}")
+    serve = ServeConfig(max_len=1056, max_new_tokens=8)
+    results, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        results[dev] = ContinuousBatcher(
+            cfg, tree_map(lambda t: t.to(dev), params), serve, batch_size=2,
+            prompt_pad=16).run(prompts)
+        secs[dev] = time.perf_counter() - t0
+    same = results["cuda"] == results["cpu"]
+    print(f"[equiv] continuous {arch} widths, {depth}, fp32, "
+          f"{len(prompts)} requests x 8 greedy tokens through 2 slots "
+          f"(prompt_pad 16: widths of up to 1024), card vs CPU: tokens "
+          f"equal {same}; CPU {secs['cpu']:.1f} s, card {secs['cuda']:.1f} s "
+          f"-> {'ok' if same else 'FAIL'}")
+    check(same, f"card and CPU continuous batchers disagree: {arch}")
+    equiv_score_phase(torch, (cfg, params), arch, depth)
+    print(f"[equiv] {arch}: card against CPU at its widths, {depth}, fp32: "
+          f"serve, experts, continuous and score ok")
 
 
 def nosync_decode_phase(torch, cfg, params):
@@ -3323,6 +3600,7 @@ def main() -> int:
                                                     instances["ssd_scan"])
         table["flash_attention"] = flash_kernel_phase(torch)
         table["flash_attention"]["zamba2"] = flash_d112_phase(torch)
+        table["flash_attention"]["qwen3_moe"] = flash_gqa8_phase(torch)
         lap("kernels")
         launches = main_path_phase(torch)
         lap("main paths")
@@ -3362,10 +3640,39 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         lap("zamba2")
+        # the MoE pair, one model on the card at a time: qwen3-moe's bf16
+        # weights take 56.9 GiB, deepseek's fp32 ones 58.5 GiB
+        qwen = get_arch_config(QWEN).with_(param_dtype="bfloat16")
+        params = get_model(qwen).init(
+            qwen, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        moe_serve_phase(torch, qwen, params)
+        qscore_launches = score_phase(torch, qwen, params, QWEN_SCORE_LABEL)
+        profile_score_phase(torch, qwen, params,
+                            {"flash": instances["flash_attention"]},
+                            QWEN_SCORE_LABEL)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("qwen3-moe")
+        dserve_launches, _ = serve_phase(torch, DEEPSEEK_SERVE_ARGV,
+                                         DEEPSEEK_SERVE_LABEL)
+        gc.collect()
+        torch.cuda.empty_cache()
+        deep = get_arch_config(DEEPSEEK)
+        params = get_model(deep).init(
+            deep, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        dscore_launches = score_phase(torch, deep, params,
+                                      DEEPSEEK_SCORE_LABEL)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("deepseek")
         slot_launches = [continuous_phase(torch),
                          group_phase(torch, SLOT_ARCH, 4, 4, 16),
                          group_phase(torch, LLAMA, 2, 2, 4),
                          group_phase(torch, ZAMBA, 2, 2, 4, "bfloat16"),
+                         group_phase(torch, DEEPSEEK, 2, 2, 4, "bfloat16",
+                                     DEEPSEEK_GROUP_LAYERS),
                          load_phase(torch)]
         exact_slots_phase(torch, SLOT_ARCH, 4)
         exact_slots_phase(torch, LLAMA, 2)
@@ -3380,7 +3687,8 @@ def main() -> int:
             torch, largest_leaf)
         lap("sketch at the largest leaf")
         for paths in (serve_launches, llama_launches, score_launches,
-                      zserve_launches, zscore_launches, *slot_launches,
+                      zserve_launches, zscore_launches, qscore_launches,
+                      dserve_launches, dscore_launches, *slot_launches,
                       train_launches, llama_train_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
@@ -3402,6 +3710,8 @@ def main() -> int:
         del cut
         print(f"[equiv] {ZAMBA}: card against CPU at its widths, {depth}, "
               f"fp32, LoRA b drawn: serve and score ok")
+        for arch in (QWEN, DEEPSEEK):
+            equiv_moe_phase(torch, arch)
         lap("serving equivalence")
         profile_phase(torch)
         profile_serve_phase(torch, prompts, instances["ssd_scan"])
@@ -3418,8 +3728,9 @@ def main() -> int:
     kernels = [dict(name=name, **{k: table[name][k] for k in (
         "route", "source", "replaces", "launches", "launches_by_path",
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}, **({"zamba2": table[name]["zamba2"]}
-                           if "zamba2" in table[name] else {}))
+        "library_ms")}, **{extra: table[name][extra]
+                           for extra in ("zamba2", "qwen3_moe")
+                           if extra in table[name]})
         for name in KERNELS]
     check_finite = all(math.isfinite(k["ms"]) for k in kernels)
     if not check_finite:

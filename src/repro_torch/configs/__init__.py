@@ -5,13 +5,15 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import (ArchConfig, HybridConfig,  # noqa: F401
-                                      SSMConfig)
+                                      MLAConfig, MoEConfig, SSMConfig)
 
 _ARCH_MODULES = {
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "granite-3-8b": "granite_3_8b",
     "llama3.2-3b": "llama3_2_3b",
     "mamba2-780m": "mamba2_780m",
     "qwen2-7b": "qwen2_7b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "yi-34b": "yi_34b",
     "zamba2-7b": "zamba2_7b",
 }

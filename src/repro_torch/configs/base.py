@@ -1,6 +1,7 @@
 """Configuration dataclasses — the port's copies of
 ``repro.configs.base.GroupSpec`` (DDAL group configuration, paper §5),
-``ArchConfig``, ``SSMConfig`` and ``HybridConfig``.
+``ArchConfig``, ``MoEConfig``, ``MLAConfig``, ``SSMConfig`` and
+``HybridConfig``.
 
 The fields, defaults and validation are the reference's, so a spec
 that the reference rejects is rejected here with the same
@@ -12,8 +13,9 @@ never silently ignored: only the multi-device settings remain
 settings construct; which combiner, delay and estimator a trainer
 accepts is checked where the reference checks it, in
 ``repro_torch.core.exchange.build_exchange``. ``ArchConfig`` and
-``SSMConfig`` (the model zoo) are copied for the SSM, dense and hybrid
-families only; the other families raise :class:`NotPortedError`.
+its nested configs (the model zoo) are copied for the SSM, dense, MoE
+and hybrid families; the VLM and audio families raise
+:class:`NotPortedError`.
 ``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's.
 """
 from __future__ import annotations
@@ -274,14 +276,51 @@ class GroupSpec:
 
 
 # ---------------------------------------------------------------------
-# Model zoo: the SSM family (Mamba2), the dense transformer family and
-# the hybrid (Mamba2 super-blocks around a shared attention block)
+# Model zoo: the SSM family (Mamba2), the dense transformer family, the
+# MoE transformers (routed experts, optionally Multi-head Latent
+# Attention and leading dense layers) and the hybrid (Mamba2
+# super-blocks around a shared attention block)
 # ---------------------------------------------------------------------
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-PORTED_FAMILIES = ("ssm", "dense", "hybrid")
+PORTED_FAMILIES = ("ssm", "dense", "moe", "hybrid")
 SSD_IMPLS = ("xla", "pallas_interpret")
 ATTENTION_IMPLS = ("xla", "pallas", "pallas_interpret")
 ROPE_MODES = ("standard", "mrope", "none")
+MOE_DISPATCHES = ("auto", "dense", "expert_parallel")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Routed experts — the reference's fields and defaults: top-k of
+    ``n_experts`` SwiGLU experts of width ``expert_ff`` with normalised
+    gates, ``n_shared`` always-on experts fused into one SwiGLU of
+    width ``n_shared · expert_ff``, a capacity of ``capacity_factor ·
+    S · top_k / n_experts`` tokens an expert (the rest dropped), and the
+    load-balance (``aux_loss``) and router z-loss (``router_zloss``)
+    weights."""
+    n_experts: int
+    top_k: int
+    expert_ff: int
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_zloss: float = 1e-3
+    aux_loss: float = 1e-2
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2) — the reference's
+    fields and defaults: keys and values re-expanded from a rank
+    ``kv_lora_rank`` latent plus one shared rotary key of
+    ``qk_rope_dim``; queries of ``qk_nope_dim + qk_rope_dim`` and values
+    of ``v_dim`` a head. ``q_lora_rank`` is kept for the config's sake:
+    the reference reads it nowhere (V2-Lite does not compress
+    queries)."""
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    q_lora_rank: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -310,16 +349,29 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     """The port's copy of ``repro.configs.base.ArchConfig``, cut to the
-    fields the SSM, dense and hybrid families read (``mrope_sections``,
-    the modality fields, ``first_k_dense``, ``remat``,
-    ``unroll_layers``, ``moe_dispatch``, ``mla_absorb`` and
-    ``max_position`` are not copied). ``moe``, ``mla`` and
-    ``cross_attention`` are kept so that a config asking for them is
-    refused: set, they raise :class:`NotPortedError`, as do
+    fields the SSM, dense, MoE and hybrid families read
+    (``mrope_sections``, the modality fields, ``remat``,
+    ``unroll_layers`` and ``max_position`` are not copied).
+    ``cross_attention`` is kept so that a config asking for it is
+    refused: set, it raises :class:`NotPortedError`, as do
     ``rope_mode="mrope"`` and a family outside ``PORTED_FAMILIES``; an
-    unknown family, ``rope_mode``, ``ssd_impl``, ``attention_impl`` or
-    dtype raises ``ValueError``, and so does a hybrid config without
-    both ``ssm`` and ``hybrid``.
+    unknown family, ``rope_mode``, ``moe_dispatch``, ``ssd_impl``,
+    ``attention_impl`` or dtype raises ``ValueError``, and so do a
+    hybrid config without both ``ssm`` and ``hybrid``, a ``moe`` family
+    without ``moe``, and ``moe``, ``mla`` or ``first_k_dense`` on a
+    family that is not a transformer.
+
+    ``moe`` makes every stacked layer's feed-forward a routed
+    ``MoEConfig`` block; ``mla`` makes every layer's attention
+    Multi-head Latent Attention; the first ``first_k_dense`` layers (0
+    or 1, as in the reference) keep a dense SwiGLU of ``dense_ff`` and
+    run before the stack (``params["layer0"]``). ``moe_dispatch``
+    takes the reference's values; with no device mesh the reference
+    dispatches dense whatever it says, and so does the port, which runs
+    on one device (expert parallelism waits for Slice E). ``mla_absorb``
+    scores a query against the cached latent directly (the reference's
+    weight absorption) whenever a cache is given with more slots than
+    the pass has queries.
 
     ``ssd_impl`` and ``attention_impl`` are validated against the
     reference's values and decide one thing: a pass that autograd
@@ -338,9 +390,11 @@ class ArchConfig:
     inputs (the plain SSD is the reference's einsum form; the plain
     attention masks by index and scores in fp32, which by position and
     at ``attention_scores_dtype="float32"`` is the reference's
-    ``"xla"`` branch). ``attention_scores_dtype`` applies to the
-    attention over a KV cache. The kernel wrappers still refuse inputs
-    that require grad.
+    ``"xla"`` branch). MLA never reaches the flash kernel, as in the
+    reference (its query and value widths differ): it scores with the
+    materialised softmax attention. ``attention_scores_dtype`` applies
+    to the attention over a KV cache and to MLA's expanded branch. The
+    kernel wrappers still refuse inputs that require grad.
     """
     name: str
     family: str
@@ -357,13 +411,17 @@ class ArchConfig:
     sliding_window: Optional[int] = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
-    moe: Optional[object] = None        # unported: must stay None
-    mla: Optional[object] = None        # unported: must stay None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    first_k_dense: int = 0              # deepseek: leading dense layers
+    dense_ff: int = 0                   # d_ff of those dense layers
     cross_attention: bool = False       # unported: must stay False
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    moe_dispatch: str = "auto"          # auto | dense | expert_parallel
+    mla_absorb: bool = True             # MLA weight absorption
     attention_scores_dtype: str = "float32"
     attention_impl: str = "xla"
     ssd_impl: str = "xla"
@@ -377,18 +435,38 @@ class ArchConfig:
             raise NotPortedError(
                 f"ArchConfig.family={self.family!r} is not ported to "
                 f"repro_torch yet; the port has {PORTED_FAMILIES}")
-        for field in ("moe", "mla", "cross_attention"):
-            if getattr(self, field):
-                raise NotPortedError(
-                    f"ArchConfig.{field}={getattr(self, field)!r} is not "
-                    f"ported to repro_torch yet")
+        if self.cross_attention:
+            raise NotPortedError("ArchConfig.cross_attention=True is not "
+                                 "ported to repro_torch yet")
         if self.family == "ssm" and self.ssm is None:
             raise ValueError("an ssm-family ArchConfig needs ssm=SSMConfig")
         if self.family == "hybrid" and (self.ssm is None
                                         or self.hybrid is None):
             raise ValueError("a hybrid ArchConfig needs ssm=SSMConfig and "
                              "hybrid=HybridConfig")
-        if self.family in ("dense", "hybrid") and not (
+        if self.family == "moe" and self.moe is None:
+            raise ValueError("a moe ArchConfig needs moe=MoEConfig")
+        if self.family in ("ssm", "hybrid") and (
+                self.moe is not None or self.mla is not None
+                or self.first_k_dense):
+            raise ValueError(
+                f"moe, mla and first_k_dense shape a transformer's layers; "
+                f"a {self.family} ArchConfig has none")
+        if self.first_k_dense not in (0, 1) or (
+                self.first_k_dense and (self.dense_ff < 1
+                                        or self.n_layers < 2)):
+            raise ValueError(
+                f"first_k_dense must be 0 or 1 (one leading dense layer "
+                f"of dense_ff > 0 before the stack), got first_k_dense="
+                f"{self.first_k_dense}, dense_ff={self.dense_ff}, "
+                f"n_layers={self.n_layers}")
+        if self.mla is not None and self.mla.qk_rope_dim % 2:
+            raise ValueError(f"MLA's qk_rope_dim must be even, got "
+                             f"{self.mla.qk_rope_dim}")
+        if self.moe_dispatch not in MOE_DISPATCHES:
+            raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}; "
+                             f"expected one of {MOE_DISPATCHES}")
+        if self.family in ("dense", "moe", "hybrid") and not (
                 self.n_heads >= 1 and self.n_kv_heads >= 1
                 and self.n_heads % self.n_kv_heads == 0
                 and self.head_dim >= 2 and self.head_dim % 2 == 0):
@@ -427,9 +505,11 @@ class ArchConfig:
         """Smoke-test variant, the reference's numbers: 2 layers,
         d_model ≤ 256, vocab ≤ 512, fp32; ≤ 4 heads of 32 with the kv
         heads cut to divide them, d_ff ≤ 512, a sliding window of 16
-        where there is one; ssm d_state 16, head_dim 16, chunk 32; a
-        hybrid gets 3 layers: one super-block of one Mamba2 layer, one
-        tail layer, LoRA rank 8."""
+        where there is one; 4 experts of width 128, top-k ≤ 2, ≤ 1
+        shared expert; MLA rank 64 with nope / rope / v dims 32 / 16 /
+        32; a leading dense layer of width 128; ssm d_state 16, head_dim
+        16, chunk 32; a hybrid gets 3 layers: one super-block of one
+        Mamba2 layer, one tail layer, LoRA rank 8."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
@@ -440,6 +520,15 @@ class ArchConfig:
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512), param_dtype="float32",
             compute_dtype="float32")
+        if self.moe is not None:
+            kw["moe"] = replace(self.moe, n_experts=4,
+                                top_k=min(self.moe.top_k, 2), expert_ff=128,
+                                n_shared=min(self.moe.n_shared, 1))
+        if self.mla is not None:
+            kw["mla"] = replace(self.mla, kv_lora_rank=64, qk_nope_dim=32,
+                                qk_rope_dim=16, v_dim=32)
+        if self.first_k_dense:
+            kw["dense_ff"] = 128
         if self.ssm is not None:
             kw["ssm"] = replace(self.ssm, d_state=16, head_dim=16, chunk=32)
         if self.hybrid is not None:

@@ -318,45 +318,63 @@ def ssm_state_to_numpy(state) -> dict:
 
 
 # ---------------------------------------------------------------------
-# the dense transformer (llama): params and KV caches
+# the transformers (llama, qwen3-moe, deepseek): params and KV caches
 # ---------------------------------------------------------------------
 KV_KEYS = ("k", "v", "pos")
+MLA_KEYS = ("ckv", "k_rope", "pos")
+_LAYER_KEYS = ({"ln1", "ln2", "attn", "mlp"}, {"ln1", "ln2", "attn", "moe"})
 
 
 def transformer_params(params, device="cpu") -> dict:
-    """The reference's dense-transformer params
-    (``repro.models.transformer``: numpy leaves, the layers' leaves
-    stacked on axis 0) → the port's, which keep the same pytree and
-    dtypes."""
+    """The reference's transformer params (``repro.models.transformer``:
+    numpy leaves, the layers' leaves stacked on axis 0; dense or MoE
+    feed-forwards, GQA or MLA attention, and DeepSeek's unstacked
+    ``layer0``) → the port's, which keep the same pytree and dtypes."""
     want = {"embed", "final_norm", "layers"}
     if (not want <= set(params)
-            or set(params["layers"]) != {"ln1", "ln2", "attn", "mlp"}):
-        raise ValueError(f"not a dense-transformer param tree: keys "
+            or set(params["layers"]) not in _LAYER_KEYS
+            or ("layer0" in params
+                and set(params["layer0"]) != _LAYER_KEYS[0])):
+        raise ValueError(f"not a dense-transformer or MoE param tree: keys "
                          f"{sorted(params)}")
     return tree_map(lambda x: _array_to_tensor(x, device), params)
 
 
+def _cache_keys(kv):
+    for keys in (KV_KEYS, MLA_KEYS):
+        if set(kv) == set(keys):
+            return keys
+    return None
+
+
+def _is_kv_cache(cache) -> bool:
+    return (set(cache) in ({"layers"}, {"layers", "layer0"})
+            and all(set(cache[k]) == {"kv"} and _cache_keys(cache[k]["kv"])
+                    for k in cache))
+
+
 def kv_cache(cache, device="cpu") -> dict:
-    """A reference transformer KV cache (``{"layers": {"kv": {"k", "v",
-    "pos"}}}``, leaves (n_layers, batch, slots, ...)) → the port's."""
-    if set(cache) != {"layers"} or set(cache["layers"]) != {"kv"} \
-            or set(cache["layers"]["kv"]) != set(KV_KEYS):
+    """A reference transformer cache (``{"layers": {"kv": {"k", "v",
+    "pos"}}}``, or MLA's ``{"ckv", "k_rope", "pos"}``, leaves (n_layers,
+    batch, slots, ...), and ``layer0``'s of depth 1 where there is one)
+    → the port's."""
+    if not _is_kv_cache(cache):
         raise ValueError(f"not a transformer KV cache: keys {sorted(cache)}")
-    return {"layers": {"kv": _kv(cache["layers"]["kv"], device)}}
+    return {k: {"kv": _kv(cache[k]["kv"], device)} for k in cache}
 
 
 def _kv(kv, device) -> dict:
-    return {k: _array_to_tensor(kv[k], device) for k in KV_KEYS}
+    return {k: _array_to_tensor(kv[k], device) for k in _cache_keys(kv)}
 
 
 def kv_cache_to_numpy(cache) -> dict:
-    """The port's KV cache → numpy arrays (bf16 k and v as fp32), for
+    """The port's transformer cache → numpy arrays (bf16 as fp32), for
     the reference's functions."""
-    return {"layers": {"kv": _kv_to_numpy(cache["layers"]["kv"])}}
+    return {k: {"kv": _kv_to_numpy(cache[k]["kv"])} for k in cache}
 
 
 def _kv_to_numpy(kv) -> dict:
-    return {k: _tensor_to_array(kv[k]) for k in KV_KEYS}
+    return {k: _tensor_to_array(kv[k]) for k in _cache_keys(kv)}
 
 
 # ---------------------------------------------------------------------

@@ -21,9 +21,15 @@ either package) and prints the restored version. ``--device``
 arch runs ``reduced()``.
 ``--arch`` defaults to the reference's, ``llama3.2-3b``; the other
 ported archs are ``mamba2-780m``, the hybrid ``zamba2-7b`` (Mamba2
-super-blocks around a shared attention block with per-call-site LoRA)
-and the dense ``qwen2-7b``, ``granite-3-8b`` and ``yi-34b`` (whose fp32
-weights, ~137 GB, exceed one 80 GB card: run it without ``--full``).
+super-blocks around a shared attention block with per-call-site LoRA),
+the dense ``qwen2-7b``, ``granite-3-8b`` and ``yi-34b`` (whose fp32
+weights, ~137 GB, exceed one 80 GB card: run it without ``--full``),
+and the MoE ``deepseek-v2-lite-16b`` (64 routed + 2 shared experts,
+Multi-head Latent Attention, a leading dense layer; 62.8 GB of fp32
+weights) and ``qwen3-moe-30b-a3b`` (128 experts, top-8; its fp32
+weights, ~122 GB, exceed one card: with ``--full`` serve it from the
+library with ``cfg.with_(param_dtype="bfloat16")``, as the launcher has
+no dtype flag, like the reference's).
 The KV cache of a transformer or of the hybrid's shared block holds
 ``max_len`` positions (default 128), so a longer prompt plus its new
 tokens needs ``--serve max_len=``::
@@ -31,6 +37,10 @@ tokens needs ``--serve max_len=``::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --full --requests 4 --prompt-len 1024 --serve engine=batch \\
         --serve max_new_tokens=32 --serve max_len=1056
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-lite-16b --full --requests 4 --prompt-len 1024 \\
+        --serve engine=batch --serve slots=2 --serve max_new_tokens=32 \\
+        --serve max_len=1056
 
 ``main`` prints the reference's per-request lines. ``engine=batch``
 then prints the prefill time of each batch and the decode rate (host
@@ -82,7 +92,8 @@ def _parser():
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--arch", default="llama3.2-3b",
                    help="llama3.2-3b (default), mamba2-780m, zamba2-7b, "
-                        "qwen2-7b, granite-3-8b or yi-34b")
+                        "qwen2-7b, granite-3-8b, yi-34b, "
+                        "deepseek-v2-lite-16b or qwen3-moe-30b-a3b")
     p.add_argument("--requests", type=int, default=6)
     p.add_argument("--prompt-len", type=int, default=16)
     p.add_argument("--serve", action="append", default=[],

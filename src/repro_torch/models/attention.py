@@ -1,7 +1,7 @@
-"""GQA self-attention — the port of the self-attention half of
-``repro.models.attention`` (RoPE ``"standard"`` / ``"none"``, optional
-sliding window, optional QKV bias). Cross-attention and MLA are not
-ported.
+"""Attention layers — the port of ``repro.models.attention``: GQA
+self-attention (RoPE ``"standard"`` / ``"none"``, optional sliding
+window, optional QKV bias) and DeepSeek-V2's Multi-head Latent
+Attention. Cross-attention is not ported.
 
 Decode-time KV caches are functional values, as in the reference:
 :func:`self_attention` returns a new layer cache and leaves the one it
@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (causal_mask_bias, dense_init,
                                        per_row, recorded, refuse_pallas,
-                                       softmax_attention)
+                                       rms_norm, softmax_attention)
 
 
 def init_self_attention(cfg, gen: torch.Generator, device=None) -> dict:
@@ -39,6 +39,28 @@ def init_self_attention(cfg, gen: torch.Generator, device=None) -> dict:
     return p
 
 
+def init_mla(cfg, gen: torch.Generator, device=None) -> dict:
+    """MLA's weights: the query projection (E, H·(dn + dr)), the joint
+    down-projection to the latent and the rotary key (E, r + dr), the
+    latent's RMSNorm (r,), the up-projections of keys (r, H·dn) and
+    values (r, H·dv), and the output (H·dv, E)."""
+    m = cfg.mla
+    E, H = cfg.d_model, cfg.n_heads
+    dt = cfg.dtype("param")
+    qdim = H * (m.qk_nope_dim + m.qk_rope_dim)
+    return {
+        "wq": dense_init(gen, (E, qdim), dt, device=device),
+        "w_dkv": dense_init(gen, (E, m.kv_lora_rank + m.qk_rope_dim), dt,
+                            device=device),
+        "ln_ckv": torch.ones((m.kv_lora_rank,), dtype=dt, device=device),
+        "w_uk": dense_init(gen, (m.kv_lora_rank, H * m.qk_nope_dim), dt,
+                           device=device),
+        "w_uv": dense_init(gen, (m.kv_lora_rank, H * m.v_dim), dt,
+                           device=device),
+        "wo": dense_init(gen, (H * m.v_dim, E), dt, device=device),
+    }
+
+
 def make_kv_cache(cfg, batch: int, max_len: int, n_layers: int,
                   dtype: Optional[torch.dtype] = None, device=None) -> dict:
     """Stacked-over-layers KV cache on ``device`` (``None``: the card).
@@ -54,6 +76,27 @@ def make_kv_cache(cfg, batch: int, max_len: int, n_layers: int,
                          device=dev),
         "v": torch.zeros((n_layers, batch, slots, K, D), dtype=dt,
                          device=dev),
+        "pos": torch.full((n_layers, batch, slots), -1, dtype=torch.int32,
+                          device=dev),
+    }
+
+
+def make_mla_cache(cfg, batch: int, max_len: int, n_layers: int,
+                   dtype: Optional[torch.dtype] = None, device=None) -> dict:
+    """Stacked-over-layers MLA cache on ``device`` (``None``: the card):
+    the rank-r latent ``ckv`` and the shared rotary key ``k_rope`` of
+    every slot (r + dr values a token, the paper's KV compression) and
+    the slots' positions."""
+    dev = resolve_device(device)
+    dt = dtype or cfg.dtype("compute")
+    m = cfg.mla
+    slots = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+             else max_len)
+    return {
+        "ckv": torch.zeros((n_layers, batch, slots, m.kv_lora_rank),
+                           dtype=dt, device=dev),
+        "k_rope": torch.zeros((n_layers, batch, slots, m.qk_rope_dim),
+                              dtype=dt, device=dev),
         "pos": torch.full((n_layers, batch, slots), -1, dtype=torch.int32,
                           device=dev),
     }
@@ -147,3 +190,92 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = softmax_attention(q, kc, vc, bias, scale,
                                 DTYPES[cfg.attention_scores_dtype])
     return out.reshape(B, S, H * D) @ p["wo"].to(cdt), new_cache
+
+
+def _heads(w: torch.Tensor, r: int, H: int, d: int) -> torch.Tensor:
+    """An up-projection (r, H·d), or per row (B, r, H·d), as (…, r, H,
+    d)."""
+    return w.reshape(w.shape[:-2] + (r, H, d))
+
+
+def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
+                  layer_cache: Optional[dict] = None,
+                  drop_past: bool = False):
+    """DeepSeek-V2 Multi-head Latent Attention. x: (B, S, E);
+    positions: (B, S); layer_cache: this layer's ``{"ckv", "k_rope",
+    "pos"}`` or None. Returns (out, new_layer_cache). Every weight may
+    carry a leading batch axis, one row's weights each (the group
+    engine's slots): the up-projections then read (B, r, H, d) and the
+    absorbed products gain a ``b``.
+
+    The queries split into a no-rope part and a rotary part; the
+    latent ``ckv`` (RMSNorm of the down-projection's first r columns)
+    and the one shared rotary key are what a cache keeps. With a cache
+    whose T slots outnumber the S queries and ``cfg.mla_absorb`` (a
+    decode step, or a prefill into a wider cache), it takes the
+    absorbed branch: the query scored against the latent directly,
+    (q_nope W_ukᵀ)·ckv + q_rope·k_rope, in fp32 whatever
+    ``attention_scores_dtype`` says, and the context (probs·ckv) W_uv.
+    Otherwise (a cache-free pass, a cache no wider than the pass, or
+    ``mla_absorb=False``) it re-expands per-head keys and values from
+    the latent and calls ``softmax_attention`` with
+    ``attention_scores_dtype``. Both are the reference's branches and
+    round differently in bf16, so the condition is the reference's.
+    Neither reaches the flash kernel (Dk = dn + dr differs from Dv).
+    ``drop_past`` drops the cache writes at slots past the cache, as
+    :func:`self_attention`'s."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, r = cfg.n_heads, m.kv_lora_rank
+    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
+    cdt = cfg.dtype("compute")
+    f32 = torch.float32
+
+    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope_lib.rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = x @ p["w_dkv"].to(cdt)
+    ckv = rms_norm(dkv[..., :r], p["ln_ckv"], cfg.norm_eps)
+    k_rope = dkv[..., r:][:, :, None, :]                  # 1 shared head
+    k_rope = rope_lib.rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
+
+    new_cache = layer_cache
+    if layer_cache is not None:
+        slots = _slots_for(cfg, positions)
+        ckv_all = _write_slots(layer_cache["ckv"], ckv, slots, drop_past)
+        k_rope_all = _write_slots(layer_cache["k_rope"], k_rope, slots,
+                                  drop_past)
+        k_pos = _write_slots(layer_cache["pos"], positions, slots, drop_past)
+        new_cache = {"ckv": ckv_all, "k_rope": k_rope_all, "pos": k_pos}
+        k_valid = k_pos >= 0
+    else:
+        ckv_all, k_rope_all, k_pos, k_valid = ckv, k_rope, positions, None
+
+    T = ckv_all.shape[1]
+    bias = causal_mask_bias(positions, k_pos, cfg.sliding_window, k_valid)
+    scale = 1.0 / ((dn + dr) ** 0.5)
+    per_slot = p["w_uk"].ndim == 3
+    b = "b" if per_slot else ""
+
+    if cfg.mla_absorb and layer_cache is not None and S < T:
+        wuk = _heads(p["w_uk"].to(cdt), r, H, dn)
+        q_lat = torch.einsum(f"bqhd,{b}rhd->bqhr", q_nope, wuk)
+        s_nope = torch.einsum("bqhr,btr->bhqt", q_lat.to(f32),
+                              ckv_all.to(f32))
+        s_rope = torch.einsum("bqhd,btd->bhqt", q_rope.to(f32),
+                              k_rope_all.to(f32))
+        scores = (s_nope + s_rope) * scale + bias
+        probs = torch.softmax(scores, dim=-1)
+        ctx = torch.einsum("bhqt,btr->bqhr", probs, ckv_all.to(f32))
+        wuv = _heads(p["w_uv"].to(cdt), r, H, dv)
+        out = torch.einsum(f"bqhr,{b}rhv->bqhv", ctx.to(cdt), wuv)
+    else:
+        k_nope = (ckv_all @ p["w_uk"].to(cdt)).reshape(B, T, H, dn)
+        vv = (ckv_all @ p["w_uv"].to(cdt)).reshape(B, T, H, dv)
+        k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
+            B, T, H, dr)], dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        out = softmax_attention(qfull, k, vv, bias, scale,
+                                DTYPES[cfg.attention_scores_dtype])
+    return out.reshape(B, S, H * dv) @ p["wo"].to(cdt), new_cache

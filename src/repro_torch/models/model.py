@@ -1,5 +1,5 @@
 """Public model API — the port of ``repro.models.model`` for the SSM,
-dense and hybrid families:
+dense, MoE and hybrid families:
 
     model = get_model(cfg)
     params = model.init(cfg, generator, device)
@@ -82,7 +82,8 @@ _FAMILIES: Dict[str, Model] = {
 
 
 def get_model(cfg: ArchConfig) -> Model:
-    family = "transformer" if cfg.family == "dense" else cfg.family
+    family = ("transformer" if cfg.family in ("dense", "moe")
+              else cfg.family)
     if family not in _FAMILIES:
         raise NotPortedError(f"model family {cfg.family!r} is not ported "
                              f"to repro_torch yet")

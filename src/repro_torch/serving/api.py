@@ -71,16 +71,18 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
     prompt's LAST real token. tokens: (B, P); lengths: (B,), a tensor
     or host ints. A dense model's KV cache must hold the P positions
     (``ValueError`` naming ``max_len``, checked from the shape); the
-    hybrid's must hold each row's real tokens (checked only where P
-    passes ``max_len``: then card lengths are read back once).
+    hybrid's and a MoE model's must hold each row's real tokens
+    (checked only where P passes ``max_len``: then card lengths are
+    read back once).
 
     As in the reference, the whole right-padded (B, P) block runs
     through the model: a transformer's KV cache also holds the pad
     tokens of a shorter row (at positions past its length, masked until
     decode overwrites them), and an SSM's state after prefill has
     absorbed them, so that row decodes on from there. The hybrid's
-    Mamba2 states absorb the pads past ``max_len`` too, whose KV writes
-    are dropped, as in the reference."""
+    Mamba2 states absorb the pads past ``max_len`` too, and a MoE
+    model's experts route them, whose KV writes are dropped, as in the
+    reference."""
     B, P = tokens.shape[:2]
     if P > max_len and model.kv_pos is not None:
         check_fits(cfg, int(np.max(host_ints(lengths))) - 1, max_len)
@@ -151,7 +153,8 @@ def cache_batch_dims(cfg: ArchConfig, max_len: int) -> Any:
     as the reference finds it: the cache's shapes at B = 1 and B = 2
     differ in that dim alone. Both caches are built on the ``meta``
     device, so nothing is allocated. Transformer caches are (L, B,
-    ...), and so is the Mamba2 state: every leaf gives 1. The hybrid's
+    ...), and so is the Mamba2 state: every leaf gives 1, MLA's latent
+    cache and DeepSeek's ``layer0`` (1, B, ...) too. The hybrid's
     Mamba2 states are (nb, mpb, B, ...), 2, and its KV cache and tail
     states 1."""
     model = get_model(cfg)

@@ -55,16 +55,18 @@ def prefill_width(cfg: ArchConfig, prompt_pad: int, n: int,
                   max_len: int) -> int:
     """The padded prefill width of an ``n``-token prompt:
     :func:`pad_prompt`'s, cut to the KV cache for a model that has one,
-    no window and no recurrent state (dense). The reference drops the
-    KV writes of pad positions past ``max_len``; no real token attends
-    to them, so cutting them off gives the same logits. The hybrid is
-    not cut: its Mamba2 states run through every pad, so it prefills
-    the whole width and drops those KV writes as the reference does.
-    A prompt longer than the cache is not cut, and its prefill raises
-    ``ValueError`` naming ``max_len``."""
+    no window, no recurrent state and no experts (dense). The reference
+    drops the KV writes of pad positions past ``max_len``; no real
+    token attends to them, so cutting them off gives the same logits.
+    The hybrid and the MoE models are not cut: the hybrid's Mamba2
+    states run through every pad, and an expert's capacity grows with
+    the padded width, so a cut width would route and drop tokens
+    otherwise; they prefill the whole width and drop those KV writes as
+    the reference does. A prompt longer than the cache is not cut, and
+    its prefill raises ``ValueError`` naming ``max_len``."""
     width = pad_prompt(prompt_pad, n)
     if (get_model(cfg).kv_pos is not None and cfg.ssm is None
-            and not cfg.sliding_window):
+            and cfg.moe is None and not cfg.sliding_window):
         width = max(n, min(width, max_len))
     return width
 

@@ -57,7 +57,9 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.models.hybrid", "repro_torch.configs.zamba2_7b",
              "repro_torch.configs.qwen2_7b",
              "repro_torch.configs.granite_3_8b",
-             "repro_torch.configs.yi_34b"):
+             "repro_torch.configs.yi_34b", "repro_torch.models.moe",
+             "repro_torch.configs.qwen3_moe_30b_a3b",
+             "repro_torch.configs.deepseek_v2_lite_16b"):
     assert name in names, name
 print(len(names))
 """

@@ -117,7 +117,7 @@ def test_unported_families_and_bad_fields_are_refused():
     assert base.with_(ssd_impl="pallas_interpret").ssd_impl == \
         "pallas_interpret"
     with pytest.raises(KeyError, match="unported"):
-        get_arch_config("qwen3-moe-30b-a3b")
+        get_arch_config("qwen2-vl-72b")
     assert base.with_(n_layers=2).ssm == SSMConfig(d_state=128, head_dim=64,
                                                     chunk=256)
 

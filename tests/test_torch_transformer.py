@@ -131,8 +131,8 @@ def test_published_and_reduced_configs_equal_the_reference():
 
 def test_unported_dense_fields_are_refused():
     base = get_arch_config(ARCH)
-    for kw in (dict(rope_mode="mrope"), dict(moe=object()),
-               dict(mla=object()), dict(cross_attention=True)):
+    for kw in (dict(rope_mode="mrope"), dict(family="vlm"),
+               dict(family="audio"), dict(cross_attention=True)):
         with pytest.raises(NotPortedError):
             base.with_(**kw)
     with pytest.raises(ValueError, match="rope_mode"):
@@ -143,9 +143,9 @@ def test_unported_dense_fields_are_refused():
         base.with_(attention_scores_dtype="float16")
     with pytest.raises(ValueError, match="n_kv_heads dividing"):
         base.with_(n_kv_heads=5)
-    with pytest.raises(NotPortedError, match="family='moe'"):
-        ArchConfig(name="x", family="moe", n_layers=1, d_model=8, n_heads=1,
-                   n_kv_heads=1, d_ff=8, vocab_size=8)
+    with pytest.raises(NotPortedError, match="family='audio'"):
+        ArchConfig(name="x", family="audio", n_layers=1, d_model=8,
+                   n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
     for impl in ("xla", "pallas", "pallas_interpret"):
         assert base.with_(attention_impl=impl).attention_impl == impl
 

@@ -3,6 +3,8 @@ shapes of every ported arch's parameters and caches at full width,
 against ``repro.configs`` and ``repro.models.model``; the dense trio
 qwen2-7b, granite-3-8b and yi-34b needs only its config files, so two
 of them are also held at ``reduced()`` against the reference's logits.
+The MoE pair qwen3-moe-30b-a3b and deepseek-v2-lite-16b (MLA and a
+leading dense layer) decode with every tensor read patched to raise.
 
 * Configs: every field equal to the reference's, published and
   ``reduced()`` (the nested ``ssm`` / ``hybrid`` dataclasses by value).
@@ -34,10 +36,12 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.common.pytree import tree_leaves_with_paths  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_arch_config  # noqa: E402
 from repro_torch.configs.base import (ArchConfig, HybridConfig,  # noqa: E402
-                                      NotPortedError, SSMConfig)
+                                      MLAConfig, MoEConfig, NotPortedError,
+                                      SSMConfig)
 from repro_torch.models import get_model  # noqa: E402
 
-NEW = ["zamba2-7b", "qwen2-7b", "granite-3-8b", "yi-34b"]
+MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]
+NEW = ["zamba2-7b", "qwen2-7b", "granite-3-8b", "yi-34b"] + MOE
 ALL = NEW + ["llama3.2-3b", "mamba2-780m"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
@@ -66,7 +70,7 @@ def test_published_and_reduced_configs_equal_the_reference(arch):
 def test_registry_has_the_zoo_and_refuses_the_rest():
     assert set(NEW) <= set(ARCH_IDS)
     with pytest.raises(KeyError, match="unported"):
-        get_arch_config("qwen3-moe-30b-a3b")
+        get_arch_config("qwen2-vl-72b")
     z = get_arch_config("zamba2-7b")
     assert (z.family, z.head_dim, z.ssm.d_state) == ("hybrid", 112, 64)
     assert z.hybrid == HybridConfig(16, 4, 1, 128)
@@ -79,8 +83,8 @@ def test_registry_has_the_zoo_and_refuses_the_rest():
         ArchConfig(**base, ssm=SSMConfig())
     with pytest.raises(ValueError, match="ssm=SSMConfig"):
         ArchConfig(**base, hybrid=HybridConfig())
-    with pytest.raises(NotPortedError, match="family='moe'"):
-        ArchConfig(**{**base, "family": "moe"})
+    with pytest.raises(NotPortedError, match="family='vlm'"):
+        ArchConfig(**{**base, "family": "vlm"})
 
 
 def _port_shapes(tree):
@@ -163,3 +167,81 @@ def test_reduced_prefill_and_decode_logits_match_reference(arch):
     for k in interop.KV_KEYS:
         np.testing.assert_allclose(got[k], np.asarray(
             rcache["layers"]["kv"][k]), **TOL)
+
+
+def test_moe_configs_and_their_refusals():
+    """The MoE pair's nested configs and ``reduced()`` cuts, the
+    reference's; a moe family needs ``moe``, the SSM and hybrid families
+    refuse ``moe`` / ``mla`` / ``first_k_dense``, ``first_k_dense`` is
+    0 or 1 with a width, and ``moe_dispatch`` takes the reference's
+    three values (every one dispatches dense on one device)."""
+    q, d = (get_arch_config(a) for a in MOE)
+    assert q.moe == MoEConfig(n_experts=128, top_k=8, expert_ff=768)
+    assert (q.mla, q.first_k_dense) == (None, 0)
+    assert d.moe == MoEConfig(n_experts=64, top_k=6, expert_ff=1408,
+                              n_shared=2)
+    assert d.mla == MLAConfig(kv_lora_rank=512, qk_nope_dim=128,
+                              qk_rope_dim=64, v_dim=128)
+    assert (d.first_k_dense, d.dense_ff) == (1, 10944)
+    red = d.reduced()
+    assert (red.n_layers, red.first_k_dense, red.dense_ff) == (2, 1, 128)
+    assert red.moe == MoEConfig(n_experts=4, top_k=2, expert_ff=128,
+                                n_shared=1)
+    assert red.mla == MLAConfig(kv_lora_rank=64, qk_nope_dim=32,
+                                qk_rope_dim=16, v_dim=32)
+    base = dict(name="x", n_layers=3, d_model=8, n_heads=1, n_kv_heads=1,
+                d_ff=8, vocab_size=8)
+    with pytest.raises(ValueError, match="moe=MoEConfig"):
+        ArchConfig(**base, family="moe")
+    with pytest.raises(ValueError, match="transformer's layers"):
+        ArchConfig(**base, family="ssm", ssm=SSMConfig(), mla=MLAConfig())
+    with pytest.raises(ValueError, match="first_k_dense"):
+        q.with_(first_k_dense=2, dense_ff=8)
+    with pytest.raises(ValueError, match="first_k_dense"):
+        q.with_(first_k_dense=1)
+    with pytest.raises(ValueError, match="moe_dispatch"):
+        q.with_(moe_dispatch="sparse")
+    for dispatch in ("auto", "dense", "expert_parallel"):
+        assert q.with_(moe_dispatch=dispatch).moe_dispatch == dispatch
+    for kw in (dict(family="vlm"), dict(family="audio"),
+               dict(cross_attention=True), dict(rope_mode="mrope")):
+        with pytest.raises(NotPortedError):
+            d.with_(**kw)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_reads_nothing_back(arch):
+    """ServeEngine.decode and one group step's batched decode at
+    ``reduced()``, with every tensor→host read patched to raise (the
+    dense dispatch has static shapes: no nonzero, no mask indexing, no
+    item): the same tokens and logits as unpatched."""
+    from test_torch_serving_nosync import no_reads
+
+    from repro_torch import serving
+    from repro_torch.common.pytree import tree_map
+    cfg = get_arch_config(arch).reduced()
+    params = get_model(cfg).init(cfg, torch.Generator().manual_seed(0), "cpu")
+    eng = serving.ServeEngine(cfg, params, serving.ServeConfig(
+        max_len=32, max_new_tokens=6))
+    toks, lens = serving.serve_batches([[5, 9, 200, 31], [11, 400]], 2,
+                                       device="cpu")[0]
+    logits, cache = eng.prefill(toks, lens)
+    want = eng.decode(logits, cache, lens)
+    host = [int(n) for n in lens]
+    with no_reads():
+        got = eng.decode(logits, cache, host)
+    assert torch.equal(got, want)
+    planes = tree_map(lambda t: torch.stack([t, t * 0.5]), params)
+    grp = serving.GroupServeEngine(
+        cfg, planes, serving.ServeConfig(max_len=32, max_new_tokens=6),
+        batch_size=2, prompt_pad=8)
+    for rid in range(2):
+        grp.submit(serving.GroupRequest(rid, rid, [3 + rid, 7, 11]))
+    grp.step()
+    slots = grp._state
+    batch = {"tokens": slots.tokens, "positions": slots.pos_dev[:, None]}
+    live, _ = grp.store.acquire()
+    want, _ = grp.decode_step(live, batch, slots.cache)
+    with no_reads():
+        got, _ = grp.decode_step(live, batch, slots.cache)
+    assert torch.equal(got, want)
