@@ -12,7 +12,9 @@ _ARCH_MODULES = {
     "granite-3-8b": "granite_3_8b",
     "llama3.2-3b": "llama3_2_3b",
     "mamba2-780m": "mamba2_780m",
+    "musicgen-medium": "musicgen_medium",
     "qwen2-7b": "qwen2_7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "yi-34b": "yi_34b",
     "zamba2-7b": "zamba2_7b",
@@ -22,10 +24,10 @@ ARCH_IDS = tuple(_ARCH_MODULES)
 
 
 def get_arch_config(arch_id: str) -> ArchConfig:
-    """The published config of a ported architecture; any other id
-    raises ``KeyError`` naming the ported ones."""
+    """The published config of an architecture of the zoo; any other id
+    raises ``KeyError`` naming the known ones."""
     if arch_id not in _ARCH_MODULES:
-        raise KeyError(f"unknown or unported arch {arch_id!r}; the port "
+        raise KeyError(f"unknown arch {arch_id!r}; the port "
                        f"has {sorted(ARCH_IDS)}")
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")

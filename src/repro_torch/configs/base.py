@@ -13,15 +13,14 @@ never silently ignored: only the multi-device settings remain
 settings construct; which combiner, delay and estimator a trainer
 accepts is checked where the reference checks it, in
 ``repro_torch.core.exchange.build_exchange``. ``ArchConfig`` and
-its nested configs (the model zoo) are copied for the SSM, dense, MoE
-and hybrid families; the VLM and audio families raise
-:class:`NotPortedError`.
+its nested configs (the model zoo) are copied for every family of the
+reference: SSM, dense, MoE, hybrid, VLM and audio.
 ``ShapeConfig`` and ``INPUT_SHAPES`` are the reference's.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -278,11 +277,13 @@ class GroupSpec:
 # ---------------------------------------------------------------------
 # Model zoo: the SSM family (Mamba2), the dense transformer family, the
 # MoE transformers (routed experts, optionally Multi-head Latent
-# Attention and leading dense layers) and the hybrid (Mamba2
-# super-blocks around a shared attention block)
+# Attention and leading dense layers), the hybrid (Mamba2 super-blocks
+# around a shared attention block), the VLM backbone (M-RoPE and a
+# vision prefix) and the audio decoder (codebooks, sinusoidal positions,
+# cross-attention, a GELU MLP)
 # ---------------------------------------------------------------------
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
-PORTED_FAMILIES = ("ssm", "dense", "moe", "hybrid")
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
 SSD_IMPLS = ("xla", "pallas_interpret")
 ATTENTION_IMPLS = ("xla", "pallas", "pallas_interpret")
 ROPE_MODES = ("standard", "mrope", "none")
@@ -349,17 +350,25 @@ class HybridConfig:
 @dataclass(frozen=True)
 class ArchConfig:
     """The port's copy of ``repro.configs.base.ArchConfig``, cut to the
-    fields the SSM, dense, MoE and hybrid families read
-    (``mrope_sections``, the modality fields, ``remat``,
-    ``unroll_layers`` and ``max_position`` are not copied).
-    ``cross_attention`` is kept so that a config asking for it is
-    refused: set, it raises :class:`NotPortedError`, as do
-    ``rope_mode="mrope"`` and a family outside ``PORTED_FAMILIES``; an
-    unknown family, ``rope_mode``, ``moe_dispatch``, ``ssd_impl``,
-    ``attention_impl`` or dtype raises ``ValueError``, and so do a
-    hybrid config without both ``ssm`` and ``hybrid``, a ``moe`` family
-    without ``moe``, and ``moe``, ``mla`` or ``first_k_dense`` on a
-    family that is not a transformer.
+    fields the model zoo reads (``remat``, ``unroll_layers`` and
+    ``max_position`` are not copied: the port has no scan to
+    checkpoint or unroll). An unknown family, ``rope_mode``,
+    ``moe_dispatch``, ``ssd_impl``, ``attention_impl`` or dtype raises
+    ``ValueError``, and so do a hybrid config without both ``ssm`` and
+    ``hybrid``, a ``moe`` family without ``moe``, and ``moe``, ``mla``
+    or ``first_k_dense`` on a family that is not a transformer.
+
+    The modality fields are the reference's backbone stubs. The VLM
+    (``family="vlm"``, ``rope_mode="mrope"``) prepends
+    ``vision_prefix`` pre-projected patch embeddings to the text and
+    rotates by (t, h, w) position triples (B, 3, S), whose half head
+    dim splits into ``mrope_sections``: they must sum to
+    ``head_dim / 2``, checked where the reference asserts it, at the
+    rotation (``ValueError`` naming both). The audio family sums
+    ``n_codebooks`` embedding tables, adds sinusoidal positions, has
+    ``n_codebooks`` heads and a GELU MLP, and with ``cross_attention``
+    attends in every layer to a (B, ``cond_len``, d_model)
+    conditioning sequence.
 
     ``moe`` makes every stacked layer's feed-forward a routed
     ``MoEConfig`` block; ``mla`` makes every layer's attention
@@ -390,7 +399,12 @@ class ArchConfig:
     inputs (the plain SSD is the reference's einsum form; the plain
     attention masks by index and scores in fp32, which by position and
     at ``attention_scores_dtype="float32"`` is the reference's
-    ``"xla"`` branch). MLA never reaches the flash kernel, as in the
+    ``"xla"`` branch). The kernel masks by index, the reference's
+    ``"xla"`` branch by position (the w row ``positions[:, -1, :]`` of
+    M-RoPE's triples): the two agree where each row's positions are
+    0..S−1, as in every batch the repo builds (the synthetic streams,
+    ``build_prefill_batch``); a cache-free pass over other positions
+    takes the kernel's mask. MLA never reaches the flash kernel, as in the
     reference (its query and value widths differ): it scores with the
     materialised softmax attention. ``attention_scores_dtype`` applies
     to the attention over a KV cache and to MLA's expanded branch. The
@@ -406,8 +420,9 @@ class ArchConfig:
     vocab_size: int
     head_dim: int = 128
     qkv_bias: bool = False
-    rope_mode: str = "standard"         # standard | none (mrope: unported)
+    rope_mode: str = "standard"         # standard | mrope | none
     rope_theta: float = 1e6
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)
     sliding_window: Optional[int] = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
@@ -417,7 +432,11 @@ class ArchConfig:
     hybrid: Optional[HybridConfig] = None
     first_k_dense: int = 0              # deepseek: leading dense layers
     dense_ff: int = 0                   # d_ff of those dense layers
-    cross_attention: bool = False       # unported: must stay False
+    # -- modality backbone stubs (the reference's carve-out) ---------
+    cross_attention: bool = False       # musicgen: cross-attn to cond.
+    cond_len: int = 0                   # conditioning sequence length
+    n_codebooks: int = 1                # musicgen: 4 EnCodec codebooks
+    vision_prefix: int = 0              # qwen2-vl: # of patch embeddings
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     moe_dispatch: str = "auto"          # auto | dense | expert_parallel
@@ -431,13 +450,6 @@ class ArchConfig:
         if self.family not in FAMILIES:
             raise ValueError(f"unknown family {self.family!r}; expected "
                              f"one of {FAMILIES}")
-        if self.family not in PORTED_FAMILIES:
-            raise NotPortedError(
-                f"ArchConfig.family={self.family!r} is not ported to "
-                f"repro_torch yet; the port has {PORTED_FAMILIES}")
-        if self.cross_attention:
-            raise NotPortedError("ArchConfig.cross_attention=True is not "
-                                 "ported to repro_torch yet")
         if self.family == "ssm" and self.ssm is None:
             raise ValueError("an ssm-family ArchConfig needs ssm=SSMConfig")
         if self.family == "hybrid" and (self.ssm is None
@@ -466,7 +478,7 @@ class ArchConfig:
         if self.moe_dispatch not in MOE_DISPATCHES:
             raise ValueError(f"unknown moe_dispatch {self.moe_dispatch!r}; "
                              f"expected one of {MOE_DISPATCHES}")
-        if self.family in ("dense", "moe", "hybrid") and not (
+        if self.family in TRANSFORMER_FAMILIES + ("hybrid",) and not (
                 self.n_heads >= 1 and self.n_kv_heads >= 1
                 and self.n_heads % self.n_kv_heads == 0
                 and self.head_dim >= 2 and self.head_dim % 2 == 0):
@@ -477,9 +489,6 @@ class ArchConfig:
         if self.rope_mode not in ROPE_MODES:
             raise ValueError(f"unknown rope_mode {self.rope_mode!r}; "
                              f"expected one of {ROPE_MODES}")
-        if self.rope_mode == "mrope":
-            raise NotPortedError("ArchConfig.rope_mode='mrope' is not "
-                                 "ported to repro_torch yet")
         if self.ssd_impl not in SSD_IMPLS:
             raise ValueError(f"unknown ssd_impl {self.ssd_impl!r}; "
                              f"expected one of {SSD_IMPLS}")
@@ -509,7 +518,9 @@ class ArchConfig:
         shared expert; MLA rank 64 with nope / rope / v dims 32 / 16 /
         32; a leading dense layer of width 128; ssm d_state 16, head_dim
         16, chunk 32; a hybrid gets 3 layers: one super-block of one
-        Mamba2 layer, one tail layer, LoRA rank 8."""
+        Mamba2 layer, one tail layer, LoRA rank 8; cond_len ≤ 8 with
+        cross-attention (else 0), vision_prefix ≤ 8, M-RoPE sections
+        (4, 6, 6)."""
         n_heads = min(self.n_heads, 4)
         n_kv = max(1, min(self.n_kv_heads, n_heads))
         while n_heads % n_kv:
@@ -518,7 +529,9 @@ class ArchConfig:
             n_layers=2, d_model=min(self.d_model, 256), n_heads=n_heads,
             n_kv_heads=n_kv, head_dim=32,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
-            vocab_size=min(self.vocab_size, 512), param_dtype="float32",
+            vocab_size=min(self.vocab_size, 512),
+            cond_len=min(self.cond_len, 8) if self.cross_attention else 0,
+            vision_prefix=min(self.vision_prefix, 8), param_dtype="float32",
             compute_dtype="float32")
         if self.moe is not None:
             kw["moe"] = replace(self.moe, n_experts=4,
@@ -538,6 +551,8 @@ class ArchConfig:
             kw["n_layers"] = 3
         if self.sliding_window is not None:
             kw["sliding_window"] = 16
+        if self.rope_mode == "mrope":
+            kw["mrope_sections"] = (4, 6, 6)    # sums to head_dim/2 = 16
         return replace(self, **kw)
 
 

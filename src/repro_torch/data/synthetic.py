@@ -1,6 +1,7 @@
 """Deterministic per-agent synthetic token streams — the port of
-``repro.data.synthetic`` for the text families (``audio`` and ``vlm``
-raise ``NotPortedError``).
+``repro.data.synthetic``: text batches, the audio family's delayed
+codebook frames with their conditioning, and the VLM's text behind a
+vision prefix.
 
 In GARL every agent has its own environment; at LLM scale an agent's
 environment is its data stream. ``kind="markov"``: tokens follow an
@@ -95,26 +96,70 @@ def _markov_tokens(spec: StreamSpec, vocab: int, agent_id: int, step: int,
     return markov_walk(markov_table(spec, vocab, agent_id), s0, branches)
 
 
+def _tokens(spec: StreamSpec, vocab: int, agent_id: int, step: int,
+            batch: int, seq: int, sub: int = 0) -> torch.Tensor:
+    """(batch, seq) int32 tokens of stream ``sub`` (the audio family's
+    codebook; 0 otherwise) of one agent's step."""
+    if spec.kind == "markov":
+        t = _markov_tokens(spec, vocab, agent_id, step * 131 + sub, batch,
+                           seq)
+    else:                       # stream 0 keeps the text family's seed
+        g = _gen(spec.seed, 3, agent_id, step, *([sub] if sub else []))
+        t = torch.randint(0, vocab, (batch, seq), generator=g)
+    return t.to(torch.int32)
+
+
+def _embeddings(spec: StreamSpec, agent_id: int, step: int, shape,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Stub front-end embeddings (the audio family's ``cond``, the
+    VLM's ``vision``): 0.02 · N(0, 1) in fp32, cast to ``dtype``."""
+    g = _gen(spec.seed, 7, agent_id, step)
+    return (torch.randn(shape, generator=g) * 0.02).to(dtype)
+
+
 def make_agent_batch(cfg, shape, spec: StreamSpec, agent_id: int,
                      step: int, device=None) -> Dict[str, torch.Tensor]:
-    """One agent's training batch (tokens, labels = tokens, positions
-    0..S−1; int32, (B, S)) on ``device`` (``None``: the card)."""
-    if cfg.family in ("audio", "vlm"):
-        from repro_torch.configs.base import NotPortedError
-        raise NotPortedError(
-            f"synthetic batches of the {cfg.family!r} family are not "
-            f"ported to repro_torch yet")
+    """One agent's training batch on ``device`` (``None``: the card),
+    the reference's layout for each family:
+
+    * text: tokens, labels = tokens, positions 0..S−1; int32, (B, S);
+    * audio (MusicGen's delay pattern, arXiv:2306.05284 §2.2): C
+      codebook streams, codebook c shifted right by c frames with token
+      0 as the delay pad, tokens (B, C, S); labels the same with −100
+      where t < c; positions (B, S); ``cond`` (B, cond_len, E) of
+      0.02 · N(0, 1) in the compute dtype;
+    * VLM: text of S − vision_prefix tokens; ``vision`` (B,
+      vision_prefix, E) of 0.02 · N(0, 1); labels (B, S), −100 over the
+      prefix and the text after it; positions 0..S−1 on all three M-RoPE
+      rows, (B, 3, S)."""
     dev = resolve_device(device)
     B, S = shape.global_batch, shape.seq_len
-    if spec.kind == "markov":
-        t = _markov_tokens(spec, cfg.vocab_size, agent_id, step * 131, B, S)
-    else:
-        t = torch.randint(0, cfg.vocab_size, (B, S),
-                          generator=_gen(spec.seed, 3, agent_id, step))
-    t = t.to(torch.int32)
-    pos = torch.arange(S, dtype=torch.int32).expand(B, S)
-    return {"tokens": t.to(dev), "labels": t.to(dev),
-            "positions": pos.contiguous().to(dev)}
+    V, E, cdt = cfg.vocab_size, cfg.d_model, cfg.dtype("compute")
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S).contiguous()
+    if cfg.family == "audio":
+        C = cfg.n_codebooks
+        t = torch.zeros((B, C, S), dtype=torch.int32)
+        for c in range(C):
+            frames = _tokens(spec, V, agent_id, step, B, S, c)
+            t[:, c, c:] = frames[:, :S - c]
+        delay = torch.arange(S)[None, None, :] < torch.arange(C)[None, :,
+                                                                 None]
+        labels = torch.where(delay, torch.tensor(-100, dtype=torch.int32), t)
+        cond = _embeddings(spec, agent_id, step, (B, cfg.cond_len, E), cdt)
+        return {"tokens": t.to(dev), "labels": labels.to(dev),
+                "positions": pos.to(dev), "cond": cond.to(dev)}
+    if cfg.family == "vlm":
+        vp = cfg.vision_prefix
+        t = _tokens(spec, V, agent_id, step, B, S - vp)
+        labels = torch.cat([torch.full((B, vp), -100, dtype=torch.int32), t],
+                           dim=1)
+        vision = _embeddings(spec, agent_id, step, (B, vp, E), cdt)
+        return {"tokens": t.to(dev), "vision": vision.to(dev),
+                "labels": labels.to(dev),
+                "positions": pos[:, None, :].expand(B, 3, S).contiguous()
+                .to(dev)}
+    t = _tokens(spec, V, agent_id, step, B, S)
+    return {"tokens": t.to(dev), "labels": t.to(dev), "positions": pos.to(dev)}
 
 
 def make_group_batch(cfg, shape, spec: StreamSpec, n_agents: int,

@@ -318,17 +318,22 @@ def ssm_state_to_numpy(state) -> dict:
 
 
 # ---------------------------------------------------------------------
-# the transformers (llama, qwen3-moe, deepseek): params and KV caches
+# the transformers (llama, qwen3-moe, deepseek, qwen2-vl, musicgen):
+# params and KV caches
 # ---------------------------------------------------------------------
 KV_KEYS = ("k", "v", "pos")
 MLA_KEYS = ("ckv", "k_rope", "pos")
-_LAYER_KEYS = ({"ln1", "ln2", "attn", "mlp"}, {"ln1", "ln2", "attn", "moe"})
+XKV_KEYS = ("ck", "cv")
+_LAYER_KEYS = ({"ln1", "ln2", "attn", "mlp"}, {"ln1", "ln2", "attn", "moe"},
+               {"ln1", "ln2", "attn", "ln_x", "xattn", "mlp"})
 
 
 def transformer_params(params, device="cpu") -> dict:
     """The reference's transformer params (``repro.models.transformer``:
-    numpy leaves, the layers' leaves stacked on axis 0; dense or MoE
-    feed-forwards, GQA or MLA attention, and DeepSeek's unstacked
+    numpy leaves, the layers' leaves stacked on axis 0; dense SwiGLU,
+    GELU (audio) or MoE feed-forwards, GQA or MLA attention,
+    cross-attention with its ``ln_x`` (audio), the audio family's
+    (C, V, E) embedding and (C, E, V) heads, and DeepSeek's unstacked
     ``layer0``) → the port's, which keep the same pytree and dtypes."""
     want = {"embed", "final_norm", "layers"}
     if (not want <= set(params)
@@ -341,7 +346,7 @@ def transformer_params(params, device="cpu") -> dict:
 
 
 def _cache_keys(kv):
-    for keys in (KV_KEYS, MLA_KEYS):
+    for keys in (KV_KEYS, MLA_KEYS, XKV_KEYS):
         if set(kv) == set(keys):
             return keys
     return None
@@ -349,18 +354,22 @@ def _cache_keys(kv):
 
 def _is_kv_cache(cache) -> bool:
     return (set(cache) in ({"layers"}, {"layers", "layer0"})
-            and all(set(cache[k]) == {"kv"} and _cache_keys(cache[k]["kv"])
+            and all(set(cache[k]) in ({"kv"}, {"kv", "xkv"})
+                    and _cache_keys(cache[k]["kv"]) in (KV_KEYS, MLA_KEYS)
+                    and set(cache[k].get("xkv", XKV_KEYS)) == set(XKV_KEYS)
                     for k in cache))
 
 
 def kv_cache(cache, device="cpu") -> dict:
     """A reference transformer cache (``{"layers": {"kv": {"k", "v",
     "pos"}}}``, or MLA's ``{"ckv", "k_rope", "pos"}``, leaves (n_layers,
-    batch, slots, ...), and ``layer0``'s of depth 1 where there is one)
-    → the port's."""
+    batch, slots, ...), with the cross-attention's ``"xkv": {"ck",
+    "cv"}`` (n_layers, batch, cond_len, H, D) where the model has it,
+    and ``layer0``'s of depth 1 where there is one) → the port's."""
     if not _is_kv_cache(cache):
         raise ValueError(f"not a transformer KV cache: keys {sorted(cache)}")
-    return {k: {"kv": _kv(cache[k]["kv"], device)} for k in cache}
+    return {k: {name: _kv(part, device) for name, part in cache[k].items()}
+            for k in cache}
 
 
 def _kv(kv, device) -> dict:
@@ -370,7 +379,8 @@ def _kv(kv, device) -> dict:
 def kv_cache_to_numpy(cache) -> dict:
     """The port's transformer cache → numpy arrays (bf16 as fp32), for
     the reference's functions."""
-    return {k: {"kv": _kv_to_numpy(cache[k]["kv"])} for k in cache}
+    return {k: {name: _kv_to_numpy(part) for name, part in cache[k].items()}
+            for k in cache}
 
 
 def _kv_to_numpy(kv) -> dict:

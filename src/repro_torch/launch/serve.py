@@ -29,7 +29,13 @@ Multi-head Latent Attention, a leading dense layer; 62.8 GB of fp32
 weights) and ``qwen3-moe-30b-a3b`` (128 experts, top-8; its fp32
 weights, ~122 GB, exceed one card: with ``--full`` serve it from the
 library with ``cfg.with_(param_dtype="bfloat16")``, as the launcher has
-no dtype flag, like the reference's).
+no dtype flag, like the reference's), the audio ``musicgen-medium`` (4
+codebooks, cross-attention to a stubbed conditioning sequence; 7.4 GB
+of fp32 weights) and the VLM ``qwen2-vl-72b`` (M-RoPE and a stubbed
+vision prefix of 256 positions; ~290 GB of fp32 weights: without
+``--full``, or from the library at a cut depth with bf16 weights). A
+VLM prompt's prefill writes its 256 vision positions ahead of it: its
+``max_len`` counts them.
 The KV cache of a transformer or of the hybrid's shared block holds
 ``max_len`` positions (default 128), so a longer prompt plus its new
 tokens needs ``--serve max_len=``::

@@ -1,7 +1,7 @@
 """Attention layers — the port of ``repro.models.attention``: GQA
-self-attention (RoPE ``"standard"`` / ``"none"``, optional sliding
-window, optional QKV bias) and DeepSeek-V2's Multi-head Latent
-Attention. Cross-attention is not ported.
+self-attention (RoPE, M-RoPE or none, optional sliding window, optional
+QKV bias), MusicGen's cross-attention to a conditioning sequence and
+DeepSeek-V2's Multi-head Latent Attention.
 
 Decode-time KV caches are functional values, as in the reference:
 :func:`self_attention` returns a new layer cache and leaves the one it
@@ -37,6 +37,18 @@ def init_self_attention(cfg, gen: torch.Generator, device=None) -> dict:
         for name, width in (("bq", H * D), ("bk", K * D), ("bv", K * D)):
             p[name] = torch.zeros((width,), dtype=dt, device=device)
     return p
+
+
+def init_cross_attention(cfg, gen: torch.Generator, device=None) -> dict:
+    """MHA cross-attention's four (E, H·D) / (H·D, E) projections."""
+    E, H, D = cfg.d_model, cfg.n_heads, cfg.head_dim
+    dt = cfg.dtype("param")
+    return {
+        "wq": dense_init(gen, (E, H * D), dt, device=device),
+        "wk": dense_init(gen, (E, H * D), dt, device=device),
+        "wv": dense_init(gen, (E, H * D), dt, device=device),
+        "wo": dense_init(gen, (H * D, E), dt, device=device),
+    }
 
 
 def init_mla(cfg, gen: torch.Generator, device=None) -> dict:
@@ -79,6 +91,19 @@ def make_kv_cache(cfg, batch: int, max_len: int, n_layers: int,
         "pos": torch.full((n_layers, batch, slots), -1, dtype=torch.int32,
                           device=dev),
     }
+
+
+def make_cross_cache(cfg, batch: int, n_layers: int,
+                     device=None) -> dict:
+    """The stacked layers' cross-attention keys and values (``ck``,
+    ``cv``: (n_layers, batch, cond_len, H, D) in the compute dtype),
+    zeros, as the reference makes them: a pass with this cache attends
+    to them and never projects its ``cond``."""
+    dev = resolve_device(device)
+    shape = (n_layers, batch, cfg.cond_len, cfg.n_heads, cfg.head_dim)
+    dt = cfg.dtype("compute")
+    return {"ck": torch.zeros(shape, dtype=dt, device=dev),
+            "cv": torch.zeros(shape, dtype=dt, device=dev)}
 
 
 def make_mla_cache(cfg, batch: int, max_len: int, n_layers: int,
@@ -139,8 +164,11 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
                    drop_past: bool = False):
     """GQA self-attention.
 
-    x: (B, S, E); positions: (B, S); layer_cache: this layer's slice of
-    the KV cache (prefill / decode) or None (a full-sequence pass).
+    x: (B, S, E); positions: (B, S), or (B, 3, S) for M-RoPE, whose
+    rotation takes the triples while the cache slots, their ``pos`` and
+    the mask take the w row ``positions[:, -1, :]``, as the reference's
+    do; layer_cache: this layer's slice of the KV cache (prefill /
+    decode) or None (a full-sequence pass).
     Returns (out, new_layer_cache). Every weight in ``p`` may carry a
     leading batch axis, one row's weights each (the group engine's
     per-slot weights: (B, E, F) products and (B, F) biases).
@@ -148,8 +176,8 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     Without a cache it calls the flash attention, as the reference's
     ``_maybe_pallas`` does: causal by index, ``window =
     cfg.sliding_window``, scale 1/√D, so it assumes each row's positions
-    are 0..S−1; the tensors' device chooses the CUDA kernel or its plain
-    version. A pass that autograd records (a training loss) goes
+    are 0..S−1 (``ArchConfig`` docstring); the tensors' device chooses
+    the CUDA kernel or its plain version. A pass that autograd records (a training loss) goes
     through ``flash_attention_with_vjp``, whose backward is the plain
     version's, and refuses an ``attention_impl`` other than ``"xla"``
     with ``NotPortedError`` (the reference's Pallas kernel has no VJP).
@@ -172,6 +200,7 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     q = rope_lib.apply_rope(cfg, xq.reshape(B, S, H, D), positions)
     k = rope_lib.apply_rope(cfg, xk.reshape(B, S, K, D), positions)
     v = xv.reshape(B, S, K, D)
+    flat_pos = positions[:, -1, :] if positions.ndim == 3 else positions
 
     scale = 1.0 / (D ** 0.5)
     new_cache = layer_cache
@@ -181,15 +210,44 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         out = fa_ops.flash_attention_with_vjp(
             q, k, v, window=cfg.sliding_window, scale=scale)
     else:
-        slots = _slots_for(cfg, positions)
+        slots = _slots_for(cfg, flat_pos)
         kc = _write_slots(layer_cache["k"], k, slots, drop_past)
         vc = _write_slots(layer_cache["v"], v, slots, drop_past)
-        pc = _write_slots(layer_cache["pos"], positions, slots, drop_past)
+        pc = _write_slots(layer_cache["pos"], flat_pos, slots, drop_past)
         new_cache = {"k": kc, "v": vc, "pos": pc}
-        bias = causal_mask_bias(positions, pc, cfg.sliding_window, pc >= 0)
+        bias = causal_mask_bias(flat_pos, pc, cfg.sliding_window, pc >= 0)
         out = softmax_attention(q, kc, vc, bias, scale,
                                 DTYPES[cfg.attention_scores_dtype])
     return out.reshape(B, S, H * D) @ p["wo"].to(cdt), new_cache
+
+
+def cross_attention(cfg, p: dict, x: torch.Tensor,
+                    cond: Optional[torch.Tensor],
+                    layer_cache: Optional[dict] = None):
+    """MHA cross-attention to a (B, Lc, E) conditioning sequence. x:
+    (B, S, E); layer_cache: this layer's ``{"ck", "cv"}`` or None.
+    Returns (out, ``{"ck", "cv"}``).
+
+    As in the reference, a cache's keys and values are taken whenever
+    there is one, and ``cond`` is then not read (the serving engines'
+    caches hold zeros); without one, k and v are ``cond``'s projections.
+    The scores are fp32 whatever ``attention_scores_dtype`` says (the
+    reference passes it no scores dtype), unmasked. Every weight may
+    carry a leading batch axis (the group engine's per-slot weights)."""
+    B, S, _ = x.shape
+    H, D = cfg.n_heads, cfg.head_dim
+    cdt = cfg.dtype("compute")
+    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, D)
+    if layer_cache is not None:
+        k, v = layer_cache["ck"], layer_cache["cv"]
+    else:
+        Lc = cond.shape[1]
+        k = (cond @ p["wk"].to(cdt)).reshape(B, Lc, H, D)
+        v = (cond @ p["wv"].to(cdt)).reshape(B, Lc, H, D)
+    bias = torch.zeros((B, 1, S, k.shape[1]), dtype=torch.float32,
+                       device=x.device)
+    out = softmax_attention(q, k, v, bias, 1.0 / (D ** 0.5))
+    return out.reshape(B, S, H * D) @ p["wo"].to(cdt), {"ck": k, "cv": v}
 
 
 def _heads(w: torch.Tensor, r: int, H: int, d: int) -> torch.Tensor:

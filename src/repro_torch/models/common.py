@@ -1,7 +1,8 @@
-"""Shared layer primitives — the port of the parts of
-``repro.models.common`` the SSM and dense families use: RMSNorm, the
-parameter initialisers, the position-mask bias, the materialised
-softmax attention and the token-mean cross-entropy.
+"""Shared layer primitives — the port of ``repro.models.common``:
+RMSNorm, the parameter initialisers, the embedding rows and heads of
+every family (the audio family's codebook tables too), sinusoidal
+positions, the position-mask bias, the materialised softmax attention
+and the token-mean cross-entropy.
 
 The initialisers draw from a ``torch.Generator``, so they give the
 reference's distributions (a truncated normal of fan-in scale, a
@@ -44,29 +45,48 @@ def per_row(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return w.reshape(w.shape[0], *[1] * (like.ndim - 2), w.shape[-1])
 
 
+def _rows(table: torch.Tensor, tokens: torch.Tensor,
+          agents: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rows of a (V, E) table, or with ``agents`` of each batch row's
+    agent's table of stacked (A, V, E), for (B, S) tokens."""
+    # F.embedding, not indexing: the same rows, and its backward sums a
+    # table row's gradients in a fixed order (indexing's accumulates in
+    # the order threads get to them on the CPU)
+    if agents is None:
+        return torch.nn.functional.embedding(tokens.long(), table)
+    return table[agents[:, None], tokens.long()]
+
+
 def embed_rows(cfg, params: dict, tokens: torch.Tensor,
                agents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The embedding rows the tokens pick, cast to the compute dtype
     (the reference casts the whole table first, which gives the same
     values); with ``agents`` (B,), row b's from agent ``agents[b]``'s
-    table of stacked planes (A, V, E)."""
+    table of stacked planes (A, V, E). The audio family's tokens are
+    (B, C, S) over C codebook tables (C, V, E) (per agent (A, C, V,
+    E)): the C rows of a position are summed in the compute dtype, in
+    codebook order, as the reference sums them."""
+    cdt = cfg.dtype("compute")
     table = params["embed"]
-    # F.embedding, not indexing: the same rows, and its backward sums a
-    # table row's gradients in a fixed order (indexing's accumulates in
-    # the order threads get to them on the CPU)
-    rows = (torch.nn.functional.embedding(tokens.long(), table)
-            if agents is None else table[agents[:, None], tokens.long()])
-    return rows.to(cfg.dtype("compute"))
+    if cfg.family != "audio":
+        return _rows(table, tokens, agents).to(cdt)
+    x = 0
+    for c in range(cfg.n_codebooks):
+        book = table[c] if agents is None else table[:, c]
+        x = x + _rows(book, tokens[:, c], agents).to(cdt)
+    return x
 
 
 def head_weight(cfg, params: dict,
                 agents: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The LM head (E, V) — the embedding's transpose when tied — or,
     with ``agents`` (B,), each row's agent's (B, E, V) from stacked
-    planes; not yet cast."""
+    planes; the audio family's C codebook heads (C, E, V), per agent
+    (B, C, E, V). Not yet cast."""
+    tied = cfg.tie_embeddings and cfg.family != "audio"
     if agents is None:
-        return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    if cfg.tie_embeddings:
+        return params["embed"].T if tied else params["lm_head"]
+    if tied:
         return params["embed"][agents].transpose(-1, -2)
     return params["lm_head"][agents]
 
@@ -111,6 +131,18 @@ def embed_init(gen: torch.Generator, shape: Sequence[int],
     device = device if device is not None else gen.device
     return (torch.randn(tuple(shape), generator=gen, device=device,
                         dtype=torch.float32) * 0.02).to(dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, dim: int,
+                         max_timescale: float = 1e4) -> torch.Tensor:
+    """Classic sinusoidal embeddings; positions (..., S) int → (..., S,
+    dim) fp32, [sin, cos] of positions × exp(−ln(max_timescale) · j /
+    (dim/2)), in the reference's order of operations."""
+    half = dim // 2
+    freq = torch.exp(-math.log(max_timescale)
+                     * torch.arange(half, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def causal_mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor,

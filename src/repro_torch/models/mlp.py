@@ -1,11 +1,10 @@
-"""Feed-forward blocks — the port of the SwiGLU half of
-``repro.models.mlp`` (the GELU MLP of the audio family is not
-ported)."""
+"""Feed-forward blocks — the port of ``repro.models.mlp``: SwiGLU
+(the llama family) and the GELU MLP (MusicGen)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, per_row
 
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
@@ -24,3 +23,26 @@ def swiglu(p: dict, x: torch.Tensor, compute_dtype: torch.dtype
     g = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
     return (torch.nn.functional.silu(g) * u) @ p["w_down"].to(compute_dtype)
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype, device=None) -> dict:
+    return {
+        "w1": dense_init(gen, (d_model, d_ff), dtype, device=device),
+        "b1": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w2": dense_init(gen, (d_ff, d_model), dtype, device=device),
+        "b2": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu_mlp(p: dict, x: torch.Tensor, compute_dtype: torch.dtype
+             ) -> torch.Tensor:
+    """gelu(x W1 + b1) W2 + b2 with GELU's tanh approximation, which is
+    what the reference's ``jax.nn.gelu`` computes by default; weights
+    cast to the compute dtype per call. Each weight may carry a leading
+    batch axis (the group engine's per-slot weights)."""
+    h = x @ p["w1"].to(compute_dtype)
+    h = h + per_row(p["b1"], h).to(compute_dtype)
+    h = torch.nn.functional.gelu(h, approximate="tanh")
+    out = h @ p["w2"].to(compute_dtype)
+    return out + per_row(p["b2"], out).to(compute_dtype)

@@ -1,5 +1,6 @@
-"""Public model API — the port of ``repro.models.model`` for the SSM,
-dense, MoE and hybrid families:
+"""Public model API — the port of ``repro.models.model`` for every
+family of the zoo (SSM, dense, MoE, hybrid, VLM and audio; the dense,
+MoE, VLM and audio families share one transformer):
 
     model = get_model(cfg)
     params = model.init(cfg, generator, device)
@@ -22,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, Optional
 
-from repro_torch.configs.base import ArchConfig, NotPortedError
+from repro_torch.configs.base import TRANSFORMER_FAMILIES, ArchConfig
 from repro_torch.models import hybrid as hy
 from repro_torch.models import ssm_model as ssm
 from repro_torch.models import transformer as tf
@@ -82,9 +83,6 @@ _FAMILIES: Dict[str, Model] = {
 
 
 def get_model(cfg: ArchConfig) -> Model:
-    family = ("transformer" if cfg.family in ("dense", "moe")
-              else cfg.family)
-    if family not in _FAMILIES:
-        raise NotPortedError(f"model family {cfg.family!r} is not ported "
-                             f"to repro_torch yet")
-    return _FAMILIES[family]
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return _FAMILIES["transformer"]
+    return _FAMILIES[cfg.family]

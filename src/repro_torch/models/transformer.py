@@ -1,18 +1,26 @@
 """Decoder-only transformer — the port of ``repro.models.transformer``
-for the dense and MoE families (RMSNorm, GQA self-attention with RoPE or
-Multi-head Latent Attention, a SwiGLU or a routed MoE feed-forward, and
+for the dense, MoE, VLM and audio families (RMSNorm, GQA self-attention
+with RoPE or M-RoPE or Multi-head Latent Attention, MusicGen's
+cross-attention, a SwiGLU, GELU or routed MoE feed-forward, and
 DeepSeek's leading dense layer).
 
 Parameters keep the reference's pytree: ``{"embed", "final_norm",
-["lm_head",] "layers": {"ln1", "ln2", "attn": {...}, "mlp" | "moe":
-{...}}, ["layer0": {"ln1", "ln2", "attn", "mlp"}]}`` with every stacked
-leaf on axis 0 (``n_layers − first_k_dense`` layers) and ``layer0``
-unstacked, and so does the cache (``{"layers": {"kv": {"k", "v", "pos"}
-| {"ckv", "k_rope", "pos"}}, ["layer0": {"kv": ...}]}``, each leaf
-(n_layers, batch, ...), ``layer0``'s (1, batch, ...)). The reference
-scans over the stacked layers after running ``layer0``; here a Python
-loop takes layer ``i``'s views. Cross-attention and the VLM and audio
-families are not ported.
+["lm_head",] "layers": {"ln1", "ln2", "attn": {...}, ["ln_x", "xattn":
+{...},] "mlp" | "moe": {...}}, ["layer0": {"ln1", "ln2", "attn",
+"mlp"}]}`` with every stacked leaf on axis 0 (``n_layers −
+first_k_dense`` layers) and ``layer0`` unstacked, and so does the cache
+(``{"layers": {"kv": {"k", "v", "pos"} | {"ckv", "k_rope", "pos"},
+["xkv": {"ck", "cv"}]}, ["layer0": {"kv": ...}]}``, each leaf
+(n_layers, batch, ...), ``layer0``'s (1, batch, ...)). The audio
+family's ``embed`` is (n_codebooks, V, E) and its ``lm_head``
+(n_codebooks, E, V). The reference scans over the stacked layers after
+running ``layer0``; here a Python loop takes layer ``i``'s views.
+
+The modality front ends are stubbed, as in the reference: a VLM batch
+carries ``vision`` (B, vision_prefix, E), pre-projected patch
+embeddings put ahead of the text's, and positions (B, 3, S) over the
+whole sequence; an audio batch carries tokens (B, n_codebooks, S),
+positions (B, S) and ``cond`` (B, cond_len, E).
 """
 from __future__ import annotations
 
@@ -25,22 +33,29 @@ from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
                                        stack_layers, unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (cross_entropy, dense_init, embed_init,
-                                       embed_rows, head_weight, rms_norm)
-from repro_torch.models.mlp import init_swiglu, swiglu
+                                       embed_rows, head_weight, rms_norm,
+                                       sinusoidal_positions)
+from repro_torch.models.mlp import gelu_mlp, init_gelu_mlp, init_swiglu, swiglu
 from repro_torch.models.moe import init_moe, moe_apply
 
 
 def _init_layer(cfg, gen: torch.Generator, device,
                 dense_ff: Optional[int]) -> dict:
-    """One decoder layer: MLA or GQA attention, and a dense SwiGLU of
-    ``dense_ff`` or, when it is None, the routed experts."""
+    """One decoder layer: MLA or GQA attention, cross-attention with
+    its norm where the config asks for it, and a dense feed-forward of
+    ``dense_ff`` (GELU for the audio family, else SwiGLU) or, when it is
+    None, the routed experts."""
     dt = cfg.dtype("param")
     p = {"ln1": torch.ones((cfg.d_model,), dtype=dt, device=device),
          "ln2": torch.ones((cfg.d_model,), dtype=dt, device=device),
          "attn": (attn.init_mla(cfg, gen, device) if cfg.mla is not None
                   else attn.init_self_attention(cfg, gen, device))}
+    if cfg.cross_attention:
+        p["ln_x"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
+        p["xattn"] = attn.init_cross_attention(cfg, gen, device)
     if dense_ff is not None:
-        p["mlp"] = init_swiglu(gen, cfg.d_model, dense_ff, dt, device)
+        init_ff = init_gelu_mlp if cfg.family == "audio" else init_swiglu
+        p["mlp"] = init_ff(gen, cfg.d_model, dense_ff, dt, device)
     else:
         p["moe"] = init_moe(cfg, gen, device)
     return p
@@ -54,9 +69,14 @@ def init_transformer(cfg, gen: torch.Generator, device=None) -> dict:
     dev = resolve_device(device)
     dt = cfg.dtype("param")
     V, E = cfg.vocab_size, cfg.d_model
-    params = {"embed": embed_init(gen, (V, E), dt, dev)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (E, V), dt, device=dev)
+    if cfg.family == "audio":
+        C = cfg.n_codebooks
+        params = {"embed": embed_init(gen, (C, V, E), dt, dev),
+                  "lm_head": dense_init(gen, (C, E, V), dt, device=dev)}
+    else:
+        params = {"embed": embed_init(gen, (V, E), dt, dev)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, (E, V), dt, device=dev)
     params["final_norm"] = torch.ones((E,), dtype=dt, device=dev)
     dense_ff = cfg.d_ff if cfg.moe is None else None
     params["layers"] = init_stacked(
@@ -68,9 +88,10 @@ def init_transformer(cfg, gen: torch.Generator, device=None) -> dict:
 
 
 def _layer_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                 layer_cache: Optional[dict], drop_past: bool = False):
+                 cond: Optional[torch.Tensor], layer_cache: Optional[dict],
+                 drop_past: bool = False):
     """One layer → (x, aux, new layer cache or None); aux is the MoE's
-    auxiliary loss, 0 for a dense feed-forward."""
+    auxiliary loss, None for a dense feed-forward."""
     cdt = cfg.dtype("compute")
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     kv = None if layer_cache is None else layer_cache["kv"]
@@ -81,17 +102,50 @@ def _layer_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         a, new_cache = attn.self_attention(cfg, p["attn"], h, positions, kv,
                                            drop_past)
     x = x + a
+    out_cache = None if layer_cache is None else {"kv": new_cache}
+    if cfg.cross_attention:
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        cx, xkv = attn.cross_attention(
+            cfg, p["xattn"], hx, cond,
+            None if layer_cache is None else layer_cache["xkv"])
+        x = x + cx
+        if out_cache is not None:
+            out_cache["xkv"] = xkv
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     if "moe" in p:
         f, aux = moe_apply(cfg, p["moe"], h2)
+    elif cfg.family == "audio":
+        f, aux = gelu_mlp(p["mlp"], h2, cdt), None
     else:
         f, aux = swiglu(p["mlp"], h2, cdt), None
-    return x + f, aux, None if layer_cache is None else {"kv": new_cache}
+    return x + f, aux, out_cache
+
+
+def _embed(cfg, params: dict, batch: dict,
+           agents: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The input rows in the compute dtype: the token embeddings; the
+    audio family's summed codebook rows plus sinusoidal positions of
+    ``positions`` (B, S); the VLM's ``vision`` rows ahead of the text's
+    where the batch has them (a prefill or scoring pass, not a decode
+    step)."""
+    cdt = cfg.dtype("compute")
+    x = embed_rows(cfg, params, batch["tokens"], agents)
+    if cfg.family == "audio":
+        return x + sinusoidal_positions(batch["positions"],
+                                        cfg.d_model).to(cdt)
+    if cfg.family == "vlm" and batch.get("vision") is not None:
+        x = torch.cat([batch["vision"].to(cdt), x], dim=1)
+    return x
 
 
 def _lm_head(cfg, params: dict, x: torch.Tensor,
              agents: Optional[torch.Tensor] = None) -> torch.Tensor:
-    return x @ head_weight(cfg, params, agents).to(cfg.dtype("compute"))
+    """Logits (B, S, V), or the audio family's (B, C, S, V)."""
+    w = head_weight(cfg, params, agents).to(cfg.dtype("compute"))
+    if cfg.family == "audio":
+        return torch.einsum("bsd,kdv->bksv" if agents is None
+                            else "bsd,bkdv->bksv", x, w)
+    return x @ w
 
 
 def check_fits(cfg, last: int, max_len: int) -> None:
@@ -115,15 +169,19 @@ def _run_layers(cfg, params: dict, batch: dict, cache: Optional[dict],
     cache or None): ``layer0`` first, then the stack. With ``agents``,
     ``params`` are stacked planes and each layer's weights are gathered
     for the batch rows just before it runs (``layer0``'s planes are
-    (A, ...), with no depth axis)."""
+    (A, ...), with no depth axis). ``cond``, where the batch has it,
+    goes to every layer's cross-attention in the compute dtype."""
     positions = batch["positions"]
-    x = embed_rows(cfg, params, batch["tokens"], agents)
+    cond = batch.get("cond")
+    if cond is not None:
+        cond = cond.to(cfg.dtype("compute"))
+    x = _embed(cfg, params, batch, agents)
     new_cache = None if cache is None else {}
     if cfg.first_k_dense:
         lp = (params["layer0"] if agents is None
               else slot_layer(params["layer0"], agents))
         x, _, lc = _layer_apply(
-            cfg, lp, x, positions,
+            cfg, lp, x, positions, cond,
             None if cache is None else layer(cache["layer0"], 0), drop_past)
         if cache is not None:
             new_cache["layer0"] = stack_layers([lc])
@@ -136,7 +194,7 @@ def _run_layers(cfg, params: dict, batch: dict, cache: Optional[dict],
         lp = (views[i] if agents is None
               else slot_layer(params["layers"], agents, i))
         x, aux, lc = _layer_apply(
-            cfg, lp, x, positions,
+            cfg, lp, x, positions, cond,
             None if cache is None else layer(cache["layers"], i), drop_past)
         if aux is not None:
             aux_sum = aux_sum + aux
@@ -152,7 +210,9 @@ def _run_layers(cfg, params: dict, batch: dict, cache: Optional[dict],
 def transformer_forward(cfg, params: dict, batch: dict,
                         cache: Optional[dict] = None):
     """Full-sequence pass (scoring / prefill). batch: tokens (B, S),
-    positions (B, S) [, labels]. Returns (logits, aux, new_cache): aux
+    positions (B, S) [, labels] (VLM: tokens (B, S − vision_prefix),
+    ``vision``, positions (B, 3, S); audio: tokens (B, C, S), ``cond``).
+    Returns (logits, aux, new_cache): aux
     is the MoE layers' auxiliary loss summed over the stacked layers (0
     for a dense model; ``layer0`` is dense), and the cache is None
     unless one is given to continue from. With a cache, a dense model's
@@ -175,8 +235,8 @@ def transformer_forward(cfg, params: dict, batch: dict,
 
 def transformer_decode(cfg, params: dict, batch: dict, cache: dict,
                        agents: Optional[torch.Tensor] = None):
-    """One-token decode. batch: tokens (B, 1), positions (B, 1), which
-    the caller has checked against the cache (``check_fits``): nothing
+    """One-token decode. batch: tokens (B, 1) (audio: (B, C, 1)),
+    positions (B, 1) (VLM: (B, 3, 1)), which the caller has checked against the cache (``check_fits``): nothing
     here reads a value back from the card. With ``agents`` (B,) (long,
     on the planes' device), ``params`` are stacked planes (leaves (A,
     ...)) and row b runs under agent ``agents[b]``'s weights, gathered
@@ -187,20 +247,27 @@ def transformer_decode(cfg, params: dict, batch: dict, cache: dict,
 
 def transformer_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
     """Token-mean cross-entropy of a cache-free pass over ``labels``
-    (−100 ignored) plus the MoE auxiliary loss."""
+    (−100 ignored) plus the MoE auxiliary loss. A VLM's labels cover
+    the whole (vision + text) sequence, the vision rows −100; an audio
+    batch's are (B, C, S), one row per codebook."""
     logits, aux, _ = transformer_forward(cfg, params, batch)
     return cross_entropy(logits, batch["labels"]) + aux
 
 
 def make_transformer_cache(cfg, batch: int, max_len: int,
                            device=None) -> dict:
-    """The stacked layers' KV (or MLA latent) cache and, with a leading
-    dense layer, ``layer0``'s of depth 1."""
+    """The stacked layers' KV (or MLA latent) cache, with the
+    cross-attention's zero keys and values where the config has
+    cross-attention, and, with a leading dense layer, ``layer0``'s of
+    depth 1."""
     make = attn.make_mla_cache if cfg.mla is not None else attn.make_kv_cache
-    cache = {"layers": {"kv": make(cfg, batch, max_len,
-                                   cfg.n_layers - cfg.first_k_dense,
-                                   device=device)}}
+
+    def one(n):
+        entry = {"kv": make(cfg, batch, max_len, n, device=device)}
+        if cfg.cross_attention:
+            entry["xkv"] = attn.make_cross_cache(cfg, batch, n, device)
+        return entry
+    cache = {"layers": one(cfg.n_layers - cfg.first_k_dense)}
     if cfg.first_k_dense:
-        cache["layer0"] = {"kv": make(cfg, batch, max_len, 1,
-                                      device=device)}
+        cache["layer0"] = one(1)
     return cache

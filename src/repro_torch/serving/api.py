@@ -3,8 +3,9 @@
 
 * :class:`ServeConfig` — the serving knobs every engine shares;
 * :func:`build_prefill_batch`, :func:`decode_batch`,
-  :func:`last_logits` — batch dicts of the default family (token ids
-  and positions) and the next-token slice;
+  :func:`last_logits` — each family's batch dicts (token ids and
+  positions; the audio family's codebooks and zero ``cond``; the VLM's
+  zero vision prefix and position triples) and the next-token slice;
 * :func:`prefill` — batch prefill into a fresh cache → each row's
   next-token logits and the filled cache;
 * :class:`Sampler`, :class:`StopCriteria` — greedy / temperature
@@ -39,21 +40,52 @@ class ServeConfig:
 
 def decode_batch(cfg: ArchConfig, tokens: torch.Tensor,
                  positions: torch.Tensor) -> Dict[str, Any]:
-    """Wrap a (B, 1) token into the decode-batch dict."""
+    """Wrap a (B, 1) token and (B, 1) positions into the decode-batch
+    dict: the audio family's token goes to every codebook (B, C, 1), as
+    the reference broadcasts it, and the VLM's position to all three
+    M-RoPE rows (B, 3, 1)."""
+    B = tokens.shape[0]
+    if cfg.family == "audio":
+        return {"tokens": tokens[:, None, :].expand(B, cfg.n_codebooks, 1),
+                "positions": positions}
+    if cfg.family == "vlm":
+        return {"tokens": tokens,
+                "positions": positions[:, None, :].expand(B, 3, 1)}
     return {"tokens": tokens, "positions": positions}
 
 
 def last_logits(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
-    """(B, V) next-token logits from a decode/prefill output."""
+    """(B, V) next-token logits from a decode/prefill output: the audio
+    family samples from codebook 0 of its (B, C, T, V), as the
+    reference does."""
+    if cfg.family == "audio":
+        return logits[:, 0, -1, :]
     return logits[:, -1, :]
 
 
 def build_prefill_batch(cfg: ArchConfig, tokens: torch.Tensor
                         ) -> Dict[str, Any]:
-    """(B, P) right-padded prompt ids → the prefill batch."""
+    """(B, P) right-padded prompt ids → the family's prefill batch. The
+    audio family's ids go to every codebook, with a zero ``cond``
+    (which a pass with a cache never reads: ``cross_attention``); the
+    VLM's follow a zero vision prefix, positions 0 .. P + vision_prefix
+    − 1 on all three rows."""
     B, P = tokens.shape
-    pos = torch.arange(P, dtype=torch.int32,
-                       device=tokens.device).expand(B, P)
+    dev = tokens.device
+    pos = torch.arange(P, dtype=torch.int32, device=dev).expand(B, P)
+    cdt = cfg.dtype("compute")
+    if cfg.family == "audio":
+        return {"tokens": tokens[:, None, :].expand(B, cfg.n_codebooks, P),
+                "positions": pos,
+                "cond": torch.zeros((B, cfg.cond_len, cfg.d_model),
+                                    dtype=cdt, device=dev)}
+    if cfg.family == "vlm":
+        vp = cfg.vision_prefix
+        return {"tokens": tokens,
+                "vision": torch.zeros((B, vp, cfg.d_model), dtype=cdt,
+                                      device=dev),
+                "positions": torch.arange(P + vp, dtype=torch.int32,
+                                          device=dev).expand(B, 3, P + vp)}
     return {"tokens": tokens, "positions": pos}
 
 
@@ -82,7 +114,14 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
     absorbed them, so that row decodes on from there. The hybrid's
     Mamba2 states absorb the pads past ``max_len`` too, and a MoE
     model's experts route them, whose KV writes are dropped, as in the
-    reference."""
+    reference.
+
+    The next-token row is index ``lengths − 1`` of the logits, as in
+    the reference: the audio family's codebook 0; the VLM's over the
+    whole (vision + text) sequence, so a VLM prompt's row lies
+    ``vision_prefix`` rows before its last token's (ROADMAP §3: the
+    reference's serving ignores the prefix offset). A VLM's cache must
+    hold P + ``vision_prefix`` positions."""
     B, P = tokens.shape[:2]
     if P > max_len and model.kv_pos is not None:
         check_fits(cfg, int(np.max(host_ints(lengths))) - 1, max_len)
@@ -93,8 +132,10 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
         lengths = torch.from_numpy(np.asarray(lengths, np.int64))
     idx = torch.clamp(lengths.to(logits.device, torch.long,
                                  non_blocking=True) - 1, min=0)
-    nxt = logits[torch.arange(B, device=logits.device), idx, :]
-    return nxt, cache
+    rows = torch.arange(B, device=logits.device)
+    if cfg.family == "audio":
+        return logits[rows, 0, idx, :], cache
+    return logits[rows, idx, :], cache
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,9 +55,11 @@ def prefill_width(cfg: ArchConfig, prompt_pad: int, n: int,
                   max_len: int) -> int:
     """The padded prefill width of an ``n``-token prompt:
     :func:`pad_prompt`'s, cut to the KV cache for a model that has one,
-    no window, no recurrent state and no experts (dense). The reference
-    drops the KV writes of pad positions past ``max_len``; no real
-    token attends to them, so cutting them off gives the same logits.
+    no window, no recurrent state and no experts (dense, VLM, audio),
+    less the VLM's vision prefix, which the prefill puts ahead of the
+    prompt. The reference drops the KV writes of pad positions past
+    ``max_len``; no real token attends to them, so cutting them off
+    gives the same logits.
     The hybrid and the MoE models are not cut: the hybrid's Mamba2
     states run through every pad, and an expert's capacity grows with
     the padded width, so a cut width would route and drop tokens
@@ -67,7 +69,7 @@ def prefill_width(cfg: ArchConfig, prompt_pad: int, n: int,
     width = pad_prompt(prompt_pad, n)
     if (get_model(cfg).kv_pos is not None and cfg.ssm is None
             and cfg.moe is None and not cfg.sliding_window):
-        width = max(n, min(width, max_len))
+        width = max(n, min(width, max_len - cfg.vision_prefix))
     return width
 
 

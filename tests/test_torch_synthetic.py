@@ -26,7 +26,6 @@
 from __future__ import annotations
 
 import dataclasses
-import types
 
 import jax
 import jax.numpy as jnp
@@ -44,8 +43,7 @@ from repro.models import get_model as ref_model  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.common.pytree import tree_leaves_with_paths  # noqa: E402
 from repro_torch.configs import get_arch_config  # noqa: E402
-from repro_torch.configs.base import (NotPortedError,  # noqa: E402
-                                      ShapeConfig)
+from repro_torch.configs.base import NotPortedError, ShapeConfig  # noqa: E402
 from repro_torch.data import synthetic as syn  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -106,10 +104,70 @@ def test_streams_are_deterministic_per_agent_and_shaped_as_reference():
     uni = syn.make_agent_batch(pcfg, shape, syn.StreamSpec(kind="uniform"),
                                0, 0, "cpu")
     assert int(uni["tokens"].max()) < pcfg.vocab_size
-    for family in ("audio", "vlm"):
-        with pytest.raises(NotPortedError):
-            syn.make_agent_batch(types.SimpleNamespace(family=family),
-                                 shape, spec, 0, 0, "cpu")
+    for arch in ("musicgen-medium", "qwen2-vl-72b"):     # since slice 15
+        batch = syn.make_agent_batch(get_arch_config(arch).reduced(), shape,
+                                     spec, 0, 0, "cpu")
+        assert int(batch["tokens"].max()) < spec.n_states
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-72b"])
+def test_modal_batches_are_shaped_as_reference(arch):
+    """The audio and VLM batches: the reference's keys, shapes and
+    dtypes (``cond`` / ``vision`` in the compute dtype), deterministic
+    per agent and step, the stub embeddings 0.02 · N(0, 1)."""
+    pcfg, rcfg = get_arch_config(arch).reduced(), ref_arch(arch).reduced()
+    shape = ShapeConfig("t", 24, 3, "train")
+    spec = syn.StreamSpec(seed=4)
+    got = syn.make_group_batch(pcfg, shape, spec, 2, 5, "cpu")
+    want = ref_syn.make_group_batch(rcfg, RefShape("t", 24, 3, "train"),
+                                    RefStream(seed=4), 2, 5)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert tuple(got[k].shape) == v.shape, k
+        assert str(got[k].dtype).split(".")[1] == str(v.dtype), k
+        assert torch.equal(got[k], syn.make_group_batch(
+            pcfg, shape, spec, 2, 5, "cpu")[k]), k
+    emb = got["cond" if "cond" in got else "vision"]
+    assert 0.015 < float(emb.std()) < 0.025
+    assert not torch.equal(emb[0], emb[1])               # per agent
+    np.testing.assert_array_equal(got["positions"].numpy(),
+                                  np.asarray(want["positions"]))
+
+
+def test_audio_delay_pattern():
+    """MusicGen's delay pattern: codebook c is its own stream shifted
+    right by c frames behind token 0, and its labels are −100 where t <
+    c and the tokens elsewhere (the reference's layout)."""
+    cfg = get_arch_config("musicgen-medium").reduced()
+    shape = ShapeConfig("t", 20, 2, "train")
+    b = syn.make_agent_batch(cfg, shape, syn.StreamSpec(seed=9), 1, 3, "cpu")
+    t, lab = b["tokens"], b["labels"]
+    assert t.shape == (2, cfg.n_codebooks, 20)
+    for c in range(cfg.n_codebooks):
+        assert bool((t[:, c, :c] == 0).all())
+        assert bool((lab[:, c, :c] == -100).all())
+        assert torch.equal(lab[:, c, c:], t[:, c, c:])
+        frames = syn._tokens(syn.StreamSpec(seed=9), cfg.vocab_size, 1, 3,
+                             2, 20, c)
+        assert torch.equal(t[:, c, c:], frames[:, :20 - c])
+    assert not torch.equal(t[:, 0, 3:], t[:, 1, 4:])    # own stream each
+    assert b["cond"].shape == (2, cfg.cond_len, cfg.d_model)
+
+
+def test_vlm_batch_labels_and_positions():
+    """The VLM batch: S − vision_prefix text tokens, labels over the
+    whole sequence with −100 on the prefix and the text after it, and
+    positions 0..S−1 on all three M-RoPE rows."""
+    cfg = get_arch_config("qwen2-vl-72b").reduced()
+    vp, S = cfg.vision_prefix, 20
+    b = syn.make_agent_batch(cfg, ShapeConfig("t", S, 2, "train"),
+                             syn.StreamSpec(seed=9), 0, 0, "cpu")
+    assert b["tokens"].shape == (2, S - vp)
+    assert b["vision"].shape == (2, vp, cfg.d_model)
+    assert bool((b["labels"][:, :vp] == -100).all())
+    assert torch.equal(b["labels"][:, vp:], b["tokens"])
+    assert b["positions"].shape == (2, 3, S)
+    assert bool((b["positions"] == torch.arange(S, dtype=torch.int32)).all())
 
 
 def _grads_against_reference(arch, seq, tol, **cfg_kw):

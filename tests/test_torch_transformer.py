@@ -43,7 +43,7 @@ from repro_torch import interop  # noqa: E402
 from repro_torch.common.pytree import (layer,  # noqa: E402
                                        tree_leaves_with_paths)
 from repro_torch.configs import get_arch_config  # noqa: E402
-from repro_torch.configs.base import ArchConfig, NotPortedError  # noqa: E402
+from repro_torch.configs.base import ArchConfig  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.models import (attention, common,  # noqa: E402
                                 get_model, mlp, rope, transformer)
@@ -130,11 +130,15 @@ def test_published_and_reduced_configs_equal_the_reference():
 
 
 def test_unported_dense_fields_are_refused():
+    """The VLM and audio fields construct now (slice 15): M-RoPE, both
+    families and cross-attention; unknown values still raise
+    ``ValueError``."""
     base = get_arch_config(ARCH)
     for kw in (dict(rope_mode="mrope"), dict(family="vlm"),
                dict(family="audio"), dict(cross_attention=True)):
-        with pytest.raises(NotPortedError):
-            base.with_(**kw)
+        cfg = base.with_(**kw)
+        for k, v in kw.items():
+            assert getattr(cfg, k) == v
     with pytest.raises(ValueError, match="rope_mode"):
         base.with_(rope_mode="alibi")
     with pytest.raises(ValueError, match="attention_impl"):
@@ -143,9 +147,12 @@ def test_unported_dense_fields_are_refused():
         base.with_(attention_scores_dtype="float16")
     with pytest.raises(ValueError, match="n_kv_heads dividing"):
         base.with_(n_kv_heads=5)
-    with pytest.raises(NotPortedError, match="family='audio'"):
-        ArchConfig(name="x", family="audio", n_layers=1, d_model=8,
-                   n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
+    audio = ArchConfig(name="x", family="audio", n_layers=1, d_model=8,
+                       n_heads=1, n_kv_heads=1, d_ff=8, vocab_size=8)
+    assert (audio.n_codebooks, audio.cond_len, audio.vision_prefix,
+            audio.mrope_sections) == (1, 0, 0, (16, 24, 24))
+    with pytest.raises(ValueError, match="n_kv_heads dividing"):
+        audio.with_(n_heads=3, n_kv_heads=2)
     for impl in ("xla", "pallas", "pallas_interpret"):
         assert base.with_(attention_impl=impl).attention_impl == impl
 

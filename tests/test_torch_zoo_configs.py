@@ -5,6 +5,9 @@ qwen2-7b, granite-3-8b and yi-34b needs only its config files, so two
 of them are also held at ``reduced()`` against the reference's logits.
 The MoE pair qwen3-moe-30b-a3b and deepseek-v2-lite-16b (MLA and a
 leading dense layer) decode with every tensor read patched to raise.
+The VLM qwen2-vl-72b and the audio musicgen-medium are held here by
+their configs and full-width shapes (``xkv`` cache included), and in
+``test_torch_vlm.py`` / ``test_torch_audio.py`` by their numbers.
 
 * Configs: every field equal to the reference's, published and
   ``reduced()`` (the nested ``ssm`` / ``hybrid`` dataclasses by value).
@@ -30,18 +33,19 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS as R_ARCH_IDS  # noqa: E402
 from repro.configs import get_arch_config as r_get_arch_config  # noqa: E402
 from repro.models import model as r_model  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.common.pytree import tree_leaves_with_paths  # noqa: E402
 from repro_torch.configs import ARCH_IDS, get_arch_config  # noqa: E402
 from repro_torch.configs.base import (ArchConfig, HybridConfig,  # noqa: E402
-                                      MLAConfig, MoEConfig, NotPortedError,
-                                      SSMConfig)
+                                      MLAConfig, MoEConfig, SSMConfig)
 from repro_torch.models import get_model  # noqa: E402
 
 MOE = ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b"]
-NEW = ["zamba2-7b", "qwen2-7b", "granite-3-8b", "yi-34b"] + MOE
+MODAL = ["qwen2-vl-72b", "musicgen-medium"]
+NEW = ["zamba2-7b", "qwen2-7b", "granite-3-8b", "yi-34b"] + MOE + MODAL
 ALL = NEW + ["llama3.2-3b", "mamba2-780m"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 DTYPES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
@@ -68,9 +72,16 @@ def test_published_and_reduced_configs_equal_the_reference(arch):
 
 
 def test_registry_has_the_zoo_and_refuses_the_rest():
+    """Every arch of the reference's registry is in the port's (the VLM
+    and audio families since slice 15); an unknown id raises
+    ``KeyError``."""
     assert set(NEW) <= set(ARCH_IDS)
-    with pytest.raises(KeyError, match="unported"):
-        get_arch_config("qwen2-vl-72b")
+    assert set(ARCH_IDS) == set(R_ARCH_IDS)
+    vl = get_arch_config("qwen2-vl-72b")
+    assert (vl.family, vl.rope_mode, vl.mrope_sections,
+            vl.vision_prefix) == ("vlm", "mrope", (16, 24, 24), 256)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch_config("qwen2-vl-7b")
     z = get_arch_config("zamba2-7b")
     assert (z.family, z.head_dim, z.ssm.d_state) == ("hybrid", 112, 64)
     assert z.hybrid == HybridConfig(16, 4, 1, 128)
@@ -83,8 +94,10 @@ def test_registry_has_the_zoo_and_refuses_the_rest():
         ArchConfig(**base, ssm=SSMConfig())
     with pytest.raises(ValueError, match="ssm=SSMConfig"):
         ArchConfig(**base, hybrid=HybridConfig())
-    with pytest.raises(NotPortedError, match="family='vlm'"):
-        ArchConfig(**{**base, "family": "vlm"})
+    vlm = ArchConfig(**{**base, "family": "vlm"})
+    assert (vlm.family, vlm.rope_mode) == ("vlm", "standard")
+    with pytest.raises(ValueError, match="unknown family"):
+        ArchConfig(**{**base, "family": "speech"})
 
 
 def _port_shapes(tree):
@@ -205,8 +218,9 @@ def test_moe_configs_and_their_refusals():
         assert q.with_(moe_dispatch=dispatch).moe_dispatch == dispatch
     for kw in (dict(family="vlm"), dict(family="audio"),
                dict(cross_attention=True), dict(rope_mode="mrope")):
-        with pytest.raises(NotPortedError):
-            d.with_(**kw)
+        cfg = d.with_(**kw)
+        for k, v in kw.items():
+            assert getattr(cfg, k) == v
 
 
 @pytest.mark.parametrize("arch", MOE)
