@@ -107,12 +107,23 @@ Phases, each printing its lines:
    agent's forward), and the sketch kernel on the trainer's own leaves
    (signs on the 77.2 M-position embedding at offsets near 0.86 B, a
    dense (2, 2^23) slice at such an offset against its plain version,
-   time at the largest leaf, 2 x 226.5 M positions);
+   time at the largest leaf, 2 x 226.5 M positions); the pod dispatch
+   (Slice E): ``[train] pods`` (llama3.2-3b's widths cut to 2 layers,
+   4 agents in 2 pods of 2 on the ``hierarchical`` graph, the ``pod``
+   combiner on one device, sketched relevance d 256, int8 planes; the
+   flash kernel once per layer in every agent's forward and the sketch
+   once per leaf per accumulation step) with the cross-pod and flat
+   byte counts, and ``[mesh]``: the launcher under
+   ``torch.distributed.run`` on a (1, 1) ``(pod, agent)`` mesh over
+   NCCL, its checkpoint against the same launcher's one-device run;
 5. the card against the port's CPU path: ``[train-equiv]``, the
    streaming trainer at reduced() llama3.2-3b and mamba2-780m with fp32
    compute, 8 steps with 2 shares, from the same state and batches,
    once on the models' own gradients and once on given gradients (the
    window, its sketch and the learned relevance held step by step);
+   ``[train-equiv] pods``, the same for 4 agents in 2 pods of 2 through
+   the ``pod`` combiner, and the pod run against the flat run on the
+   card on given gradients (parameters within rtol 1e-5 / atol 1e-6);
    small DDA3C groups with seeded
    gradients, fp32 and int8 + learned relevance; a small DDADQN group
    with seeded gradients (target syncs included) and ``dqn_loss`` with
@@ -260,6 +271,11 @@ TRAIN_LABEL = "[train] mamba2-780m"
 TRAIN_SHARES = [4, 8]
 TRAIN_ACCUMULATE = 8            # steps 4 .. 11 add to the window
 LLAMA_TRAIN_LABEL = "[train] llama3.2-3b, 2 layers"
+PODS_TRAIN_LABEL = "[train] pods, llama3.2-3b, 2 layers"
+# 4 agents in 2 pods of 2 on the hierarchical graph (the pod combiner)
+PODS_SPEC = dict(n_agents=4, knowledge_mode="streaming",
+                 topology="hierarchical", degree=2, pods=2)
+POD_TOL = dict(rtol=1e-5, atol=1e-6)   # the reference's pod-dispatch tolerance
 
 KERNELS = {
     "ddal_fused_wavg": dict(
@@ -2679,6 +2695,269 @@ def train_equiv_phase(torch):
                       f"CPU disagree")
 
 
+def train_pods_phase(torch):
+    """The streaming trainer with the pod dispatch on one device (no
+    mesh: the intra-pod sums, then the leader-level ones): llama3.2-3b's
+    published widths cut to 2 layers, bf16 compute, ``PODS_SPEC`` (4
+    agents, 2 pods of 2), sketched relevance d 256, int8 planes (q_block
+    128), 6 steps with shares at 2 and 4. Checks: finite losses, the
+    shares, flash once per layer in each agent's forward (2 x 4 x 6 =
+    48), the sketch once per leaf on each of the 4 accumulation steps,
+    no other kernel. Prints ``cross_pod_bytes`` beside
+    ``flat_exchange_bytes`` for this P (byte counts, not times).
+    Returns {kernel: {path: launches}}."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import GroupSpec, ShapeConfig
+    from repro_torch.core.exchange import build_exchange
+    from repro_torch.core.pod_dispatch import (cross_pod_bytes,
+                                               flat_exchange_bytes,
+                                               split_topology)
+    from repro_torch.core.sharded_ddal import (init_train_state,
+                                               make_group_train_step)
+    from repro_torch.core.topology import hierarchical_layout
+    from repro_torch.data import StreamSpec, make_group_batch
+
+    cfg = get_arch_config(LLAMA).with_(n_layers=2)
+    spec = GroupSpec(threshold=2, minibatch=2,
+                     exchange_estimator="grad_cos+sketch",
+                     relevance_sketch_dim=256, knowledge_quant_block=128,
+                     **PODS_SPEC)
+    opt = optim.adamw(1e-3)
+    shape = ShapeConfig("train_smoke", 256, 2, "train")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ex = build_exchange(spec, kind="streaming")
+    check(ex.combiner.__qualname__.startswith("make_pod_combiner"),
+          f"{PODS_TRAIN_LABEL}: the spec did not build the pod combiner")
+    reset_launches()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                             device="cuda")
+    step = make_group_train_step(cfg, spec, opt, exchange=ex)
+    losses, shared, ms = [], [], []
+    for i in range(6):
+        batch = make_group_batch(cfg, shape, StreamSpec(seed=0), 4, i,
+                                 "cuda")
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].tolist())
+        if m["shared"]:
+            shared.append(i)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    leaves = len(_tree_leaves(state.params))
+    P = sum(x.numel() for x in _tree_leaves(state.params)) // 4
+    topo = ex.static_topology
+    edges = split_topology(topo, hierarchical_layout(4, 2))
+    cross = cross_pod_bytes(edges, P, 4, 128)
+    flat = flat_exchange_bytes(topo, P, 4, 128)
+    finite = all(math.isfinite(x) for row in losses for x in row)
+    print(f"{PODS_TRAIN_LABEL}: {P:,} params/agent x 4 agents in 2 pods "
+          f"of 2 (the pod combiner, one device), grad_cos+sketch d 256, "
+          f"int8 q_block 128, bf16 compute, batch 2 x 256; ms per step "
+          f"{[round(x, 1) for x in ms]} (warm-up, warm-up, share, "
+          f"accumulation, share, accumulation); {time.perf_counter() - t0:.1f}"
+          f" s with init; peak memory {peak / 2 ** 30:.3f} GiB; losses "
+          f"first {losses[0]} last {losses[-1]}; shared at {shared}; "
+          f"launches " + ", ".join(f"{k} {v}" for k, v in launched.items()))
+    print(f"{PODS_TRAIN_LABEL}: bytes per share step at P = {P:,}, int8 "
+          f"planes (counts, not times): cross-pod {cross:,} "
+          f"({int(edges.ledge.sum())} leader edges) beside the flat "
+          f"placement's {flat:,}")
+    check(finite, f"{PODS_TRAIN_LABEL}: a non-finite loss")
+    check(shared == [2, 4], f"{PODS_TRAIN_LABEL}: shared at {shared}")
+    want = dict({name: 0 for name in KERNELS},
+                flash_attention=cfg.n_layers * 4 * 6,
+                grad_sketch=leaves * 4)
+    check(launched == want,
+          f"{PODS_TRAIN_LABEL}: kernel launches {launched} != {want}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: {PODS_TRAIN_LABEL: launched[name]}
+            for name in ("flash_attention", "grad_sketch")}
+
+
+def _fed_params(torch, cfg, spec, opt, start):
+    """The trainer on the card on ``_fed_gradients`` for 8 steps from
+    ``start``: the final parameters."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.core.sharded_ddal import (clone_state,
+                                               make_group_train_step)
+    card = _state_to(torch, clone_state(start), "cuda")
+    step = make_group_train_step(cfg, spec, opt, loss_fn=_linear_loss)
+    n = spec.n_agents
+    for i in range(8):
+        feed = {"loss": torch.zeros((n,)),
+                "g": _fed_gradients(torch, start.params, i)}
+        card, _ = step(card, tree_map(lambda x: x.to("cuda"), feed))
+    return card.params
+
+
+def train_equiv_pods_phase(torch):
+    """``[train-equiv]``'s gates for the pod dispatch: reduced()
+    llama3.2-3b, fp32 compute (TF32 off), ``PODS_SPEC`` (4 agents in 2
+    pods of 2), sketch d 64, int8 128, 8 steps with shares at 3 and 6,
+    the card against the port's CPU path on the model's own gradients
+    and on given gradients; then the pod run against the flat run (the
+    same spec with ``pods=0``) on the card on given gradients,
+    parameters within rtol 1e-5 / atol 1e-6."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import GroupSpec, ShapeConfig
+    from repro_torch.core.sharded_ddal import (clone_state,
+                                               init_train_state,
+                                               make_group_train_step)
+    from repro_torch.data import StreamSpec, make_group_batch
+
+    lr = 1e-3
+    cfg = get_arch_config(LLAMA).reduced()
+    base = dict(PODS_SPEC, threshold=2, minibatch=3,
+                relevance_mode="grad_cos", relevance_sketch_dim=64,
+                knowledge_quant_block=128)
+    spec = GroupSpec(**base)
+    opt = optim.adamw(lr)
+    shape = ShapeConfig("equiv", 64, 2, "train")
+    start = init_train_state(cfg, spec, opt, seed=0, device="cpu")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        st = clone_state(start)
+        if dev == "cuda":
+            st = _state_to(torch, st, dev)
+        step = make_group_train_step(cfg, spec, opt)
+        reset_launches()
+        losses, shared = [], []
+        t0 = time.perf_counter()
+        for i in range(8):
+            batch = make_group_batch(cfg, shape, StreamSpec(seed=1), 4, i,
+                                     dev)
+            st, m = step(st, batch)
+            losses.append(m["loss"].cpu())
+            shared.append(m["shared"])
+        runs[dev] = (st, torch.stack(losses), shared, launch_counts(),
+                     time.perf_counter() - t0)
+    cpu, card = runs["cpu"], runs["cuda"]
+    leaves = len(_tree_leaves(start.params))
+    loss_ok = torch.allclose(card[1], cpu[1], rtol=1e-4, atol=1e-4)
+    worst, share, p_ok = _loose_params(torch, card[0].params, cpu[0].params,
+                                       2 * lr * 4)
+    want = {name: 0 for name in KERNELS}
+    want_card = dict(want, grad_sketch=leaves * 6,
+                     flash_attention=cfg.n_layers * 4 * 8)
+    ok = (loss_ok and p_ok and card[2] == cpu[2] and cpu[2].count(1) == 2
+          and cpu[3] == want and card[3] == want_card)
+    shares = [i for i, x in enumerate(cpu[2]) if x]
+    print(f"[train-equiv] pods {LLAMA} reduced(), fp32, 4 agents in 2 pods "
+          f"of 2, sketch 64, int8 128, 8 steps (shares {shares}), card vs "
+          f"CPU: losses max abs {float((card[1] - cpu[1]).abs().max()):.3e}"
+          f" (rtol=atol=1e-4), params max abs {worst:.3e}, share beyond "
+          f"2e-4 {share:.2e} (bound {2 * lr * 4:.0e}, share <= 1e-4); card "
+          f"launches {card[3]['grad_sketch']} grad_sketch ({leaves} leaves "
+          f"x 6 steps), {card[3]['flash_attention']} flash_attention "
+          f"({cfg.n_layers} layers x 4 agents x 8 steps), others 0; CPU "
+          f"{cpu[4]:.1f} s, card {card[4]:.1f} s -> "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "[train-equiv] pods: card and CPU disagree")
+    sk_ratio, rel_err, p_err, fed_launches, fed_ok = _fed_equiv(
+        torch, cfg, spec, opt, start)
+    fed_ok = fed_ok and fed_launches == dict(want, grad_sketch=leaves * 6)
+    print(f"[train-equiv] pods on given gradients, card vs CPU step by "
+          f"step: tg, rg, tsum and share flags bitwise; know.sk worst "
+          f"{sk_ratio:.3e} of its bound 1e-5·Σ|g| per row; know.rel max "
+          f"abs {rel_err:.3e} (<= 1e-6); params max abs {p_err:.3e} (<= "
+          f"1e-6); card launches {fed_launches['grad_sketch']} grad_sketch,"
+          f" others 0 -> {'ok' if fed_ok else 'FAIL'}")
+    check(fed_ok, "[train-equiv] pods: on given gradients, card and CPU "
+                  "disagree")
+    pod = _fed_params(torch, cfg, spec, opt, start)
+    flat = _fed_params(torch, cfg, GroupSpec(**dict(base, pods=0)), opt,
+                       start)
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        _tree_leaves(pod), _tree_leaves(flat)))
+    close = all(torch.allclose(a, b, **POD_TOL) for a, b in zip(
+        _tree_leaves(pod), _tree_leaves(flat)))
+    print(f"[train-equiv] pods against flat on the card, given gradients, "
+          f"8 steps: params max abs {diff:.3e} (rtol 1e-5, atol 1e-6) -> "
+          f"{'ok' if close else 'FAIL'}")
+    check(close, "[train-equiv] pods: the pod run leaves the flat run's "
+                 "trajectory")
+
+
+MESH_FLAGS = ["--arch", LLAMA, "--device", "cuda", "--agents", "4",
+              "--steps", "4", "--batch", "2", "--seq", "64", "--threshold",
+              "1", "--minibatch", "2", "--exchange", "topology=hierarchical",
+              "--exchange", "degree=4", "--exchange", "pods=1"]
+
+
+def mesh_phase(torch):
+    """The launcher's ``--mesh pods`` on the card: ``python -m
+    torch.distributed.run --standalone --nproc-per-node 1 -m
+    repro_torch.launch.train --mesh pods`` (NCCL, a (1, 1) ``(pod,
+    agent)`` mesh; reduced() llama3.2-3b, 4 agents, one pod of 4, 4
+    steps) and the same launcher with ``--mesh cpu`` in this process;
+    their ``--ckpt-full`` files within rtol 1e-5 / atol 1e-6. One rank
+    on one card: this shows that NCCL starts and the mesh code runs on
+    the card, nothing about traffic between cards."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from repro_torch.launch import train
+
+    out_dir = ROOT / "build" / "mesh_phase"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    mesh_file, one_file = out_dir / "mesh.npz", out_dir / "one.npz"
+    for f in (mesh_file, one_file):
+        if f.exists():
+            f.unlink()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+         "--mesh", "pods", *MESH_FLAGS, "--ckpt-full", str(mesh_file)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    t_mesh = time.perf_counter() - t0
+    lines = res.stdout.splitlines()
+    for ln in lines[:2] + lines[-3:]:
+        print(f"[mesh]   {ln}")
+    check(res.returncode == 0,
+          f"[mesh]: the launcher under torch.distributed.run exited "
+          f"{res.returncode}: {res.stderr[-2000:]}")
+    check(any("over nccl" in ln for ln in lines),
+          "[mesh]: the mesh run did not report the NCCL backend")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train.main(["--mesh", "cpu", *MESH_FLAGS, "--ckpt-full",
+                    str(one_file)])
+    t_one = time.perf_counter() - t0
+    a, b = np.load(mesh_file), np.load(one_file)
+    keys_ok = sorted(a.files) == sorted(b.files)
+    worst, ok = 0.0, keys_ok
+    for k in a.files if keys_ok else []:
+        x, y = a[k].astype(np.float64), b[k].astype(np.float64)
+        if x.size:
+            worst = max(worst, float(np.abs(x - y).max()))
+        ok &= bool(np.allclose(a[k], b[k], **POD_TOL))
+    print(f"[mesh] {LLAMA} reduced(), 4 agents in 1 pod, 4 steps: the "
+          f"launcher on a (1, 1) (pod, agent) mesh over NCCL "
+          f"({t_mesh:.1f} s, process start included) against --mesh cpu "
+          f"({t_one:.1f} s): {len(a.files)} checkpoint leaves, max abs "
+          f"{worst:.3e} (rtol 1e-5, atol 1e-6) -> {'ok' if ok else 'FAIL'}."
+          f" One rank on one card: NCCL starts and the mesh path runs on "
+          f"the card; traffic between cards is not exercised")
+    check(ok, "[mesh]: the mesh run's checkpoint differs from the "
+              "one-device run's")
+
+
 def _state_to(torch, state, dev):
     def to(x):
         if isinstance(x, dict):
@@ -3933,6 +4212,10 @@ def main() -> int:
         lap("train llama")
         train_equiv_phase(torch)
         lap("train-equiv")
+        pods_train_launches = train_pods_phase(torch)
+        train_equiv_pods_phase(torch)
+        mesh_phase(torch)
+        lap("pods and mesh")
         table["grad_sketch"]["largest_leaf"] = sketch_leaf_phase(
             torch, largest_leaf)
         lap("sketch at the largest leaf")
@@ -3940,7 +4223,8 @@ def main() -> int:
                       zserve_launches, zscore_launches, qscore_launches,
                       dserve_launches, dscore_launches, mserve_launches,
                       mscore_launches, vscore_launches, *slot_launches,
-                      train_launches, llama_train_launches):
+                      train_launches, llama_train_launches,
+                      pods_train_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)

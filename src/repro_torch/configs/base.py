@@ -8,9 +8,10 @@ that the reference rejects is rejected here with the same
 ``ValueError``. On top of that, a field whose behaviour the port does
 not implement yet is refused at construction with a
 :class:`NotPortedError` naming the field, so an unported option is
-never silently ignored: only the multi-device settings remain
-(``pods > 0`` and the ``pod`` combiner, Slice E). Both trainers'
-settings construct; which combiner, delay and estimator a trainer
+never silently ignored: only a ``knowledge_dtype`` other than fp32 and
+bf16 remains. Both trainers' settings construct, the pod dispatch
+(``pods > 0``, the ``pod`` combiner) included; which combiner, delay
+and estimator a trainer
 accepts is checked where the reference checks it, in
 ``repro_torch.core.exchange.build_exchange``. ``ArchConfig`` and
 its nested configs (the model zoo) are copied for every family of the
@@ -253,11 +254,6 @@ class GroupSpec:
                        "transport"):
             key = getattr(self, f"exchange_{family}")
             if key != "auto" and key not in REGISTRIES[family]:
-                if (family, key) == ("combiner", "pod"):
-                    raise NotPortedError(
-                        "exchange_combiner='pod' (the two-level pod "
-                        "dispatch over a device mesh) waits for Slice E; "
-                        f"the port has {REGISTRIES[family].choices}")
                 raise NotPortedError(
                     f"exchange_{family}={key!r} is not ported yet; the "
                     f"port has {REGISTRIES[family].choices}")
@@ -266,12 +262,6 @@ class GroupSpec:
                 f"GroupSpec.knowledge_dtype={self.knowledge_dtype!r} is "
                 f"not ported to repro_torch; the port has "
                 f"{tuple(DTYPES)}")
-        # the pod dispatch runs one program over several devices
-        if self.pods > 0:
-            raise NotPortedError(
-                f"GroupSpec.pods={self.pods!r} (the two-level pod "
-                f"dispatch over a device mesh) waits for Slice E; the "
-                f"port runs on one device")
 
 
 # ---------------------------------------------------------------------
@@ -377,7 +367,7 @@ class ArchConfig:
     run before the stack (``params["layer0"]``). ``moe_dispatch``
     takes the reference's values; with no device mesh the reference
     dispatches dense whatever it says, and so does the port, which runs
-    on one device (expert parallelism waits for Slice E). ``mla_absorb``
+    on one device (expert parallelism waits for Slice E part 2). ``mla_absorb``
     scores a query against the cached latent directly (the reference's
     weight absorption) whenever a cache is given with more slots than
     the pass has queries.

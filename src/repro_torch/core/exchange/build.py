@@ -11,7 +11,8 @@ spec's topology, or ``dynamic`` when ``resample_every > 0``
 ``relevance_mode`` / ``relevance_sketch_dim`` name (``uniform``,
 ``grad_cos`` or ``grad_cos+sketch``), or ``obs_stats``; the spec's
 delay model (``none`` by default); the ``store`` combiner for the
-buffer trainer and ``flat`` for the streaming one; and the transport,
+buffer trainer and, for the streaming one, ``pod`` when ``pods > 0``
+(the reference's ``build.py:214-220``) else ``flat``; and the transport,
 ``faulty`` when any fault rate is nonzero. The faulty transport's
 knob-derived headroom deepens the delay line, and ``max_staleness`` or
 a decaying transport makes the stores and the line carry each piece's
@@ -24,6 +25,12 @@ retransmit; and ``full`` with nothing time-varying and no faulty
 transport builds no graph object at all (the global-sum fast path, an
 explicit ``relevance`` then weighting the dense eq. 4). ``GroupSpec``
 has already refused every key the port lacks.
+
+``mesh`` (a two-level ``(pod_axis, "agent")`` ``DeviceMesh``) places the
+streaming trainer's agents over the ranks: the protocol then carries
+the calling rank's ``AgentShard`` (``shard``), gathers the estimator's
+inputs over the world in ``observe``, and its combiner returns the
+rank's rows of ḡ.
 """
 from __future__ import annotations
 
@@ -56,9 +63,11 @@ class ExchangeProtocol:
     ``combine`` at share steps."""
 
     def __init__(self, *, spec, schedule, estimator, combiner,
-                 transport=None, kind: str = "buffer"):
+                 transport=None, kind: str = "buffer", shard=None):
         self.spec = spec
         self.kind = kind
+        #: the calling rank's block of agents on a mesh (None: one device)
+        self.shard = shard
         self.schedule = schedule
         self.estimator = estimator
         self.combiner = combiner
@@ -117,10 +126,19 @@ class ExchangeProtocol:
         """One estimator update (the identity for ``uniform``);
         ``sketch`` is the streaming window's carried (n, d) sketch;
         ``alive`` (device (n,) bool) freezes entries touching a dead
-        agent."""
+        agent. On a mesh ``grads`` and ``sketch`` hold the rank's rows:
+        the sketch is gathered over the world here, and exact
+        ``grad_cos`` gathers the window a column chunk at a time, so
+        every rank gets the group's relevance."""
+        kw = {}
+        if self.shard is not None and enabled and self.estimator.learns:
+            if sketch is not None:
+                sketch = self.shard.gather(sketch)
+            else:
+                kw["gather"] = self.shard.gather
         return self.estimator.observe(rel_state, grads=grads,
                                       sketch=sketch, aux=aux, rnd=rnd,
-                                      enabled=enabled, alive=alive)
+                                      enabled=enabled, alive=alive, **kw)
 
     def edge_tables(self, topo: Topology, device):
         """(nbr, mask, prior relevance) of ``topo`` on ``device``,
@@ -155,7 +173,9 @@ class ExchangeProtocol:
         estimator's dense (n, n) R (``None`` when nothing is learned).
         The streaming ``flat`` combiner also takes ``alive`` and an
         ``out`` tree for ḡ; the buffer trainer's ``store`` combiner
-        reads relevance from each piece's R (set at delivery)."""
+        reads relevance from each piece's R (set at delivery). On a mesh
+        ``knowledge`` and the result are the rank's rows, ``alive`` the
+        group's mask."""
         rel = None
         if self.estimator.learns and rel_state is not None:
             rel = self.estimator.matrix(rel_state)
@@ -281,7 +301,9 @@ def _combiner_key(spec, kind: str) -> str:
     key = spec.exchange_combiner
     if key != "auto":
         return key
-    return "store" if kind == "buffer" else "flat"
+    if kind == "buffer":
+        return "store"
+    return "pod" if spec.pods > 0 else "flat"
 
 
 def _check_streaming(spec, estimator, faulty: bool) -> None:
@@ -322,13 +344,15 @@ def _check_streaming(spec, estimator, faulty: bool) -> None:
 def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
                    relevance=None, delay=None,
                    obs_dim: Optional[int] = None,
-                   use_wavg_kernel: bool = False) -> ExchangeProtocol:
+                   use_wavg_kernel: bool = False,
+                   mesh=None) -> ExchangeProtocol:
     """Build the exchange protocol of the ``kind`` trainer (default
     ``spec.knowledge_mode``) for ``spec``. ``topology`` (a ``Topology``
     or ``DynamicTopology``) overrides the graph the spec names;
     ``relevance`` / ``delay`` are dense (n, n) src→dst or per-edge
     (n, k) overrides; ``obs_dim`` is needed by the ``obs_stats``
-    estimator only."""
+    estimator only; ``mesh`` places the streaming trainer's agents on a
+    ``(spec.pod_axis, "agent")`` device mesh."""
     from repro_torch.core.transport import make_transport, transport_enabled
     kind = kind or spec.knowledge_mode
     if kind not in KINDS:
@@ -351,6 +375,10 @@ def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
     if kind == "streaming":
         _check_streaming(spec, estimator, faulty)
     if kind == "buffer":
+        if mesh is not None:
+            raise ValueError(
+                "a device mesh places the streaming trainer's agents; "
+                "the buffer trainer runs on one device")
         schedule = _make_schedule(spec, sched_key, topology, relevance,
                                   delay, delay_model)
         transport = make_transport(spec, tuple(schedule.base.nbr.shape))
@@ -377,7 +405,11 @@ def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
         else (spec.n_agents, spec.n_agents))
     combiner = COMBINERS.get(comb_key)(spec=spec, schedule=schedule,
                                        estimator=estimator, dense_R=dense_R,
-                                       transport=transport)
+                                       transport=transport, mesh=mesh)
+    shard = None
+    if mesh is not None:
+        from repro_torch.core.sharded_ddal import agent_shard
+        shard = agent_shard(mesh, spec.n_agents, spec.pod_axis)
     return ExchangeProtocol(spec=spec, schedule=schedule,
                             estimator=estimator, combiner=combiner,
-                            transport=transport, kind=kind)
+                            transport=transport, kind=kind, shard=shard)

@@ -1,10 +1,9 @@
 """Combiners — *how gathered knowledge becomes one update*. The port
 has the buffer trainer's ``store`` combiner of
 ``repro.core.exchange.combiners`` (the eq. 4 weighted average over
-every agent's knowledge store), the streaming trainer's ``flat``
-combiner (below, after the store's notes) and the shared per-edge
-relevance tail ``edge_effective``. The ``pod`` combiner waits for
-Slice E.
+every agent's knowledge store), the streaming trainer's ``flat`` and
+``pod`` combiners (below, after the store's notes) and the shared
+per-edge relevance tail ``edge_effective``.
 
 The reference vmaps the share step over the n stores; the port hands
 the whole (n, m, P) plane stack to one launch of the fused CUDA kernel
@@ -30,7 +29,21 @@ step's edge table, the learned R gathered onto the edges; a faulty
 transport drops this round's lost and corrupted edges (the self-loop
 always survives). ``knowledge_quant_block > 0`` pushes the window
 through the int8 wire format and ``alive`` zeroes dead agents' rows on
-the way in, a column chunk at a time.
+the way in, a column chunk at a time. On a device mesh (``mesh=``) each
+chunk of the window is gathered over the world and the rank keeps its
+destination rows: bitwise the single-device result.
+
+``pod`` (the reference's ``combiners.py:161-205``) is the two-level
+dispatch of a static ``hierarchical`` topology
+(``repro_torch.core.pod_dispatch``): the intra-pod sums, then the
+leader-level ones, on one device or over a ``(pod_axis, "agent")`` mesh
+where only the leaders' planes cross the pod axis. It refuses a faulty
+transport and a resampling schedule as the reference does, reads the
+layout ``hierarchical_layout(n_agents, degree)``, takes the window
+through the int8 round trip (``quantize_knowledge_roundtrip``, applied
+a column chunk at a time) and, with a learning estimator, the learned
+R gathered onto the edges (``edge_effective``) as the relevance
+override.
 """
 from __future__ import annotations
 
@@ -108,15 +121,18 @@ def make_store_combiner(*, spec, transport=None,
     "flat", params={"r_weighting": ("r_weighting", str),
                     "quant_block": ("knowledge_quant_block", int)})
 def make_flat_combiner(*, spec, schedule, estimator, dense_R=None,
-                       transport=None):
+                       transport=None, mesh=None):
     """``combine(window, rel, step, alive=None, out=None) -> ḡ``, a tree
     of (A, *param) fp32 leaves (written into ``out`` when given).
     ``schedule=None`` marks the topology-free ``full`` case; ``rel`` is
-    the learned dense (A, A) R (``None`` when nothing is learned)."""
+    the learned dense (A, A) R (``None`` when nothing is learned). On
+    ``mesh`` the window and ḡ are the rank's rows."""
     from repro_torch.core import sharded_ddal as SD
     A = spec.n_agents
     learns = estimator.learns
     qb = spec.knowledge_quant_block
+    shard = (None if mesh is None
+             else SD.agent_shard(mesh, A, spec.pod_axis))
 
     if schedule is None:
         if transport is not None:
@@ -135,7 +151,7 @@ def make_flat_combiner(*, spec, schedule, estimator, dense_R=None,
             R = R0.to(window.tsum.device)
             if learns:
                 R = combine_relevance(R, rel)
-            return SD._combine(window, R, uniform, out, alive, qb)
+            return SD._combine(window, R, uniform, out, alive, qb, shard)
         return combine
 
     def combine(window, rel, step, alive=None, out=None):
@@ -148,5 +164,49 @@ def make_flat_combiner(*, spec, schedule, estimator, dense_R=None,
         if transport is not None:
             topo = SD.drop_topology_edges(
                 topo, transport.deliver_mask(step, np.asarray(topo.nbr)))
-        return SD._combine_topo(window, topo, out, alive, qb)
+        return SD._combine_topo(window, topo, out, alive, qb, shard)
+    return combine
+
+
+@COMBINERS.register("pod", params={"pods": ("pods", int),
+                                   "pod_axis": ("pod_axis", str)})
+def make_pod_combiner(*, spec, schedule, estimator, dense_R=None,
+                      transport=None, mesh=None):
+    """``combine(window, rel, step, alive=None, out=None) -> ḡ`` through
+    the two-level pod dispatch of a static hierarchical topology, on
+    one device or on ``mesh`` (the rank's rows in and out)."""
+    del dense_R
+    if transport is not None:
+        raise ValueError(
+            "the 'pod' combiner lowers a static two-level collective "
+            "and cannot drop per-round faulty edges — use the 'flat' "
+            "combiner with transport faults, or zero the transport_* "
+            "rates for pod dispatch")
+    from repro_torch.core import sharded_ddal as SD
+    from repro_torch.core.pod_dispatch import make_pod_dispatch
+    from repro_torch.core.topology import hierarchical_layout
+    if schedule is None or schedule.resamples:
+        raise ValueError(
+            "the 'pod' combiner needs a static hierarchical topology "
+            f"(got schedule "
+            f"{type(schedule).__name__ if schedule else None}) — "
+            "resampling schedules cannot be pod-dispatched: a swapped "
+            "edge could cross pods without touching a leader")
+    topology = schedule.base
+    layout = hierarchical_layout(spec.n_agents, spec.degree)
+    dispatch = make_pod_dispatch(topology, layout, mesh=mesh,
+                                 pod_axis=spec.pod_axis)
+    qb = spec.knowledge_quant_block
+    if estimator.learns:
+        def combine(window, rel, step, alive=None, out=None):
+            del step
+            topo = edge_effective(topology, rel, *SD.topo_tables(
+                topology, rel.device))
+            return dispatch(window, topo.relevance, alive=alive, out=out,
+                            q_block=qb)
+        return combine
+
+    def combine(window, rel, step, alive=None, out=None):
+        del rel, step
+        return dispatch(window, alive=alive, out=out, q_block=qb)
     return combine

@@ -33,7 +33,9 @@ accumulation step adds ``sketch_step(grads, rnd)`` (one ``grad_sketch``
 launch per leaf, seed ``fold_seed(seed, rnd)``) and the share step's
 ``observe(sketch=...)`` takes ``cosine_rows`` of it (the reference's
 ``estimators.py:154-172``). ``sketch_dim`` is 0 for every estimator
-that does not sketch.
+that does not sketch. On a device mesh the exchange protocol gathers
+the sketch rows before ``observe``, and hands exact ``grad_cos`` a
+``gather`` that collects the window's rows a column chunk at a time.
 """
 from __future__ import annotations
 
@@ -94,15 +96,19 @@ class GradCosEstimator:
 
     def observe(self, state: torch.Tensor, *, grads=None, sketch=None,
                 aux=None, rnd: int = 0, enabled: bool = True,
-                alive=None) -> torch.Tensor:
+                alive=None, gather=None) -> torch.Tensor:
         # the reference computes the observation on warm-up epochs too
         # and then discards it (``ema_update`` with enabled=False);
         # skipping it gives the same state and spends no card time
         del aux
         if not enabled:
             return state
-        return REL.ema_update(state, REL.to_relevance(
-            self._observation(grads, sketch, rnd)), self.ema, alive=alive)
+        if gather is not None:       # a mesh: the rank's rows of the window
+            obs = REL.grad_cosine(grads, gather=gather)
+        else:
+            obs = self._observation(grads, sketch, rnd)
+        return REL.ema_update(state, REL.to_relevance(obs), self.ema,
+                              alive=alive)
 
     def _observation(self, grads, sketch, rnd: int) -> torch.Tensor:
         del sketch

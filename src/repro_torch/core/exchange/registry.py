@@ -71,12 +71,6 @@ REGISTRIES: Dict[str, Registry] = {
 }
 
 
-#: the parameters of the reference's ``pod`` combiner, which the port
-#: does not register (Slice E): kept in the vocabulary so that asking
-#: for them reaches ``GroupSpec``, which refuses ``pods > 0`` by name
-UNPORTED_CLI_PARAMS = {"pods": ("pods", int), "pod_axis": ("pod_axis", str)}
-
-
 def cli_options() -> Dict[str, Tuple[str, type]]:
     """The full ``--exchange key=value`` vocabulary: the five strategy
     selectors plus every registered strategy's declared parameters,
@@ -91,5 +85,4 @@ def cli_options() -> Dict[str, Tuple[str, type]]:
     }
     for reg in REGISTRIES.values():
         opts.update(reg.cli_params())
-    opts.update(UNPORTED_CLI_PARAMS)
     return opts

@@ -42,26 +42,36 @@ def cosine_rows(g: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.where(eye, torch.ones_like(c), c)
 
 
-def grad_cosine(grads, eps: float = 1e-8) -> torch.Tensor:
+def grad_cosine(grads, eps: float = 1e-8, gather=None) -> torch.Tensor:
     """Exact pairwise cosine of the agents' gradients → symmetric (n, n)
     ``C[src, dst]`` in [-1, 1], unit diagonal. ``grads`` is (n, P) rows
-    or a tree of stacked (n, *param) leaves."""
+    or a tree of stacked (n, *param) leaves. ``gather`` (a device mesh:
+    ``grads`` holds the rank's rows) collects each column chunk's rows
+    from every rank, so every rank computes the group's C, the same
+    arithmetic as on one device."""
     if isinstance(grads, torch.Tensor):
         return cosine_rows(grads.to(torch.float32), eps)
     rows = [x.reshape(x.shape[0], -1)
             for _, x in tree_leaves_with_paths(grads)]
-    n = rows[0].shape[0]
+
+    def chunk(g, cols):
+        c = g[:, cols]
+        return (c if gather is None else gather(c)).to(torch.float32)
     dev = rows[0].device
-    sq = torch.zeros((n,), dtype=torch.float32, device=dev)
+    sq = None
     for g in rows:
         for cols in column_chunks(g.shape[1]):
-            gf = g[:, cols].to(torch.float32)
+            gf = chunk(g, cols)
+            if sq is None:
+                sq = torch.zeros((gf.shape[0],), dtype=torch.float32,
+                                 device=dev)
             sq = sq + torch.sum(gf * gf, dim=1)
+    n = sq.shape[0]
     denom = torch.clamp_min(torch.sqrt(sq), eps)[:, None]
     C = torch.zeros((n, n), dtype=torch.float32, device=dev)
     for g in rows:
         for cols in column_chunks(g.shape[1]):
-            gn = g[:, cols].to(torch.float32) / denom
+            gn = chunk(g, cols) / denom
             C = C + gn @ gn.T
     c = torch.clamp(C, -1.0, 1.0)
     eye = torch.eye(n, dtype=torch.bool, device=dev)

@@ -1,6 +1,6 @@
 """DDAL at LLM scale — the streaming group-agent trainer of the model
-zoo; the port of ``repro.core.sharded_ddal`` (all of it but the pod
-dispatch, which waits for Slice E).
+zoo; the port of ``repro.core.sharded_ddal``, on one device or over
+``torch.distributed`` on a two-level ``(pod, "agent")`` device mesh.
 
 Each agent trains its own copy of a model on its own data stream
 (``repro_torch.data.synthetic``). Parameters, AdamW moments and the
@@ -37,6 +37,22 @@ How the reference's traced program maps onto eager PyTorch:
   (``common.pytree.column_chunks``), so no pass copies a whole tree: a
   pair of mamba2-780m agents (0.86 B parameters each) trains on one
   80 GB card. The share step's ḡ reuses the gradient buffer.
+
+On a mesh (``make_group_train_step(..., mesh=...)``, the mesh from
+``repro_torch.launch.mesh.make_pod_mesh``) each rank holds a contiguous
+block of the agents, pod-major (``AgentShard``): their parameters,
+moments and window rows (``launch.shardings.agent_sharded_state``),
+while ``rel``, ``alive`` and the step stay global. A rank trains its
+own agents on its own rows of the batch; at a share step the
+estimator's inputs are gathered over the world (the (n, d) sketches,
+or ``rg`` a column chunk at a time for exact ``grad_cos``), so every
+rank holds the same ``rel``, and the combiner returns the rank's rows
+of ḡ: the ``flat`` combiner gathers the window a column chunk at a time
+and computes the rank's destination rows (the reference's GSPMD
+path), the ``pod`` combiner runs ``repro_torch.core.pod_dispatch``'s
+collectives. ``kill_agents`` / ``revive_agents`` take global masks and
+apply them to the rank's rows. The collectives are ``torch.distributed``
+ones, NCCL's on the card and gloo's on the host.
 
 Everything else is the reference's arithmetic: ``(T_t·g_f32)`` cast to
 ``knowledge_dtype`` and added, elastic rows held with a select, the
@@ -83,6 +99,99 @@ class TrainState(NamedTuple):
 
 def _leaves(tree):
     return [x for _, x in tree_leaves_with_paths(tree)]
+
+
+# ---------------------------------------------------------------------
+# placement on a (pod, "agent") device mesh
+# ---------------------------------------------------------------------
+class AgentShard(NamedTuple):
+    """A rank's block of the group's agents on a two-level ``(pod_axis,
+    "agent")`` mesh: agents are laid out pod-major, so the rank at mesh
+    coordinate (p, a) — global rank ``p·A_dev + a``, ``init_device_mesh``'s
+    row-major order — holds agents ``index·block .. (index + 1)·block −
+    1`` with ``index = p·A_dev + a``."""
+    n_agents: int
+    index: int            # the rank's flat mesh coordinate
+    ranks: int            # devices in the mesh (the world)
+
+    @property
+    def block(self) -> int:
+        return self.n_agents // self.ranks
+
+    @property
+    def rows(self) -> slice:
+        return slice(self.index * self.block, (self.index + 1) * self.block)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's (block, ...) rows → the group's (n_agents, ...),
+        in agent order (``all_gather`` over the world)."""
+        return gather_rows(x, self.ranks, None)
+
+
+def gather_rows(x: torch.Tensor, size: int, group) -> torch.Tensor:
+    """``all_gather`` of ``x`` over ``group`` (``size`` ranks, ``None``:
+    the world), the parts concatenated along dim 0 in group-rank order
+    (the list form, which gloo and NCCL both run)."""
+    import torch.distributed as dist
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts)
+
+
+def mesh_axes(mesh, pod_axis: str = "pod", agent_axis: str = "agent"):
+    """(pod devices, agent devices) of a two-level mesh; any other mesh
+    — the production ``(data, model)`` ones — raises
+    ``NotPortedError``."""
+    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+    if names != (pod_axis, agent_axis):
+        raise NotPortedError(
+            f"a device mesh with axes {names or None} is not the "
+            f"two-level ({pod_axis!r}, {agent_axis!r}) pod mesh; the "
+            f"production (data, model) meshes and their sharding rules "
+            f"wait for Slice E part 2 (build the pod mesh with "
+            f"repro_torch.launch.mesh.make_pod_mesh)")
+    return mesh.size(0), mesh.size(1)
+
+
+def agent_shard(mesh, n_agents: int, pod_axis: str = "pod") -> AgentShard:
+    """The calling rank's ``AgentShard`` on ``mesh``, after checking the
+    placement: the mesh spans the whole process group in
+    ``init_device_mesh``'s row-major rank order, and the agents split
+    evenly over its devices."""
+    import torch.distributed as dist
+    n_pod, n_agent = mesh_axes(mesh, pod_axis)
+    ranks = n_pod * n_agent
+    if not dist.is_initialized() or dist.get_world_size() != ranks:
+        raise ValueError(
+            f"the {n_pod} x {n_agent} mesh must span the whole process "
+            f"group (world size "
+            f"{dist.get_world_size() if dist.is_initialized() else 0})")
+    if mesh.mesh.flatten().tolist() != list(range(ranks)):
+        raise ValueError(
+            f"the mesh's ranks {mesh.mesh.tolist()} are not in row-major "
+            f"order (init_device_mesh's layout, which pod-major agent "
+            f"blocks assume)")
+    if n_agents % ranks:
+        raise ValueError(
+            f"{n_agents} agents do not split evenly over the mesh's "
+            f"{ranks} devices")
+    index = mesh.get_local_rank(pod_axis) * n_agent + mesh.get_local_rank(
+        "agent")
+    return AgentShard(n_agents=n_agents, index=index, ranks=ranks)
+
+
+def _local_rows(know: "Knowledge"):
+    """The slice of the global ``alive`` mask that ``know``'s rows are:
+    ``None`` for a state on one device; on a mesh, whose ranks hold
+    pod-major blocks in rank order (``agent_shard``), the calling
+    rank's block."""
+    if know.alive is None or know.tsum.shape[0] == know.alive.shape[0]:
+        return None
+    import torch.distributed as dist
+    block = know.tsum.shape[0]
+    r = dist.get_rank()
+    return slice(r * block, (r + 1) * block)
 
 
 def _rows(tree):
@@ -165,18 +274,24 @@ def _int8_roundtrip(tree, q_block: int):
     return wavg_ops.dequantize_tree(q, s, q_block)
 
 
-def _gate(x2: torch.Tensor, cols: slice, alive, q_block: int
-          ) -> torch.Tensor:
+def _gate(x2: torch.Tensor, cols: slice, alive, q_block: int,
+          gather=None) -> torch.Tensor:
     """One column chunk of a window leaf as the combine reads it: dead
     agents' rows zeroed (``mask_knowledge``), then the int8 round trip
     (``quantize_knowledge_roundtrip``) when ``q_block > 0``. Chunks hold
-    whole int8 blocks, so the round trip is the leaf's."""
+    whole int8 blocks, so the round trip is the leaf's. ``gather`` (on a
+    mesh) collects the rows of every rank after the gate: the int8
+    planes and their scales when ``q_block > 0`` (the wire format),
+    else the planes, in their dtype."""
     c = x2[:, cols]
     if alive is not None:
         c = _dead_rows_zeroed(c, alive)
     if q_block > 0:
-        c = _int8_roundtrip(c, q_block)
-    return c
+        q, s = wavg_ops.quantize_tree(c, q_block, lead=1)
+        if gather is not None:
+            q, s = gather(q), gather(s)
+        return wavg_ops.dequantize_tree(q, s, q_block)
+    return c if gather is None else gather(c)
 
 
 def _scalars(know: Knowledge, alive):
@@ -187,18 +302,34 @@ def _scalars(know: Knowledge, alive):
 
 
 def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
-         q_block: int = 0):
+         q_block: int = 0, gather=None, rows: Optional[slice] = None):
     """ḡ leaf by leaf and chunk by chunk: ``fold(tg_chunk, rg_chunk)``
     → the (A, cols) fp32 result, written into ``out`` (a tree of fp32
-    leaves shaped like the window, allocated if ``None``)."""
+    leaves shaped like the window, allocated if ``None``). On a mesh
+    ``alive`` is the mask of ``know``'s own rows, ``gather`` collects
+    the gated chunk's rows over the ranks the fold reads, and ``rows``
+    picks the rank's destination rows out of the fold's result."""
     if out is None:
         out = tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32,
                                              device=x.device), know.tg)
     for t2, r2, o2 in zip(_rows(know.tg), _rows(know.rg), _rows(out)):
         for cols in column_chunks(t2.shape[1]):
-            o2[:, cols].copy_(fold(_gate(t2, cols, alive, q_block),
-                                   _gate(r2, cols, alive, q_block)))
+            g = fold(_gate(t2, cols, alive, q_block, gather),
+                     _gate(r2, cols, alive, q_block, gather))
+            o2[:, cols].copy_(g if rows is None else g[rows])
     return out
+
+
+def _sharded(know: Knowledge, alive, shard: Optional[AgentShard]):
+    """(``know`` with the group's tsum / rsum, the alive mask of
+    ``know``'s own rows, the eq4 keywords) for a combine on ``shard``'s
+    rows; ``shard=None`` changes nothing."""
+    if shard is None:
+        return know, alive, {}
+    know_g = know._replace(tsum=shard.gather(know.tsum),
+                           rsum=shard.gather(know.rsum))
+    local = None if alive is None else alive[shard.rows]
+    return know_g, local, {"gather": shard.gather, "rows": shard.rows}
 
 
 def _global_fold(know: Knowledge, R, uniform: bool, alive):
@@ -226,13 +357,16 @@ def _global_fold(know: Knowledge, R, uniform: bool, alive):
 
 
 def _combine(know: Knowledge, R, uniform: bool, out=None, alive=None,
-             q_block: int = 0):
+             q_block: int = 0, shard: Optional[AgentShard] = None):
     """eq. 4 over the union of every agent's window → per-destination
     ḡ, a tree of (A, *param) fp32 leaves (identical rows when uniform).
     ``alive`` and ``q_block`` apply the combiners' gate on the way in
-    (dead rows zeroed, the int8 round trip)."""
-    return _eq4(know, _global_fold(know, R, uniform, alive), out, alive,
-                q_block)
+    (dead rows zeroed, the int8 round trip). With ``shard`` (a mesh)
+    ``know`` holds the rank's rows and ḡ is the rank's rows; ``alive``
+    stays the group's mask."""
+    know_g, local, kw = _sharded(know, alive, shard)
+    return _eq4(know, _global_fold(know_g, R, uniform, alive), out, local,
+                q_block, **kw)
 
 
 def _edge_weights(know: Knowledge, nbr, mask, rel, alive=None):
@@ -295,18 +429,21 @@ def topo_tables(topo, device):
 
 
 def _combine_topo(know: Knowledge, topo, out=None, alive=None,
-                  q_block: int = 0):
+                  q_block: int = 0, shard: Optional[AgentShard] = None):
     """eq. 4 with neighbour-local normalisation: both terms of each
     destination sum over its in-edges only (``_edge_sums`` then
     ``_finish_combine``, a column chunk at a time, the edge weights
-    formed once)."""
+    formed once). ``shard`` as in ``_combine``: each chunk of the
+    window is gathered over the world and the rank keeps its rows, so
+    the result is bitwise the single-process one."""
     nbr, mask, rel = topo_tables(topo, know.tsum.device)
-    weights = _edge_weights(know, nbr, mask, rel, alive)
+    know_g, local, kw = _sharded(know, alive, shard)
+    weights = _edge_weights(know_g, nbr, mask, rel, alive)
 
     def fold(tg, rg):
-        chunk = know._replace(tg=tg, rg=rg)
+        chunk = know_g._replace(tg=tg, rg=rg)
         return _finish_combine(*_edge_sums(chunk, nbr, mask, rel, weights))
-    return _eq4(know, fold, out, alive, q_block)
+    return _eq4(know, fold, out, local, q_block, **kw)
 
 
 def drop_topology_edges(topo, keep):
@@ -397,8 +534,10 @@ def kill_agents(state: TrainState, dead) -> TrainState:
             "with GroupSpec(elastic=True) so Knowledge.alive exists")
     alive = know.alive & ~torch.as_tensor(dead, dtype=torch.bool,
                                           device=know.alive.device)
+    rows = _local_rows(know)
+    own = alive if rows is None else alive[rows]
     return state._replace(
-        know=mask_knowledge(know, alive)._replace(alive=alive))
+        know=mask_knowledge(know, own)._replace(alive=alive))
 
 
 def revive_agents(state: TrainState, mask,
@@ -412,11 +551,13 @@ def revive_agents(state: TrainState, mask,
             "revive_agents needs an elastic TrainState — build the spec "
             "with GroupSpec(elastic=True) so Knowledge.alive exists")
     m = torch.as_tensor(mask, dtype=torch.bool, device=know.alive.device)
-    know = mask_knowledge(know, ~m)._replace(alive=know.alive | m)
+    rows = _local_rows(know)
+    own = m if rows is None else m[rows]
+    know = mask_knowledge(know, ~own)._replace(alive=know.alive | m)
     params, opt_state = state.params, state.opt_state
     if restore is not None:
-        params = _select_rows(m, restore.params, params)
-        opt_state = _select_rows(m, restore.opt_state, opt_state)
+        params = _select_rows(own, restore.params, params)
+        opt_state = _select_rows(own, restore.opt_state, opt_state)
     return state._replace(params=params, opt_state=opt_state, know=know)
 
 
@@ -485,11 +626,15 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
     applies ḡ and the window resets. ``metrics``: ``loss`` (A,) fp32 on
     the device, ``step`` and ``shared`` host ints. The step updates the
     state's tensors in place and returns a state holding them.
+
+    ``mesh`` (a ``(spec.pod_axis, "agent")`` ``DeviceMesh``,
+    ``repro_torch.launch.mesh.make_pod_mesh``) runs the step on the
+    calling rank's block of agents: the state from
+    ``launch.shardings.agent_sharded_state``, ``batch`` the rank's rows
+    (``repro_torch.data.sharded``); ``loss`` is still the group's (A,)
+    losses. A prebuilt ``exchange`` carries its mesh from
+    ``build_exchange(..., mesh=...)``.
     """
-    if mesh is not None:
-        raise NotPortedError(
-            "a device mesh (the reference's mesh= / pod dispatch) waits "
-            "for Slice E; the port's streaming trainer runs on one device")
     if loss_fn is None:
         from repro_torch.models import get_model
         model = get_model(cfg)
@@ -499,15 +644,16 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
     if exchange is None:
         from repro_torch.core.exchange import build_exchange
         exchange = build_exchange(spec, kind="streaming", topology=topology,
-                                  relevance=relevance)
+                                  relevance=relevance, mesh=mesh)
     elif exchange.kind != "streaming":
         raise ValueError(
             f"the streaming train step needs a 'streaming' exchange "
             f"protocol, got {exchange.kind!r}")
-    elif topology is not None or relevance is not None:
+    elif (topology is not None or relevance is not None
+          or mesh is not None):
         raise ValueError(
-            "topology/relevance would be silently ignored: they are "
-            "baked into the protocol at build time — pass them to "
+            "topology/relevance/mesh would be silently ignored: they "
+            "are baked into the protocol at build time — pass them to "
             "build_exchange(...) instead when supplying a prebuilt "
             "exchange")
     if opt.tree_update_ is None:
@@ -516,16 +662,20 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
     elastic = bool(spec.elastic)
     kdt = DTYPES[spec.knowledge_dtype]
     mb = spec.minibatch
+    shard = exchange.shard
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         step = int(state.step)
         params, opt_state, know = state.params, state.opt_state, state.know
-        alive = know.alive if elastic else None
-        if elastic and alive is None:
+        group_alive = know.alive if elastic else None
+        if elastic and group_alive is None:
             raise ValueError(
                 "GroupSpec.elastic=True but Knowledge.alive is None — "
                 "init the state through init_train_state / "
                 "init_knowledge(..., alive=...) so the mask exists")
+        # the rank's own rows of the group's mask (all of it off a mesh)
+        alive = (group_alive if shard is None or group_alive is None
+                 else group_alive[shard.rows])
         grads = tree_map(torch.empty_like, params)
         losses = value_and_grads(loss_fn, params, batch, grads)
         warmup = step < spec.threshold
@@ -547,14 +697,17 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
                 know.sk.add_(contrib)
             if is_share:
                 rel = exchange.observe(know.rel, grads=know.rg,
-                                       sketch=know.sk, rnd=rnd, alive=alive)
+                                       sketch=know.sk, rnd=rnd,
+                                       alive=group_alive)
                 f32 = all(x.dtype == torch.float32 for x in _leaves(grads))
-                gbar = exchange.combine(know, rel, step, alive=alive,
+                gbar = exchange.combine(know, rel, step, alive=group_alive,
                                         out=grads if f32 else None)
                 opt.tree_update_(gbar, opt_state, params, step, rows=alive)
                 del gbar
                 know = _reset_window_(know, rel)
         del grads
+        if shard is not None:
+            losses = shard.gather(losses)
         metrics = {"loss": losses, "step": step, "shared": int(is_share)}
         return TrainState(params=params, opt_state=opt_state, know=know,
                           step=step + 1), metrics

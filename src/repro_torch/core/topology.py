@@ -1,5 +1,8 @@
 """Communication topologies for DDAL — the port of
-``repro.core.topology`` without the pod placement helpers.
+``repro.core.topology``, the pod placement of the ``hierarchical``
+graph included (``PodLayout``, ``hierarchical_layout``,
+``edge_pod_ids``, ``cross_pod_mask``: host numpy, as the reference's,
+read by ``repro_torch.core.pod_dispatch``).
 
 A ``Topology`` is a neighbor index table: for every destination agent
 ``i``, ``nbr[i, j]`` names the source feeding its ``j``-th incoming
@@ -181,6 +184,64 @@ def hierarchical(n: int, pod_size: int = 4) -> Topology:
             s |= set(leaders)
         nbrs.append(sorted(s))
     return _from_neighbor_lists(nbrs)
+
+
+# ---------------------------------------------------------------------
+# pod placement of the hierarchical graph (the reference's
+# ``topology.py:263-321``)
+# ---------------------------------------------------------------------
+class PodLayout(NamedTuple):
+    """Static agent → pod placement of the ``hierarchical`` topology.
+
+    pod_id:      (n,) int32 — pod of each agent.
+    leader_mask: (n,) bool  — True for the one leader of each pod.
+    leaders:     (pods,) int32 — the leader agent of each pod.
+    pod_size:    agents per pod (uniform).
+
+    Host numpy arrays: the layout decides which mesh axis each edge's
+    exchange crosses, so it is fixed when the combine is built."""
+    pod_id: np.ndarray
+    leader_mask: np.ndarray
+    leaders: np.ndarray
+    pod_size: int
+
+    @property
+    def n_agents(self) -> int:
+        return int(self.pod_id.shape[0])
+
+    @property
+    def n_pods(self) -> int:
+        return int(self.leaders.shape[0])
+
+
+def hierarchical_layout(n: int, pod_size: int) -> PodLayout:
+    """The placement of ``hierarchical(n, pod_size)``: contiguous pods
+    of ``pod_size`` agents, the first agent of each pod its leader.
+    ``pod_size`` must divide ``n`` (uniform pods)."""
+    if pod_size < 1 or n % pod_size:
+        raise ValueError(
+            f"hierarchical_layout needs pod_size >= 1 dividing "
+            f"n_agents, got n={n}, pod_size={pod_size}")
+    pod_id = (np.arange(n, dtype=np.int32) // pod_size).astype(np.int32)
+    leaders = np.arange(0, n, pod_size, dtype=np.int32)
+    leader_mask = np.zeros((n,), bool)
+    leader_mask[leaders] = True
+    return PodLayout(pod_id=pod_id, leader_mask=leader_mask,
+                     leaders=leaders, pod_size=pod_size)
+
+
+def edge_pod_ids(topo: Topology, layout: PodLayout) -> np.ndarray:
+    """(n, k) int32 — the pod of each edge slot's source agent
+    (arbitrary where masked out, like ``nbr``)."""
+    return np.asarray(layout.pod_id)[np.asarray(topo.nbr)]
+
+
+def cross_pod_mask(topo: Topology, layout: PodLayout) -> np.ndarray:
+    """(n, k) bool — the real edges that cross a pod boundary, the only
+    ones whose exchange rides the pod axis."""
+    src_pod = edge_pod_ids(topo, layout)
+    dst_pod = np.asarray(layout.pod_id)[:, None]
+    return np.asarray(topo.mask) & (src_pod != dst_pod)
 
 
 def hop_distances(topo: Topology) -> np.ndarray:

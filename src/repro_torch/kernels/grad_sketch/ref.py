@@ -61,11 +61,16 @@ def sketch_flat(G: torch.Tensor, seed: int, dim: int, offset: int = 0,
                 tile: int = TILE) -> torch.Tensor:
     """G (n, P) → G · S (n, d) fp32 with S[p, j] = sign_block(seed,
     offset + p, ...). S is materialised ``tile`` positions at a time,
-    and each tile's product is added to the sum in order."""
+    and each tile's product is added to the sum in order. Each row's
+    product is taken alone (a vector-matrix product): a matrix product's
+    order of adds may change with the number of rows, and a row's
+    sketch must not depend on which rows share the call (a rank of a
+    device mesh projects its own agents' rows)."""
     n, p = G.shape
     acc = torch.zeros((n, dim), dtype=torch.float32, device=G.device)
     for start in range(0, p, tile):
         width = min(tile, p - start)
         S = sign_block(seed, offset + start, width, dim, G.device)
-        acc = acc + G[:, start:start + width].to(torch.float32) @ S
+        part = G[:, start:start + width].to(torch.float32)
+        acc = acc + torch.stack([row @ S for row in part])
     return acc

@@ -11,6 +11,12 @@ group-agent training of a model-zoo arch through the streaming trainer
         --full --agents 2 --steps 12 --batch 4 --seq 256 --threshold 4 \\
         --minibatch 4 --exchange estimator=grad_cos+sketch \\
         --exchange relevance_sketch_dim=256
+    # two ranks on the host, one pod each, over gloo
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 2 -m repro_torch.launch.train --device cpu \\
+        --mesh pods --agents 4 --steps 6 --batch 2 --seq 32 \\
+        --threshold 2 --minibatch 2 --exchange topology=hierarchical \\
+        --exchange degree=2 --exchange pods=2
 
 Flags are the reference's: the legacy named flags as shims over
 ``--exchange`` (each explicit use warns ``DeprecationWarning``), the
@@ -18,9 +24,17 @@ Flags are the reference's: the legacy named flags as shims over
 (``repro_torch.core.exchange.cli_options``), ``--full``, ``--elastic``,
 ``--ckpt`` (final params), ``--ckpt-full`` / ``--restore`` (the whole
 ``TrainState``, in ``.npz`` files either package reads) and ``--seed``;
-``--device`` (default ``cuda``) picks the card or the host. ``--mesh``
-takes ``cpu`` only (one device: any other mesh, like ``--pods``, waits
-for Slice E and raises ``NotPortedError``). The weights are drawn from
+``--device`` (default ``cuda``) picks the card or the host. ``--mesh
+cpu`` trains on one device, ``--pods N`` (``--exchange pods=N``) there
+through the single-device pod dispatch. ``--mesh pods`` runs under
+``torchrun`` on a ``(pod_axis, "agent")`` mesh of the world's ranks
+(``launch.mesh.make_pod_mesh``): NCCL on the card (rank r on
+``cuda:LOCAL_RANK``), gloo with ``--device cpu``, never one for the
+other. Each rank trains its block of agents; rank 0 prints the lines
+and writes the checkpoints, gathered into the single-process ``.npz``
+format, so ``--restore`` reads either kind of run's file in either
+kind. ``--mesh prod`` / ``prod-multipod`` (tensor parallelism) wait
+for Slice E part 2 and raise ``NotPortedError``. The weights are drawn from
 a ``torch.Generator`` of ``--seed`` and the token streams are the
 port's own (``repro_torch.data.synthetic``), so neither is the
 reference's.
@@ -127,8 +141,9 @@ def _parser():
                    help="gossip sampling seed"
                         + _DEPRECATION.format(key="topology_seed"))
     p.add_argument("--pods", type=int, default=None,
-                   help="multi-host pod dispatch (Slice E: refused)"
-                        + _DEPRECATION.format(key="pods"))
+                   help="hierarchical pod dispatch: number of pods (the "
+                        "'pod' combiner; --mesh pods maps them onto "
+                        "the pod axis)" + _DEPRECATION.format(key="pods"))
     p.add_argument("--pod-axis", default=None,
                    help="mesh axis of the leader-level exchange (--pods "
                         "only)" + _DEPRECATION.format(key="pod_axis"))
@@ -153,8 +168,9 @@ def _parser():
                    help="the published config (default: reduced())")
     p.add_argument("--mesh", default="cpu",
                    choices=["cpu", "prod", "prod-multipod", "pods"],
-                   help="'cpu': one device (the only one ported; the "
-                        "meshes wait for Slice E)")
+                   help="'cpu': one device; 'pods': the (pod, agent) "
+                        "mesh of the torchrun world (needs --pods >= 1); "
+                        "'prod' / 'prod-multipod' wait for Slice E part 2")
     p.add_argument("--elastic", action="store_true",
                    help="elastic group membership: a per-agent alive "
                         "mask through the exchange")
@@ -189,9 +205,8 @@ def main(argv=None) -> dict:
     from repro_torch.core.exchange import build_exchange
     from repro_torch.core.sharded_ddal import (init_train_state,
                                                make_group_train_step)
-    from repro_torch.data import StreamSpec, make_group_batch
+    from repro_torch.data import StreamSpec, make_group_batch, make_rows_batch
 
-    dev = resolve_device(args.device)
     cfg = get_arch_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -203,28 +218,54 @@ def main(argv=None) -> dict:
     spec = GroupSpec(n_agents=args.agents, threshold=args.threshold,
                      minibatch=args.minibatch, knowledge_mode="streaming",
                      elastic=args.elastic, **spec_kw)
-    if args.mesh != "cpu":
+    # mesh wiring reads the merged spec, so --exchange pods=N / pod_axis=X
+    # and the legacy named flags behave the same
+    mesh = None
+    if args.mesh == "pods":
+        if spec.pods < 1:
+            raise SystemExit("--mesh pods needs --pods >= 1 (or "
+                             "--exchange pods=N)")
+        from repro_torch.launch.mesh import init_distributed, make_pod_mesh
+        dev = init_distributed(args.device)
+        mesh = make_pod_mesh(spec.pods, pod_axis=spec.pod_axis,
+                             device_type=dev.type)
+    elif args.mesh != "cpu":
         raise NotPortedError(
-            f"--mesh {args.mesh} (a device mesh) waits for Slice E; the "
-            f"port trains on one device (--mesh cpu)")
+            f"--mesh {args.mesh} (the production (data, model) mesh, "
+            f"tensor parallelism) waits for Slice E part 2; the port "
+            f"trains on one device (--mesh cpu) or on the pod mesh "
+            f"(--mesh pods)")
+    else:
+        dev = resolve_device(args.device)
     shape = ShapeConfig("train_cli", args.seq, args.batch, "train")
     opt = optim.adamw(args.lr)
     stream = StreamSpec(seed=args.seed)
 
     # one protocol serves state init and the step, so the carried
     # relevance state and the step's estimator cannot drift apart
-    exchange = build_exchange(spec, kind="streaming")
+    exchange = build_exchange(spec, kind="streaming", mesh=mesh)
+    shard = exchange.shard
+    say = print if shard is None or shard.index == 0 else _quiet
+    # the group's state from the seed (and the file), then the rank's rows
     state = init_train_state(cfg, spec, opt, seed=args.seed,
                              exchange=exchange, device=dev)
     if args.restore:
         state = restore_train(args.restore, state, strict=False)
-        print(f"restored full TrainState from {args.restore} "
-              f"(step {int(state.step)})")
+        say(f"restored full TrainState from {args.restore} "
+            f"(step {int(state.step)})")
+    if mesh is not None:
+        from repro_torch.launch.shardings import (agent_sharded_state,
+                                                  gather_agent_state)
+        state = agent_sharded_state(state, mesh, spec.pod_axis)
     step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange)
     leaves = [x for _, x in tree_leaves_with_paths(state.params)]
-    n_params = sum(x.numel() for x in leaves) // args.agents
-    print(f"arch={args.arch} reduced={not args.full} "
-          f"params/agent={n_params:,} agents={args.agents}")
+    n_params = sum(x[0].numel() for x in leaves)
+    say(f"arch={args.arch} reduced={not args.full} "
+        f"params/agent={n_params:,} agents={args.agents}")
+    if shard is not None:
+        import torch.distributed as dist
+        say(f"mesh {spec.pod_axis} x agent = {tuple(mesh.mesh.shape)} over "
+            f"{dist.get_backend()}: {shard.block} agents a rank")
 
     def sync():
         if dev.type == "cuda":
@@ -236,23 +277,28 @@ def main(argv=None) -> dict:
     sync()
     t0 = time.perf_counter()
     for i in range(args.steps):
-        batch = make_group_batch(cfg, shape, stream, args.agents,
-                                 int(state.step), dev)
+        if shard is None:
+            batch = make_group_batch(cfg, shape, stream, args.agents,
+                                     int(state.step), dev)
+        else:
+            batch = make_rows_batch(cfg, shape, stream, shard.rows,
+                                    int(state.step), dev)
         t_step = time.perf_counter()
         state, m = step_fn(state, batch)
         sync()
         step_ms.append((time.perf_counter() - t_step) * 1e3)
         row = [float(x) for x in m["loss"].cpu()]
         losses.append(row)
-        window.append(state.know.rsum.tolist())
+        rsum = state.know.rsum
+        window.append((rsum if shard is None else shard.gather(rsum)).tolist())
         if m["shared"]:
             shared.append(m["step"])
         tag = " <shared>" if m["shared"] else ""
-        print(f"step {i:4d} losses [{' '.join(f'{x:6.3f}' for x in row)}]"
-              f"{tag}")
+        say(f"step {i:4d} losses [{' '.join(f'{x:6.3f}' for x in row)}]"
+            f"{tag}")
     dt = time.perf_counter() - t0
     toks = args.steps * args.agents * args.batch * args.seq
-    print(f"{args.steps} steps in {dt:.1f}s ({toks / dt:,.0f} tokens/s)")
+    say(f"{args.steps} steps in {dt:.1f}s ({toks / dt:,.0f} tokens/s)")
 
     first = int(state.step) - args.steps
     kinds = {"warm-up": [], "accumulation": [], "share": []}
@@ -263,16 +309,25 @@ def main(argv=None) -> dict:
     medians = {k: statistics.median(v) for k, v in kinds.items() if v}
     peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
             else None)
-    print("median ms per step: " + ", ".join(
+    say("median ms per step: " + ", ".join(
         f"{k} {v:.1f}" for k, v in medians.items())
         + ("" if peak is None else f"; peak {peak / 2**30:.3f} GiB"))
-    if args.ckpt:
-        save(args.ckpt, state.params, step=args.steps)
-        print(f"saved params to {args.ckpt}")
-    if args.ckpt_full:
-        save_train(args.ckpt_full, state, step=int(state.step))
-        print(f"saved full TrainState to {args.ckpt_full}")
-    return {"state": state, "spec": spec, "cfg": cfg,
+    if args.ckpt or args.ckpt_full:
+        # the single-process file: the group's rows gathered to every
+        # rank, written by rank 0
+        full = (state if mesh is None
+                else gather_agent_state(state, mesh, spec.pod_axis))
+        if shard is None or shard.index == 0:
+            if args.ckpt:
+                save(args.ckpt, full.params, step=args.steps)
+                say(f"saved params to {args.ckpt}")
+            if args.ckpt_full:
+                save_train(args.ckpt_full, full, step=int(full.step))
+                say(f"saved full TrainState to {args.ckpt_full}")
+        del full
+    if mesh is not None:
+        torch.distributed.barrier()
+    return {"state": state, "spec": spec, "cfg": cfg, "shard": shard,
             "params_per_agent": n_params, "leaves": len(leaves),
             "losses": losses, "shared": shared, "step_ms": step_ms,
             "window": window,
@@ -280,5 +335,12 @@ def main(argv=None) -> dict:
             "peak_bytes": peak}
 
 
+def _quiet(*args, **kwargs):
+    """``print`` on the ranks other than 0."""
+
+
 if __name__ == "__main__":
     main()
+    import torch.distributed as _dist
+    if _dist.is_available() and _dist.is_initialized():
+        _dist.destroy_process_group()

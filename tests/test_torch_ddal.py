@@ -247,10 +247,11 @@ UNPORTED = [
     dict(exchange_transport="faulty"), dict(knowledge_mode="streaming"),
     dict(topology="hierarchical", degree=2, pods=2),
 ]
-# the pod dispatch (Slice E) is still refused by name; the streaming
-# trainer's settings construct since Slice D, and the buffer trainer
-# refuses the streaming combiner as the reference's build does
-STILL_UNPORTED = ("pods",)
+# nothing is refused by name any more: the streaming trainer's settings
+# construct since Slice D, the pod dispatch since Slice E (the buffer
+# trainer ignores ``pods`` as the reference's does), and the buffer
+# trainer refuses the streaming combiner as the reference's build does
+STILL_UNPORTED = ()
 STREAMING_ONLY = ("exchange_combiner",)
 
 
@@ -258,10 +259,10 @@ STREAMING_ONLY = ("exchange_combiner",)
 def test_unported_fields_are_refused_by_name(kw):
     """The knobs that were refused before the buffer trainer's robustness
     slice now construct and run four epochs of a DDA3C group on the CPU
-    (sharing from epoch 1, so every knob is exercised); the pod dispatch
-    is still refused by name, and the streaming ``flat`` combiner
-    constructs but the buffer trainer refuses it with the reference's
-    ``ValueError``."""
+    (sharing from epoch 1, so every knob is exercised), ``pods`` too (the
+    buffer trainer keeps its ``store`` combiner, as the reference's);
+    the streaming ``flat`` combiner constructs but the buffer trainer
+    refuses it with the reference's ``ValueError``."""
     spec_kw = dict(n_agents=4, **kw)
     RefSpec(**spec_kw)                       # valid for the reference
     if any(k in kw for k in STILL_UNPORTED):

@@ -234,9 +234,19 @@ def test_build_refuses_like_reference(kw, kind):
     dict(topology="hierarchical", degree=2, exchange_combiner="pod"),
 ])
 def test_pod_dispatch_still_refused(kw):
+    """The pod dispatch constructs since Slice E and builds the ``pod``
+    combiner for the streaming trainer; what it still refuses is what
+    the reference's refuses: a faulty transport (the dispatch cannot
+    drop per-round edges), with the reference's message."""
     RefSpec(n_agents=4, **kw)
-    with pytest.raises(NotPortedError, match="Slice E"):
-        GroupSpec(n_agents=4, **kw)
+    ex = build_exchange(GroupSpec(n_agents=4, **kw), kind="streaming")
+    assert ex.combiner.__qualname__.startswith("make_pod_combiner")
+    faulty = dict(n_agents=4, transport_loss=0.2, **kw)
+    with pytest.raises(ValueError, match="transport faults") as ref_err:
+        ref_build(RefSpec(**faulty), kind="streaming")
+    with pytest.raises(ValueError, match="transport faults") as port_err:
+        build_exchange(GroupSpec(**faulty), kind="streaming")
+    assert str(port_err.value) == str(ref_err.value)
 
 
 def test_mesh_refused_and_prebuilt_exchange_checked():

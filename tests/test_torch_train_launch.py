@@ -1,7 +1,9 @@
 """The streaming trainer's launcher, ``repro_torch.launch.train`` (the
 twin of ``repro.launch.train``), on the CPU: it runs a reduced arch
 with the reference's flags and lines, warns on the legacy spellings,
-refuses the meshes and the pod dispatch by name (Slice E), and its
+refuses the production meshes by name (Slice E part 2), trains the pod
+dispatch on one device (``--pods``; the pod mesh is held in
+``test_torch_train_launch_mesh.py``), and its
 ``--ckpt-full`` files cross-load with the reference launcher's both
 ways (``--restore``)."""
 from __future__ import annotations
@@ -50,9 +52,13 @@ def test_legacy_flags_warn_and_unported_meshes_refused():
     with pytest.raises(NotPortedError, match="Slice E"):
         train.main(ARGS + ["--steps", "1", "--mesh", "prod"])
     with pytest.raises(NotPortedError, match="Slice E"):
-        train.main(ARGS + ["--steps", "1", "--exchange",
-                           "topology=hierarchical", "--exchange", "degree=2",
-                           "--exchange", "pods=1"])
+        train.main(ARGS + ["--steps", "1", "--mesh", "prod-multipod"])
+    # the pod dispatch trains on one device (the single-device dispatch)
+    out = train.main(ARGS + ["--steps", "3", "--exchange",
+                             "topology=hierarchical", "--exchange", "degree=1",
+                             "--exchange", "pods=2"])
+    assert out["spec"].pods == 2 and out["shared"] == [2]
+    assert np.isfinite(np.asarray(out["losses"])).all()
     with pytest.raises(SystemExit):
         train.main(ARGS + ["--exchange", "no_such_knob=1"])
 
