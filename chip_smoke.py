@@ -116,6 +116,21 @@ Phases, each printing its lines:
    byte counts, and ``[mesh]``: the launcher under
    ``torch.distributed.run`` on a (1, 1) ``(pod, agent)`` mesh over
    NCCL, its checkpoint against the same launcher's one-device run;
+   the model axis (Slice E part 2), in a one-rank NCCL group of this
+   process: ``[tp]`` (``[train] pods``' model and exchange, 4 agents on
+   a ring, on a (1, 1) ``(data, model)`` mesh against the same step with
+   no mesh: losses and parameters within rtol 1e-5 / atol 1e-6, flash
+   once per layer in every agent's forward, the sketch once per leaf per
+   accumulation step), ``[equiv] experts ep`` (qwen3-moe-30b-a3b's
+   widths cut to 2 layers, fp32, scoring 2 x 4096 ids: the
+   expert-parallel dispatch on the (1, 1) mesh against the dense one,
+   loss rtol 1e-5, gradients rtol 3e-4 / atol 3e-5, one ``moe_combine``
+   all-reduce per MoE layer) and ``[kernel] grad_sketch strided`` (the
+   ``[tp]`` model's stacked ``w_gate`` leaf cut into 2 and 4 column
+   slices: each slice's kernel against its plain version, their sum
+   against the contiguous kernel on the whole leaf, ms, bound and
+   ``matmul`` ms per slice); one rank on one card shows that the code
+   path and NCCL run, not traffic between cards;
 5. the card against the port's CPU path: ``[train-equiv]``, the
    streaming trainer at reduced() llama3.2-3b and mamba2-780m with fp32
    compute, 8 steps with 2 shares, from the same state and batches,
@@ -2958,6 +2973,292 @@ def mesh_phase(torch):
               "one-device run's")
 
 
+TP_LABEL = "[tp] llama3.2-3b, 2 layers, (1, 1) (data, model) mesh"
+TP_STEPS = 6
+EP_LABEL = "[equiv] experts ep"
+STRIDED_LABEL = "[kernel] grad_sketch strided"
+
+
+def _one_rank_nccl(torch):
+    """A one-rank NCCL process group in this process (a ``FileStore``
+    under build/, no network) and the (1, 1) ``(data, model)`` mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    store = ROOT / "build" / "tp_phase" / "store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
+
+
+def _tp_run(torch, mesh):
+    """``[tp]``'s trainer run (mesh None: the one-device step): (per-step
+    losses on the host, the final params (the state's own tensors, the
+    rest of the state freed), the kernel launches, the number of leaves,
+    ms per step, the share steps)."""
+    from repro_torch import optim
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import GroupSpec, ShapeConfig
+    from repro_torch.core.exchange import build_exchange
+    from repro_torch.core.sharded_ddal import (init_train_state,
+                                               make_group_train_step)
+    from repro_torch.data import StreamSpec, make_data_batch, make_group_batch
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import train_rules
+
+    cfg = get_arch_config(LLAMA).with_(n_layers=2)
+    spec = GroupSpec(n_agents=4, threshold=2, minibatch=2,
+                     knowledge_mode="streaming", topology="ring",
+                     exchange_estimator="grad_cos+sketch",
+                     relevance_sketch_dim=SKETCH_DIM,
+                     knowledge_quant_block=QUANT_BLOCK)
+    opt = optim.adamw(1e-3)
+    shape = ShapeConfig("train_smoke", 256, 2, "train")
+    ex = build_exchange(spec, kind="streaming", mesh=mesh)
+    state = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                             device="cuda")
+    if mesh is not None:
+        specs = SH.train_state_partition_specs(
+            cfg, train_rules(mesh), None, ex.estimator.learns, ex.sketch_dim)
+        like = SH.full_shapes(state)
+        state = SH.place(state, specs, mesh, cfg)
+    step = make_group_train_step(cfg, spec, opt, exchange=ex, mesh=mesh)
+    reset_launches()
+    losses, ms, shared = [], [], []
+    for i in range(TP_STEPS):
+        if mesh is None:
+            batch = make_group_batch(cfg, shape, StreamSpec(seed=0), 4, i,
+                                     "cuda")
+        else:
+            batch = make_data_batch(cfg, shape, StreamSpec(seed=0), 4, i,
+                                    mesh, "cuda")
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"].cpu())
+        if m["shared"]:
+            shared.append(i)
+    launched = launch_counts()
+    full = (state.params if mesh is None else
+            SH.gather(state.params, specs.params, mesh, like.params, cfg))
+    params = _tree_leaves(full)
+    del state, step, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, params, launched, len(params), ms, shared
+
+
+def tp_phase(torch, mesh):
+    """``[tp]``: the streaming trainer on the (1, 1) ``(data, model)``
+    mesh over NCCL (the model under ``train_rules``: vocab-parallel
+    embedding and loss, split attention and SwiGLU, each with its
+    all-reduce; gradients over ``data``; partial sums over ``model``)
+    against the same step with no mesh on the card: llama3.2-3b's widths
+    cut to 2 layers, 4 agents on a ring, sketched relevance d 256, int8
+    planes, 6 steps, shares at 2 and 4. Gates: losses and parameters
+    within rtol 1e-5 / atol 1e-6; flash 2 x 4 x 6; the sketch once per
+    leaf per accumulation step; NCCL. Returns {kernel: {path: n}}."""
+    import torch.distributed as dist
+
+    from repro_torch.common.sharding import COLLECTIVES
+    t0 = time.perf_counter()
+    want = _tp_run(torch, None)
+    COLLECTIVES.clear()
+    got = _tp_run(torch, mesh)
+    w_loss, w_params, _, leaves, w_ms, w_shared = want
+    loss, params, launched, _, ms, shared = got
+    worst_loss = max(float((a - b).abs().max()) for a, b in zip(loss, w_loss))
+    loss_ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                  for a, b in zip(loss, w_loss))
+    worst = max(float((a - b).abs().max()) for a, b in zip(params, w_params))
+    params_ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                    for a, b in zip(params, w_params))
+    del params, w_params, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    backend = dist.get_backend()
+    want_launches = dict({name: 0 for name in KERNELS},
+                         flash_attention=2 * 4 * TP_STEPS,
+                         grad_sketch=leaves * (TP_STEPS - 2))
+    print(f"{TP_LABEL}: over {backend}; ms per step with the mesh "
+          f"{[round(x, 1) for x in ms]}, without "
+          f"{[round(x, 1) for x in w_ms]}; losses max abs {worst_loss:.3e},"
+          f" parameters max abs {worst:.3e} over {leaves} leaves (rtol "
+          f"1e-5, atol 1e-6) -> {'ok' if loss_ok and params_ok else 'FAIL'};"
+          f" shared at {shared}; launches " + ", ".join(
+              f"{k} {v}" for k, v in launched.items())
+          + "; forward collectives " + ", ".join(
+              f"{k} {v}" for k, v in sorted(COLLECTIVES.items()))
+          + f"; {time.perf_counter() - t0:.1f} s. One rank on one card: "
+          f"the code path and NCCL run on the card; traffic between "
+          f"cards is not exercised")
+    check(backend == "nccl", f"{TP_LABEL}: the group runs {backend}")
+    check(loss_ok, f"{TP_LABEL}: losses differ from the one-device step")
+    check(params_ok, f"{TP_LABEL}: parameters differ from the one-device "
+                     f"step")
+    check(shared == w_shared == [2, 4], f"{TP_LABEL}: shared at {shared}")
+    check(launched == want_launches,
+          f"{TP_LABEL}: kernel launches {launched} != {want_launches}")
+    return {name: {TP_LABEL: launched[name]}
+            for name in ("flash_attention", "grad_sketch")}
+
+
+def expert_parallel_phase(torch, mesh):
+    """``[equiv] experts ep``: qwen3-moe-30b-a3b's widths cut to 2 layers
+    with fp32 params and compute, scoring 2 x 4096 ids (C = 320): the
+    loss and its gradients through the expert-parallel dispatch on the
+    (1, 1) mesh against the dense dispatch with no mesh, at
+    ``tests/test_moe_dispatch.py``'s gates; one ``moe_combine``
+    all-reduce per MoE layer in the forward."""
+    from repro_torch.common.sharding import COLLECTIVES, axis_rules, set_mesh
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    cfg = get_arch_config(QWEN).with_(n_layers=2, param_dtype="float32",
+                                      compute_dtype="float32")
+    dense = cfg.with_(moe_dispatch="dense")
+    model = get_model(cfg)
+    params = model.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    batch = _score_batch(torch, cfg, SCORE_S)
+    leaves = _tree_leaves(params)
+    for x in leaves:
+        x.requires_grad_(True)
+    loss_d = model.loss(dense, params, batch)
+    grads_d = torch.autograd.grad(loss_d, leaves)
+    COLLECTIVES.clear()
+    with set_mesh(mesh), axis_rules(train_rules(mesh)):
+        loss_e = model.loss(cfg, params, batch)
+        combines = COLLECTIVES["moe_combine"]
+        grads_e = torch.autograd.grad(loss_e, leaves)
+    loss_e, loss_d = float(loss_e.detach()), float(loss_d.detach())
+    ok_loss = math.isclose(loss_e, loss_d, rel_tol=1e-5)
+    worst, ok_grads = 0.0, True
+    for a, b in zip(grads_e, grads_d):
+        worst = max(worst, float((a - b).abs().max()))
+        ok_grads &= bool(torch.allclose(a, b, rtol=3e-4, atol=3e-5))
+    C = max(1, int(cfg.moe.capacity_factor * SCORE_S * cfg.moe.top_k
+                   / cfg.moe.n_experts))
+    print(f"{EP_LABEL}: {QWEN} widths, 2 layers, fp32, scoring "
+          f"{SCORE_B} x {SCORE_S} ids (C = {C}): expert-parallel loss "
+          f"{loss_e:.6f} against dense {loss_d:.6f} (rtol "
+          f"1e-5); gradients max abs {worst:.3e} over {len(leaves)} leaves "
+          f"(rtol 3e-4, atol 3e-5); {combines} moe_combine all-reduces "
+          f"(one a MoE layer) -> "
+          f"{'ok' if ok_loss and ok_grads and combines == 2 else 'FAIL'}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(ok_loss, f"{EP_LABEL}: the losses differ")
+    check(ok_grads, f"{EP_LABEL}: the gradients differ")
+    check(combines == cfg.n_layers,
+          f"{EP_LABEL}: {combines} combines for {cfg.n_layers} MoE layers")
+    del params, leaves, grads_d, grads_e, loss_d, loss_e
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def sketch_strided_phase(torch):
+    """``[kernel] grad_sketch strided``: the ``[tp]`` model's stacked
+    ``w_gate`` leaf, 4 agents x (2, 3072, 8192), cut into m = 2 and m =
+    4 column slices as a model axis of that size places it. Each slice
+    through the strided kernel against its plain version on its first
+    2^18 positions (the plain version builds S a tile at a time), the
+    slices' sum against the contiguous kernel on the whole leaf within
+    the sketch's gate (1e-5·Σ|G| per row), and per slice the kernel's
+    ms, its bound and ``torch.matmul`` of the slice with its S built
+    outside the timing."""
+    from repro_torch.common.sharding import LeafShard
+    from repro_torch.core.relevance import fold_seed
+    from repro_torch.kernels.grad_sketch import ops, ref
+
+    t0 = time.perf_counter()
+    n, shape, d = 4, (2, 3072, 8192), SKETCH_DIM
+    seed, offset = fold_seed(0, 3), 123_456_789
+    g = torch.Generator(device="cuda").manual_seed(11)
+    full = torch.randn((n,) + shape, generator=g, device="cuda")
+    whole = ops.sketch_leaf(full, seed, d, offset)
+    gate = 1e-5 * full.reshape(n, -1).abs().sum(1, keepdim=True)
+    rows, cut = [], 2 ** 18
+    ok = True
+    for m in (2, 4):
+        blk = shape[2] // m
+        acc = torch.zeros((n, d), device="cuda")
+        for r in range(m):
+            x = full[..., r * blk:(r + 1) * blk].contiguous()
+            leaf = LeafShard(shape, 2, r * blk, blk)
+            pmap = leaf.position_map()
+            G = x.reshape(n, -1)
+            got = ops.sketch_leaf(x, seed, d, offset, leaf)
+            acc += got
+            Gc = G[:, :cut].contiguous()
+            k = ops.sketch_flat(Gc, seed, d, offset, pmap)
+            p = ref.sketch_flat(Gc, seed, d, offset, position_map=pmap)
+            err = float((k - p).abs().max())
+            ok_r = bool(((k - p).abs()
+                         <= 1e-5 * Gc.abs().sum(1, keepdim=True)).all())
+            ok &= ok_r
+            ms, _ = time_ms(torch, lambda: ops.sketch_flat(
+                G, seed, d, offset, pmap), 10)
+            plain_ms, _ = time_ms(torch, lambda: ref.sketch_flat(
+                Gc, seed, d, offset, position_map=pmap), 1)
+            P = G.shape[1]
+            bytes_ms = (4 * n * P + 4 * n * d) / HBM_BYTES_PER_S * 1e3
+            ops_ms = 2 * n * P * d / FP32_FLOP_PER_S * 1e3
+            b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
+                          else (ops_ms, "operations"))
+            S = torch.empty((P, d), device="cuda")      # outside the timing
+            piece = 2 ** 18
+            for start in range(0, P, piece):
+                pos = ref.shard_positions(start, min(piece, P - start),
+                                          offset, *pmap, device="cuda")
+                S[start:start + piece] = 1.0 - 2.0 * ref._hash_bits(
+                    seed, pos, d).to(torch.float32)
+            lib_ms, _ = time_ms(torch, lambda: torch.matmul(G, S), 10)
+            del S
+            torch.cuda.empty_cache()
+            rows.append(dict(m=m, rank=r, n=n, positions=P, ms=ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             plain_ms_first_2_18=plain_ms, max_abs_err=err))
+            print(f"{STRIDED_LABEL} m = {m}, slice {r} ({n}, {P:,}, {d}) at "
+                  f"columns {r * blk}..{(r + 1) * blk - 1} of 8192: device "
+                  f"{ms:.5f} ms (bound {b_ms:.5f} ms, {b_by}), "
+                  f"torch.matmul(G, S) with S built outside {lib_ms:.5f} ms;"
+                  f" on its first 2^18 positions against the plain version "
+                  f"({plain_ms:.5f} ms): max abs {err:.3e} -> "
+                  f"{'ok' if ok_r else 'FAIL'}")
+        sum_err = float((acc - whole).abs().max())
+        sum_ok = bool(((acc - whole).abs() <= gate).all())
+        ok &= sum_ok
+        print(f"{STRIDED_LABEL} m = {m}: the slices' sum against the "
+              f"contiguous kernel on the whole leaf: max abs {sum_err:.3e} "
+              f"(1e-5·Σ|G| per row) -> {'ok' if sum_ok else 'FAIL'}")
+    print(f"{STRIDED_LABEL}: {time.perf_counter() - t0:.1f} s")
+    check(ok, f"{STRIDED_LABEL}: a slice disagrees")
+    del full
+    torch.cuda.empty_cache()
+    return rows
+
+
+def model_axis_phases(torch, table):
+    """``[tp]``, ``[equiv] experts ep`` and ``[kernel] grad_sketch
+    strided`` in one one-rank NCCL group, destroyed after them."""
+    import torch.distributed as dist
+    mesh = _one_rank_nccl(torch)
+    try:
+        launches = tp_phase(torch, mesh)
+        expert_parallel_phase(torch, mesh)
+    finally:
+        dist.destroy_process_group()
+    table["grad_sketch"]["strided"] = sketch_strided_phase(torch)
+    return launches
+
+
 def _state_to(torch, state, dev):
     def to(x):
         if isinstance(x, dict):
@@ -4216,6 +4517,8 @@ def main() -> int:
         train_equiv_pods_phase(torch)
         mesh_phase(torch)
         lap("pods and mesh")
+        tp_launches = model_axis_phases(torch, table)
+        lap("model axis")
         table["grad_sketch"]["largest_leaf"] = sketch_leaf_phase(
             torch, largest_leaf)
         lap("sketch at the largest leaf")
@@ -4224,7 +4527,7 @@ def main() -> int:
                       dserve_launches, dscore_launches, mserve_launches,
                       mscore_launches, vscore_launches, *slot_launches,
                       train_launches, llama_train_launches,
-                      pods_train_launches):
+                      pods_train_launches, tp_launches):
             for name, by_path in paths.items():
                 launches[name].update(by_path)
         equivalence_phase(torch)
@@ -4267,7 +4570,7 @@ def main() -> int:
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}, **{extra: table[name][extra]
                            for extra in ("zamba2", "qwen3_moe",
-                                         "qwen2_vl", "musicgen")
+                                         "qwen2_vl", "musicgen", "strided")
                            if extra in table[name]})
         for name in KERNELS]
     check_finite = all(math.isfinite(k["ms"]) for k in kernels)

@@ -49,6 +49,18 @@ def column_chunks(p: int, width: int = COLUMN_CHUNK):
     return [slice(c, min(p, c + width)) for c in range(0, p, width)]
 
 
+def tree_from_paths(pairs) -> dict:
+    """A nest of dicts from (path, leaf) pairs: the inverse of
+    :func:`tree_leaves_with_paths` for dict trees."""
+    out: dict = {}
+    for path, value in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` leaf by leaf over matching nests of dicts (the model
     zoo's parameter and cache trees): ``fn(leaf, *matching_leaves)``."""
@@ -97,10 +109,12 @@ def init_stacked(n_layers, draw):
     model's weights are never held twice (the reference draws them all
     at once under ``vmap``). ``n_layers`` is a count, or a tuple of
     counts for nested stacks (leaves (d1, d2, ...)), filled in
-    row-major order."""
+    row-major order. On ``meta`` one layer is drawn, for its shapes."""
     lead = (n_layers,) if isinstance(n_layers, int) else tuple(n_layers)
     first = draw()
     stacked = tree_map(lambda t: t.new_empty(lead + tuple(t.shape)), first)
+    if all(t.is_meta for _, t in tree_leaves_with_paths(first)):
+        return stacked              # shapes only: no values to copy
     for n, idx in enumerate(itertools.product(*map(range, lead))):
         tree_map(lambda dst, src: dst[idx].copy_(src), stacked,
                  first if n == 0 else draw())

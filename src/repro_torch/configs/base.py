@@ -365,9 +365,11 @@ class ArchConfig:
     Multi-head Latent Attention; the first ``first_k_dense`` layers (0
     or 1, as in the reference) keep a dense SwiGLU of ``dense_ff`` and
     run before the stack (``params["layer0"]``). ``moe_dispatch``
-    takes the reference's values; with no device mesh the reference
-    dispatches dense whatever it says, and so does the port, which runs
-    on one device (expert parallelism waits for Slice E part 2). ``mla_absorb``
+    takes the reference's values; with no model axis the reference
+    dispatches dense whatever it says, and so does the port; on a
+    ``(data, model)`` mesh whose model axis divides the experts,
+    ``"dense"`` keeps the dense dispatch and the others take the
+    expert-parallel one (``repro_torch.models.moe``). ``mla_absorb``
     scores a query against the cached latent directly (the reference's
     weight absorption) whenever a cache is given with more slots than
     the pass has queries.

@@ -30,7 +30,11 @@ has already refused every key the port lacks.
 streaming trainer's agents over the ranks: the protocol then carries
 the calling rank's ``AgentShard`` (``shard``), gathers the estimator's
 inputs over the world in ``observe``, and its combiner returns the
-rank's rows of ḡ.
+rank's rows of ḡ. A ``(data, model)`` mesh places no agents (every rank
+holds the group's slices of each leaf): the protocol is the one-device
+one, and ``sketch_step`` / ``observe`` take the rank's ``ModelShards``
+(``shards=``) to sum their partial sketches and cosines over the model
+axis.
 """
 from __future__ import annotations
 
@@ -100,10 +104,15 @@ class ExchangeProtocol:
             return None
         return self.estimator.init(self.spec.n_agents, device)
 
-    def sketch_step(self, grads, rnd: int):
+    def sketch_step(self, grads, rnd: int, shards=None):
         """This step's (n, d) window-sketch contribution (sketched
-        estimators; ``None`` otherwise)."""
-        return self.estimator.sketch_step(grads, rnd)
+        estimators; ``None`` otherwise). ``shards`` (a ``ModelShards``:
+        ``grads`` are the rank's slices) sums the ranks' partial sketches
+        over the model axis."""
+        out = self.estimator.sketch_step(grads, rnd, shards=shards)
+        if out is not None and shards is not None:
+            shards.all_reduce(out)
+        return out
 
     def init_table(self) -> np.ndarray:
         return self.schedule.init_table()
@@ -122,20 +131,25 @@ class ExchangeProtocol:
         return self.schedule.materialize(step, nbr, rel), nbr
 
     def observe(self, rel_state, *, grads=None, sketch=None, aux=None,
-                rnd=0, enabled=True, alive=None):
+                rnd=0, enabled=True, alive=None, shards=None):
         """One estimator update (the identity for ``uniform``);
         ``sketch`` is the streaming window's carried (n, d) sketch;
         ``alive`` (device (n,) bool) freezes entries touching a dead
         agent. On a mesh ``grads`` and ``sketch`` hold the rank's rows:
         the sketch is gathered over the world here, and exact
         ``grad_cos`` gathers the window a column chunk at a time, so
-        every rank gets the group's relevance."""
+        every rank gets the group's relevance. ``shards`` (a
+        ``ModelShards``: ``grads`` are the rank's slices of each leaf)
+        makes exact ``grad_cos`` sum its partial dot products and norms
+        over the model axis (a sketch is already the whole one)."""
         kw = {}
         if self.shard is not None and enabled and self.estimator.learns:
             if sketch is not None:
                 sketch = self.shard.gather(sketch)
             else:
                 kw["gather"] = self.shard.gather
+        if shards is not None and sketch is None and self.estimator.learns:
+            kw["shards"] = shards
         return self.estimator.observe(rel_state, grads=grads,
                                       sketch=sketch, aux=aux, rnd=rnd,
                                       enabled=enabled, alive=alive, **kw)
@@ -403,12 +417,16 @@ def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
     transport = make_transport(
         spec, tuple(schedule.base.nbr.shape) if schedule is not None
         else (spec.n_agents, spec.n_agents))
+    # only the pod mesh places agents: on a (data, model) mesh every rank
+    # holds the group, and the combiner runs its one-device form
+    from repro_torch.core.sharded_ddal import agent_shard, mesh_kind
+    if mesh_kind(mesh, spec.pod_axis) != "pod":
+        mesh = None
     combiner = COMBINERS.get(comb_key)(spec=spec, schedule=schedule,
                                        estimator=estimator, dense_R=dense_R,
                                        transport=transport, mesh=mesh)
     shard = None
     if mesh is not None:
-        from repro_torch.core.sharded_ddal import agent_shard
         shard = agent_shard(mesh, spec.n_agents, spec.pod_axis)
     return ExchangeProtocol(spec=spec, schedule=schedule,
                             estimator=estimator, combiner=combiner,

@@ -33,9 +33,11 @@ accumulation step adds ``sketch_step(grads, rnd)`` (one ``grad_sketch``
 launch per leaf, seed ``fold_seed(seed, rnd)``) and the share step's
 ``observe(sketch=...)`` takes ``cosine_rows`` of it (the reference's
 ``estimators.py:154-172``). ``sketch_dim`` is 0 for every estimator
-that does not sketch. On a device mesh the exchange protocol gathers
+that does not sketch. On a pod mesh the exchange protocol gathers
 the sketch rows before ``observe``, and hands exact ``grad_cos`` a
-``gather`` that collects the window's rows a column chunk at a time.
+``gather`` that collects the window's rows a column chunk at a time; on
+a ``(data, model)`` mesh it hands them the rank's ``ModelShards``
+(partial sketches and cosines, summed over the model axis).
 """
 from __future__ import annotations
 
@@ -68,7 +70,7 @@ class UniformEstimator:
     def matrix(self, state) -> torch.Tensor:
         return state
 
-    def sketch_step(self, grads, rnd):
+    def sketch_step(self, grads, rnd, shards=None):
         return None
 
 
@@ -96,15 +98,16 @@ class GradCosEstimator:
 
     def observe(self, state: torch.Tensor, *, grads=None, sketch=None,
                 aux=None, rnd: int = 0, enabled: bool = True,
-                alive=None, gather=None) -> torch.Tensor:
+                alive=None, gather=None, shards=None) -> torch.Tensor:
         # the reference computes the observation on warm-up epochs too
         # and then discards it (``ema_update`` with enabled=False);
         # skipping it gives the same state and spends no card time
         del aux
         if not enabled:
             return state
-        if gather is not None:       # a mesh: the rank's rows of the window
-            obs = REL.grad_cosine(grads, gather=gather)
+        if gather is not None or shards is not None:
+            # a mesh: the rank's rows, or its slices, of the window
+            obs = REL.grad_cosine(grads, gather=gather, shards=shards)
         else:
             obs = self._observation(grads, sketch, rnd)
         return REL.ema_update(state, REL.to_relevance(obs), self.ema,
@@ -117,7 +120,7 @@ class GradCosEstimator:
     def matrix(self, state: torch.Tensor) -> torch.Tensor:
         return state
 
-    def sketch_step(self, grads, rnd):
+    def sketch_step(self, grads, rnd, shards=None):
         return None
 
 
@@ -153,13 +156,14 @@ class SketchedGradCosEstimator(GradCosEstimator):
             return REL.cosine_rows(sketch)
         return self._cosine(grads, rnd)
 
-    def sketch_step(self, grads, rnd: int) -> torch.Tensor:
+    def sketch_step(self, grads, rnd: int, shards=None) -> torch.Tensor:
         """This step's (n, d) contribution to the window sketch: the
         tree of stacked gradients through round ``rnd``'s projection,
-        one kernel launch per leaf."""
+        one kernel launch per leaf (with ``shards``, per leaf the rank
+        owns: its partial sketch)."""
         from repro_torch.kernels.grad_sketch import ops as sketch_ops
         return sketch_ops.sketch_pytree(grads, REL.fold_seed(self.seed, rnd),
-                                        self.dim)
+                                        self.dim, shards=shards)
 
 
 class ObsStatsState(NamedTuple):
@@ -245,5 +249,5 @@ class ObsStatsEstimator:
     def matrix(self, state: ObsStatsState) -> torch.Tensor:
         return state.rel
 
-    def sketch_step(self, grads, rnd):
+    def sketch_step(self, grads, rnd, shards=None):
         return None

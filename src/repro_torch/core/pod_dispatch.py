@@ -57,6 +57,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import NotPortedError
 from repro_torch.core import sharded_ddal as SD
 from repro_torch.core.topology import PodLayout, Topology, cross_pod_mask
 
@@ -168,10 +169,15 @@ def make_pod_dispatch(topo: Topology, layout: PodLayout, *, mesh=None,
     either segment; ``q_block > 0`` takes the planes through the int8
     round trip; ``out`` receives ḡ. With ``mesh`` (``(pod_axis,
     agent_axis)``) ``know``, ``out`` and the result are the rank's rows;
-    any other mesh raises ``NotPortedError`` (Slice E part 2)."""
+    any other mesh raises ``NotPortedError`` (a ``(data, model)`` mesh
+    places no agents: its trainer dispatches on one device)."""
     edges = split_topology(topo, layout)
     if mesh is not None:
-        SD.mesh_axes(mesh, pod_axis, agent_axis)
+        if SD.mesh_kind(mesh, pod_axis, agent_axis) != "pod":
+            raise NotPortedError(
+                f"the pod dispatch places agents on the ({pod_axis!r}, "
+                f"{agent_axis!r}) mesh; a (data, model) mesh places none "
+                f"(its trainer dispatches on one device: mesh=None)")
         return _make_sharded_dispatch(topo, layout, edges, mesh, pod_axis,
                                       agent_axis)
     return _make_reference_dispatch(topo, layout, edges)

@@ -42,22 +42,28 @@ def cosine_rows(g: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.where(eye, torch.ones_like(c), c)
 
 
-def grad_cosine(grads, eps: float = 1e-8, gather=None) -> torch.Tensor:
+def grad_cosine(grads, eps: float = 1e-8, gather=None,
+                shards=None) -> torch.Tensor:
     """Exact pairwise cosine of the agents' gradients → symmetric (n, n)
     ``C[src, dst]`` in [-1, 1], unit diagonal. ``grads`` is (n, P) rows
-    or a tree of stacked (n, *param) leaves. ``gather`` (a device mesh:
+    or a tree of stacked (n, *param) leaves. ``gather`` (a pod mesh:
     ``grads`` holds the rank's rows) collects each column chunk's rows
     from every rank, so every rank computes the group's C, the same
-    arithmetic as on one device."""
+    arithmetic as on one device. ``shards`` (a ``(data, model)`` mesh: a
+    ``ModelShards``, ``grads`` the rank's slices of each leaf) takes the
+    norms and the Gram matrix as partial sums over the leaves the rank
+    owns, each all-reduced over the model axis."""
     if isinstance(grads, torch.Tensor):
         return cosine_rows(grads.to(torch.float32), eps)
     rows = [x.reshape(x.shape[0], -1)
             for _, x in tree_leaves_with_paths(grads)]
+    if shards is not None:
+        rows = [g for g, own in zip(rows, shards.owned) if own]
 
     def chunk(g, cols):
         c = g[:, cols]
         return (c if gather is None else gather(c)).to(torch.float32)
-    dev = rows[0].device
+    dev = rows[0].device if rows else None
     sq = None
     for g in rows:
         for cols in column_chunks(g.shape[1]):
@@ -66,6 +72,13 @@ def grad_cosine(grads, eps: float = 1e-8, gather=None) -> torch.Tensor:
                 sq = torch.zeros((gf.shape[0],), dtype=torch.float32,
                                  device=dev)
             sq = sq + torch.sum(gf * gf, dim=1)
+    if shards is not None:
+        if sq is None:             # no leaf of its own on this rank
+            first = next(x for _, x in tree_leaves_with_paths(grads))
+            dev = first.device
+            sq = torch.zeros((first.shape[0],), dtype=torch.float32,
+                             device=dev)
+        shards.all_reduce(sq)
     n = sq.shape[0]
     denom = torch.clamp_min(torch.sqrt(sq), eps)[:, None]
     C = torch.zeros((n, n), dtype=torch.float32, device=dev)
@@ -73,6 +86,8 @@ def grad_cosine(grads, eps: float = 1e-8, gather=None) -> torch.Tensor:
         for cols in column_chunks(g.shape[1]):
             gn = chunk(g, cols) / denom
             C = C + gn @ gn.T
+    if shards is not None:
+        shards.all_reduce(C)
     c = torch.clamp(C, -1.0, 1.0)
     eye = torch.eye(n, dtype=torch.bool, device=dev)
     return torch.where(eye, torch.ones_like(c), c)

@@ -1,6 +1,7 @@
 """DDAL at LLM scale — the streaming group-agent trainer of the model
 zoo; the port of ``repro.core.sharded_ddal``, on one device or over
-``torch.distributed`` on a two-level ``(pod, "agent")`` device mesh.
+``torch.distributed`` on a two-level ``(pod, "agent")`` device mesh or
+a ``(data, model)`` device mesh.
 
 Each agent trains its own copy of a model on its own data stream
 (``repro_torch.data.synthetic``). Parameters, AdamW moments and the
@@ -54,6 +55,25 @@ collectives. ``kill_agents`` / ``revive_agents`` take global masks and
 apply them to the rank's rows. The collectives are ``torch.distributed``
 ones, NCCL's on the card and gloo's on the host.
 
+On a ``(data, model)`` mesh (``repro_torch.launch.mesh.make_debug_mesh``
+/ ``make_production_mesh``) every rank holds every agent, and the
+parameter leaves are cut by the reference's partition specs
+(``launch.shardings.train_state_partition_specs``, placed by
+``launch.shardings.place``): each rank holds its model-axis slice of
+every parameter, AdamW moment and window leaf, and its B/d rows of each
+agent's batch (``data.sharded.make_data_batch``). The step runs the
+model's loss under ``train_rules(mesh)``, so the dense and MoE layers
+take their split forms (``repro_torch.models.common``); the gradients
+are summed over ``data`` (each data rank's loss is the global token
+mean, so its gradient is its own rows' part); eq. 4, the window and
+AdamW are elementwise and stay on each slice. What sums over all of an
+agent's positions is taken as partial sums over the slices, a
+replicated leaf counted on model rank 0 only, all-reduced over
+``model`` (``common.sharding.ModelShards``): the gradient clip's norm,
+exact ``grad_cos``'s dot products and norms, and the sketch (the
+``grad_sketch`` kernel on each slice's positions in the full leaf). The
+``(pod, data, model)`` mesh raises ``NotPortedError`` (Slice E part 3).
+
 Everything else is the reference's arithmetic: ``(T_t·g_f32)`` cast to
 ``knowledge_dtype`` and added, elastic rows held with a select, the
 eps clamp once after the sums, the window reset after a share keeping
@@ -64,6 +84,8 @@ masks and the step flags are bitwise.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -72,6 +94,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (column_chunks, init_stacked,
                                        tree_leaves_with_paths, tree_map)
+from repro_torch.common.sharding import axis_names
 from repro_torch.configs.base import DTYPES, NotPortedError
 from repro_torch.core.weighting import training_experience
 from repro_torch.kernels.ddal_wavg import ops as wavg_ops
@@ -139,18 +162,38 @@ def gather_rows(x: torch.Tensor, size: int, group) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def mesh_axes(mesh, pod_axis: str = "pod", agent_axis: str = "agent"):
-    """(pod devices, agent devices) of a two-level mesh; any other mesh
-    — the production ``(data, model)`` ones — raises
-    ``NotPortedError``."""
-    names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if names != (pod_axis, agent_axis):
+MODEL_AXES = ("data", "model")
+
+
+def mesh_kind(mesh, pod_axis: str = "pod",
+              agent_axis: str = "agent") -> Optional[str]:
+    """``"pod"`` for the two-level ``(pod_axis, agent_axis)`` mesh,
+    ``"model"`` for a ``(data, model)`` mesh, ``None`` for no mesh; the
+    ``(pod, data, model)`` mesh and any other raise ``NotPortedError``."""
+    if mesh is None:
+        return None
+    names = axis_names(mesh)
+    if names == (pod_axis, agent_axis):
+        return "pod"
+    if names == MODEL_AXES:
+        return "model"
+    if names == (pod_axis,) + MODEL_AXES:
         raise NotPortedError(
-            f"a device mesh with axes {names or None} is not the "
-            f"two-level ({pod_axis!r}, {agent_axis!r}) pod mesh; the "
-            f"production (data, model) meshes and their sharding rules "
-            f"wait for Slice E part 2 (build the pod mesh with "
-            f"repro_torch.launch.mesh.make_pod_mesh)")
+            f"the {names} mesh (agents over {pod_axis!r} beside a model "
+            f"axis) waits for Slice E part 3; the port trains on the "
+            f"({pod_axis!r}, {agent_axis!r}) pod mesh or a (data, model) "
+            f"mesh")
+    raise NotPortedError(
+        f"a device mesh with axes {names or None} is neither the "
+        f"({pod_axis!r}, {agent_axis!r}) pod mesh (Slice E part 1) nor a "
+        f"(data, model) mesh (Slice E part 2)")
+
+
+def mesh_axes(mesh, pod_axis: str = "pod", agent_axis: str = "agent"):
+    """(pod devices, agent devices) of a two-level pod mesh; a ``(data,
+    model)`` mesh gives (data devices, model devices); any other mesh
+    raises ``NotPortedError`` (``mesh_kind``)."""
+    mesh_kind(mesh, pod_axis, agent_axis)
     return mesh.size(0), mesh.size(1)
 
 
@@ -160,6 +203,10 @@ def agent_shard(mesh, n_agents: int, pod_axis: str = "pod") -> AgentShard:
     ``init_device_mesh``'s row-major rank order, and the agents split
     evenly over its devices."""
     import torch.distributed as dist
+    if mesh_kind(mesh, pod_axis) != "pod":
+        raise ValueError(
+            f"a mesh with axes {axis_names(mesh)} places no agents: each "
+            f"rank of a (data, model) mesh holds every agent")
     n_pod, n_agent = mesh_axes(mesh, pod_axis)
     ranks = n_pod * n_agent
     if not dist.is_initialized() or dist.get_world_size() != ranks:
@@ -301,6 +348,75 @@ def _scalars(know: Knowledge, alive):
             _dead_rows_zeroed(know.rsum, alive))
 
 
+_split = threading.local()
+
+
+@contextlib.contextmanager
+def model_slices(shards):
+    """Within this scope the window's leaves are the rank's model-axis
+    slices described by ``shards`` (a ``ModelShards``): the combiners'
+    int8 round trip then takes each block's scale over the full leaf."""
+    prev = getattr(_split, "shards", None)
+    _split.shards = shards
+    try:
+        yield
+    finally:
+        _split.shards = prev
+
+
+def _block_ids(cols: slice, leaf, q_block: int, device) -> torch.Tensor:
+    """The full leaf's int8 block of each local column in ``cols`` of a
+    slice (``LeafShard``)."""
+    stride, c0, width = leaf.position_map()
+    q = torch.arange(cols.start, cols.stop, dtype=torch.int64, device=device)
+    return ((q // width) * stride + c0 + q % width) // q_block
+
+
+def _blocks_split(leaf, q_block: int) -> bool:
+    """Whether a slice's int8 blocks are not whole blocks of the full
+    leaf (then each block's scale is taken over the ranks)."""
+    if leaf.dim is None:
+        return False                 # the whole leaf on every rank
+    stride, c0, width = leaf.position_map()
+    rows = int(np.prod(leaf.shape)) // stride
+    return bool(width % q_block or c0 % q_block
+                or (rows > 1 and stride % q_block))
+
+
+def _split_scales(x2: torch.Tensor, alive, q_block: int, leaf,
+                  axis) -> torch.Tensor:
+    """(A, blocks of the full leaf) int8 scales of a slice ``x2`` (A,
+    p_local): each block's largest |x| over the rank's part of it (dead
+    rows zeroed), the largest over the model axis, times f32(1/127) as
+    ``ddal_wavg.ref.quantize_rows`` takes it."""
+    import torch.distributed as dist
+    A = x2.shape[0]
+    nb = -(-int(np.prod(leaf.shape)) // q_block)
+    amax = torch.zeros((A, nb), dtype=torch.float32, device=x2.device)
+    for cols in column_chunks(x2.shape[1]):
+        c = x2[:, cols].to(torch.float32)
+        if alive is not None:
+            c = _dead_rows_zeroed(c, alive)
+        blk = _block_ids(cols, leaf, q_block, x2.device)
+        amax.scatter_reduce_(1, blk.expand(A, -1), torch.abs(c), "amax")
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=axis.group)
+    return amax * (1.0 / 127.0)
+
+
+def _gate_split(x2: torch.Tensor, cols: slice, alive, q_block: int,
+                scale: torch.Tensor, leaf) -> torch.Tensor:
+    """``_gate`` of a slice whose int8 blocks straddle ranks: the round
+    trip of each element with its full block's scale (``_split_scales``),
+    the arithmetic of ``ddal_wavg.ref.quantize_rows`` /
+    ``dequantize_rows``, so the values are the one-device round trip's."""
+    c = x2[:, cols].to(torch.float32)
+    if alive is not None:
+        c = _dead_rows_zeroed(c, alive)
+    s = scale[:, _block_ids(cols, leaf, q_block, x2.device)]
+    safe = torch.where(s > 0, s, torch.ones_like(s))
+    return torch.clamp(torch.round(c / safe), -127, 127) * s
+
+
 def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
          q_block: int = 0, gather=None, rows: Optional[slice] = None):
     """ḡ leaf by leaf and chunk by chunk: ``fold(tg_chunk, rg_chunk)``
@@ -308,11 +424,27 @@ def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
     leaves shaped like the window, allocated if ``None``). On a mesh
     ``alive`` is the mask of ``know``'s own rows, ``gather`` collects
     the gated chunk's rows over the ranks the fold reads, and ``rows``
-    picks the rank's destination rows out of the fold's result."""
+    picks the rank's destination rows out of the fold's result. Under
+    ``model_slices`` (a ``(data, model)`` mesh) a slice whose int8 blocks
+    straddle ranks takes its scales over the model axis."""
     if out is None:
         out = tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32,
                                              device=x.device), know.tg)
-    for t2, r2, o2 in zip(_rows(know.tg), _rows(know.rg), _rows(out)):
+    shards = getattr(_split, "shards", None)
+    for i, (t2, r2, o2) in enumerate(zip(_rows(know.tg), _rows(know.rg),
+                                         _rows(out))):
+        leaf = None if shards is None else shards.leaves[i]
+        if q_block > 0 and leaf is not None and _blocks_split(leaf,
+                                                              q_block):
+            st, sr = (_split_scales(x, alive, q_block, leaf, shards.axis)
+                      for x in (t2, r2))
+
+            def gate(x2, cols, scale):
+                return _gate_split(x2, cols, alive, q_block, scale, leaf)
+            for cols in column_chunks(t2.shape[1]):
+                g = fold(gate(t2, cols, st), gate(r2, cols, sr))
+                o2[:, cols].copy_(g if rows is None else g[rows])
+            continue
         for cols in column_chunks(t2.shape[1]):
             g = fold(_gate(t2, cols, alive, q_block, gather),
                      _gate(r2, cols, alive, q_block, gather))
@@ -564,6 +696,43 @@ def revive_agents(state: TrainState, mask,
 # ---------------------------------------------------------------------
 # the train step
 # ---------------------------------------------------------------------
+class TensorParallel(NamedTuple):
+    """The trainer's view of a ``(data, model)`` mesh: the mesh, its
+    rule table, the data and model axes (``AxisGroup`` s) and the rank's
+    parameter slices (``ModelShards``)."""
+    mesh: Any
+    rules: dict
+    data: Any
+    model: Any
+    shards: Any
+
+    def all_reduce_data_(self, tree) -> None:
+        """Every leaf of ``tree`` summed over the data axis, in place."""
+        import torch.distributed as dist
+        for x in _leaves(tree):
+            dist.all_reduce(x, group=self.data.group)
+
+
+def tensor_parallel(cfg, mesh) -> TensorParallel:
+    """The ``TensorParallel`` of ``cfg`` on a ``(data, model)`` mesh; a
+    model axis of more than one rank needs a family that splits over it
+    (dense and MoE with GQA; the others wait for Slice E part 3)."""
+    from repro_torch.common.sharding import (ModelShards, axis_rules,
+                                             mesh_axis, set_mesh)
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.launch.shardings import leaf_shards
+    from repro_torch.models.common import splits_over_model
+    if cfg is None:
+        raise ValueError("a (data, model) mesh needs the model's config "
+                         "(its leaves are cut by the partition specs)")
+    rules = train_rules(mesh)
+    with axis_rules(rules), set_mesh(mesh):
+        data, model = mesh_axis("batch"), mesh_axis("ff")
+    splits_over_model(cfg, model.size)
+    return TensorParallel(mesh, rules, data, model,
+                          ModelShards(leaf_shards(cfg, mesh, rules), model))
+
+
 def value_and_grads(loss_fn: Callable, params, batch, out) -> torch.Tensor:
     """Each agent's loss and gradient: the reference's
     ``vmap(value_and_grad(loss_fn))`` as a loop over the agents, agent
@@ -634,6 +803,14 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
     (``repro_torch.data.sharded``); ``loss`` is still the group's (A,)
     losses. A prebuilt ``exchange`` carries its mesh from
     ``build_exchange(..., mesh=...)``.
+
+    ``mesh`` (a ``("data", "model")`` ``DeviceMesh``) runs the step on
+    the rank's slices: the state placed by
+    ``launch.shardings.place(state, train_state_partition_specs(...),
+    mesh, cfg)``, ``batch`` the rank's rows of every agent
+    (``data.sharded.make_data_batch``); ``loss`` is each agent's loss
+    over the global batch. It may come with a prebuilt ``exchange`` (it
+    places no agents, so the protocol does not carry it).
     """
     if loss_fn is None:
         from repro_torch.models import get_model
@@ -641,6 +818,11 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
 
         def loss_fn(params, batch):        # noqa: F811
             return model.loss(cfg, params, batch)
+    tensor = None
+    if mesh_kind(mesh, spec.pod_axis) == "model":
+        tensor = tensor_parallel(cfg, mesh)
+        if exchange is not None:
+            mesh = None             # the protocol places no agents here
     if exchange is None:
         from repro_torch.core.exchange import build_exchange
         exchange = build_exchange(spec, kind="streaming", topology=topology,
@@ -677,11 +859,20 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
         alive = (group_alive if shard is None or group_alive is None
                  else group_alive[shard.rows])
         grads = tree_map(torch.empty_like, params)
-        losses = value_and_grads(loss_fn, params, batch, grads)
+        if tensor is None:
+            losses = value_and_grads(loss_fn, params, batch, grads)
+            kw = {}
+        else:
+            from repro_torch.common.sharding import axis_rules, set_mesh
+            with set_mesh(tensor.mesh), axis_rules(tensor.rules):
+                losses = value_and_grads(loss_fn, params, batch, grads)
+            tensor.all_reduce_data_(grads)
+            kw = {"shards": tensor.shards}
         warmup = step < spec.threshold
         is_share = (not warmup) and step % mb == 0
         if warmup:
-            opt.tree_update_(grads, opt_state, params, step, rows=alive)
+            opt.tree_update_(grads, opt_state, params, step, rows=alive,
+                             **kw)
         else:
             _accumulate_(know, grads, training_experience(
                 step, spec.t_weighting), kdt, alive)
@@ -690,7 +881,7 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
                 # the projection is linear and every step of the window
                 # ending at share step t folds the same round index, so
                 # at share time sk is the sketch of rg
-                contrib = exchange.sketch_step(grads, rnd)
+                contrib = exchange.sketch_step(grads, rnd, **kw)
                 if elastic:
                     contrib = torch.where(alive[:, None], contrib,
                                           torch.zeros_like(contrib))
@@ -698,11 +889,15 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
             if is_share:
                 rel = exchange.observe(know.rel, grads=know.rg,
                                        sketch=know.sk, rnd=rnd,
-                                       alive=group_alive)
+                                       alive=group_alive, **kw)
                 f32 = all(x.dtype == torch.float32 for x in _leaves(grads))
-                gbar = exchange.combine(know, rel, step, alive=group_alive,
-                                        out=grads if f32 else None)
-                opt.tree_update_(gbar, opt_state, params, step, rows=alive)
+                with model_slices(None if tensor is None
+                                  else tensor.shards):
+                    gbar = exchange.combine(know, rel, step,
+                                            alive=group_alive,
+                                            out=grads if f32 else None)
+                opt.tree_update_(gbar, opt_state, params, step, rows=alive,
+                                 **kw)
                 del gbar
                 know = _reset_window_(know, rel)
         del grads

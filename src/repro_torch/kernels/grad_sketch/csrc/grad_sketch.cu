@@ -42,6 +42,15 @@
 //     consecutive outputs per block row, REDUCE_ROWS threads per output each
 //     summing every REDUCE_ROWS-th chunk in order, then a fixed tree over
 //     those REDUCE_ROWS sums in shared memory.
+// A shard of a leaf (the model axis of a (data, model) mesh) is a strided
+// set of the leaf's positions: local element q of a row of G sits at position
+// offset + (q / width) · stride + c0 + q % width of the full leaf (a column
+// shard of the leaf viewed as (rows, stride)). The STRIDED instances take
+// that map: while a block stages its G values it also writes each staged
+// position's hash term (offset + pos)·P1 to shared memory (one 64-bit
+// division per staged position and block, not per sign), and the fold reads
+// it in place of the running x0 + u·P1. A contiguous shard is passed as a
+// plain offset and takes the contiguous instances.
 // No atomics: two launches on the same input give the same bits. The hash
 // runs in uint32_t, so >> is a logical shift and multiplies wrap mod 2^32,
 // exactly the reference's jnp.uint32 arithmetic. Its last step,
@@ -72,12 +81,14 @@ __device__ __forceinline__ float sign_of(uint32_t x) {
   return __uint_as_float((x & 0x80000000u) | 0x3f800000u);
 }
 
-template <int RB>
+template <int RB, bool STRIDED>
 __global__ void __launch_bounds__(DT)
 sketch_partial(const float* __restrict__ G, float* __restrict__ partial,
                int n, long long P, int d, uint32_t seed, uint32_t offset,
-               long long chunk) {
+               long long chunk, unsigned long long map_stride,
+               unsigned long long map_c0, unsigned long long map_width) {
   __shared__ __align__(16) float gs[RB][STAGE];
+  __shared__ __align__(16) uint32_t hp[STRIDED ? STAGE : 1];
   const int c = blockIdx.x;
   const int j = blockIdx.y * DT + threadIdx.x;
   const int r0 = blockIdx.z * RB;
@@ -115,13 +126,37 @@ sketch_partial(const float* __restrict__ G, float* __restrict__ partial,
         if (q < span) gs[r][q] = v[r][k];
       }
     }
+    if (STRIDED) {
+#pragma unroll
+      for (int k = 0; k < STAGE / DT; ++k) {
+        const int q = threadIdx.x + k * DT;
+        if (q < span) {
+          const unsigned long long lq = (unsigned long long)(base + q);
+          const unsigned long long row = lq / map_width;
+          const uint32_t pos = (uint32_t)(row * map_stride + map_c0 +
+                                          (lq - row * map_width));
+          hp[q] = (offset + pos) * P1;
+        }
+      }
+    }
     __syncthreads();
     if (j < d) {
       uint32_t x0 = hj + (offset + (uint32_t)base) * P1;
       for (int q = 0; q < span; q += UNROLL, x0 += UNROLL * P1) {
         float s[UNROLL];
+        if (STRIDED) {
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) s[u] = sign_of(x0 + u * P1);
+          for (int u4 = 0; u4 < UNROLL; u4 += 4) {
+            const uint4 h = *reinterpret_cast<const uint4*>(&hp[q + u4]);
+            s[u4 + 0] = sign_of(hj + h.x);
+            s[u4 + 1] = sign_of(hj + h.y);
+            s[u4 + 2] = sign_of(hj + h.z);
+            s[u4 + 3] = sign_of(hj + h.w);
+          }
+        } else {
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) s[u] = sign_of(x0 + u * P1);
+        }
 #pragma unroll
         for (int r = 0; r < RB; ++r) {
 #pragma unroll
@@ -178,9 +213,16 @@ sketch_reduce(const float* __restrict__ partial, float* __restrict__ out,
 template <int RB>
 cudaError_t launch_partial(dim3 grid, cudaStream_t stream, const float* G,
                            float* partial, int n, long long P, int d,
-                           uint32_t seed, uint32_t offset, long long chunk) {
-  sketch_partial<RB><<<grid, DT, 0, stream>>>(G, partial, n, P, d, seed,
-                                              offset, chunk);
+                           uint32_t seed, uint32_t offset, long long chunk,
+                           long long stride, long long c0, long long width) {
+  if (width > 0)
+    sketch_partial<RB, true><<<grid, DT, 0, stream>>>(
+        G, partial, n, P, d, seed, offset, chunk,
+        (unsigned long long)stride, (unsigned long long)c0,
+        (unsigned long long)width);
+  else
+    sketch_partial<RB, false><<<grid, DT, 0, stream>>>(
+        G, partial, n, P, d, seed, offset, chunk, 0ull, 0ull, 1ull);
   return cudaGetLastError();
 }
 
@@ -191,31 +233,36 @@ cudaError_t launch_partial(dim3 grid, cudaStream_t stream, const float* G,
 // not synchronise and returns the launch status for the caller to check.
 // The geometry is the caller's: `rows` rows per block (1, 2, 4, 8 or 16),
 // chunks of `chunk` positions (a multiple of 8), `chunks` = ⌈P / chunk⌉,
-// and `reduce_blocks` blocks for the second pass.
+// and `reduce_blocks` blocks for the second pass. `width` > 0 takes the
+// strided position map (row `stride`, column offset `c0`, local `width`);
+// `width` = 0 the contiguous positions offset + p.
 extern "C" int grad_sketch(const float* G, float* partial, float* out, int n,
                            long long P, int d, uint32_t seed, uint32_t offset,
+                           long long stride, long long c0, long long width,
                            int rows, long long chunk, int chunks,
                            int reduce_blocks, int device,
                            cudaStream_t stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   if (chunk < 1 || chunk % UNROLL || (long long)chunks * chunk < P ||
-      reduce_blocks < 1)
+      reduce_blocks < 1 || width < 0 || (width > 0 && (P % width ||
+                                                       stride < width ||
+                                                       c0 + width > stride)))
     return (int)cudaErrorInvalidConfiguration;
   const dim3 grid((unsigned)chunks, (unsigned)((d + DT - 1) / DT),
                   (unsigned)((n + rows - 1) / rows));
   cudaError_t err;
   switch (rows) {
     case 1: err = launch_partial<1>(grid, stream, G, partial, n, P, d, seed,
-                                    offset, chunk); break;
+                                    offset, chunk, stride, c0, width); break;
     case 2: err = launch_partial<2>(grid, stream, G, partial, n, P, d, seed,
-                                    offset, chunk); break;
+                                    offset, chunk, stride, c0, width); break;
     case 4: err = launch_partial<4>(grid, stream, G, partial, n, P, d, seed,
-                                    offset, chunk); break;
+                                    offset, chunk, stride, c0, width); break;
     case 8: err = launch_partial<8>(grid, stream, G, partial, n, P, d, seed,
-                                    offset, chunk); break;
+                                    offset, chunk, stride, c0, width); break;
     case 16: err = launch_partial<16>(grid, stream, G, partial, n, P, d, seed,
-                                      offset, chunk); break;
+                                    offset, chunk, stride, c0, width); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;

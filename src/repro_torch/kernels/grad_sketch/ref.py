@@ -49,6 +49,26 @@ def sign_bits(seed: int, start: int, count: int, dim: int,
     return x >> 31
 
 
+def _hash_bits(seed: int, pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sign bits (int64 ∈ {0, 1}, (len(pos), dim)) of the positions
+    ``pos`` (int64, any values; taken mod 2³²)."""
+    j = torch.arange(dim, dtype=torch.int64, device=pos.device)[None, :]
+    x = (pos[:, None] & MASK32)
+    x = ((int(seed) & MASK32) + _mul32(x, _P1) + _mul32(j, _P2)) & MASK32
+    x = _mul32(x ^ (x >> 15), _P2)
+    x = _mul32(x ^ (x >> 13), _P3)
+    x = x ^ (x >> 16)
+    return x >> 31
+
+
+def shard_positions(start: int, count: int, offset: int, stride: int,
+                    c0: int, width: int, device=None) -> torch.Tensor:
+    """The full leaf's positions of local elements start .. start + count
+    − 1 of a shard: offset + (q // width) · stride + c0 + q % width."""
+    q = torch.arange(start, start + count, dtype=torch.int64, device=device)
+    return int(offset) + (q // width) * stride + c0 + q % width
+
+
 def sign_block(seed: int, start: int, count: int, dim: int,
                device=None) -> torch.Tensor:
     """±1 fp32 block S[p - start, j] for positions p in [start, start +
@@ -58,19 +78,26 @@ def sign_block(seed: int, start: int, count: int, dim: int,
 
 
 def sketch_flat(G: torch.Tensor, seed: int, dim: int, offset: int = 0,
-                tile: int = TILE) -> torch.Tensor:
+                tile: int = TILE, position_map=None) -> torch.Tensor:
     """G (n, P) → G · S (n, d) fp32 with S[p, j] = sign_block(seed,
-    offset + p, ...). S is materialised ``tile`` positions at a time,
-    and each tile's product is added to the sum in order. Each row's
-    product is taken alone (a vector-matrix product): a matrix product's
-    order of adds may change with the number of rows, and a row's
-    sketch must not depend on which rows share the call (a rank of a
-    device mesh projects its own agents' rows)."""
+    offset + p, ...), or, with ``position_map`` = (stride, c0, width) (a
+    strided shard of a leaf), the signs of positions ``shard_positions``.
+    S is materialised ``tile`` positions at a time, and each tile's
+    product is added to the sum in order. Each row's product is taken
+    alone (a vector-matrix product): a matrix product's order of adds
+    may change with the number of rows, and a row's sketch must not
+    depend on which rows share the call (a rank of a device mesh
+    projects its own agents' rows)."""
     n, p = G.shape
     acc = torch.zeros((n, dim), dtype=torch.float32, device=G.device)
     for start in range(0, p, tile):
         width = min(tile, p - start)
-        S = sign_block(seed, offset + start, width, dim, G.device)
+        if position_map is None:
+            S = sign_block(seed, offset + start, width, dim, G.device)
+        else:
+            pos = shard_positions(start, width, offset, *position_map,
+                                  device=G.device)
+            S = 1.0 - 2.0 * _hash_bits(seed, pos, dim).to(torch.float32)
         part = G[:, start:start + width].to(torch.float32)
         acc = acc + torch.stack([row @ S for row in part])
     return acc

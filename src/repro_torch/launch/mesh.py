@@ -1,5 +1,5 @@
-"""Device meshes — the port of ``repro.launch.mesh``, its two-level pod
-mesh over ``torch.distributed``.
+"""Device meshes and their logical rule tables — the port of
+``repro.launch.mesh`` over ``torch.distributed``.
 
 ``make_pod_mesh`` builds the ``(pod_axis, "agent")`` ``DeviceMesh`` of
 hierarchical DDAL (``repro_torch.core.pod_dispatch``): the ``"agent"``
@@ -9,10 +9,15 @@ from ``torchrun``'s environment for the device the caller asked for:
 NCCL for ``cuda`` (rank r on ``cuda:LOCAL_RANK``), gloo for ``cpu``. A
 failed NCCL start raises; nothing falls back to gloo or the host.
 
-The production ``(data, model)`` / ``(pod, data, model)`` meshes and
-their logical rule tables are tensor parallelism and wait for Slice E
-part 2: ``make_production_mesh`` and ``make_debug_mesh`` raise
-``NotPortedError``.
+``make_production_mesh`` builds the reference's 16 x 16 ``("data",
+"model")`` mesh (2 x 16 x 16 ``("pod", "data", "model")`` with
+``multi_pod``) over a world of exactly that many ranks, and
+``make_debug_mesh`` any small ``(data, model)`` mesh over the world's
+ranks (the tests' and ``chip_smoke.py``'s). ``train_rules`` /
+``serve_rules`` are the reference's logical→physical tables, copied as
+data; they read a mesh's axis names and sizes, so they take a
+``DeviceMesh`` or any description with ``axis_names`` and a ``shape``
+dict. Ranks lie on a mesh in row-major order (``init_device_mesh``'s).
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import NotPortedError
+from repro_torch.common.sharding import axis_names, axis_size
 
 
 def init_distributed(device: str = "cuda") -> torch.device:
@@ -83,18 +88,105 @@ def make_pod_mesh(n_pods: int, devices_per_pod: Optional[int] = None,
                             mesh_dim_names=(pod_axis, "agent"))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """The reference's 16 x 16 ``(data, model)`` (or 2 x 16 x 16 ``(pod,
-    data, model)``) mesh: tensor parallelism, not ported."""
-    raise NotPortedError(
-        f"the production {'(pod, data, model)' if multi_pod else '(data, model)'} "
-        f"mesh and its sharding rules wait for Slice E part 2; the port "
-        f"places agents on the (pod, agent) mesh (make_pod_mesh)")
+def world_size() -> int:
+    """The ranks of the run: the process group's, else ``torchrun``'s
+    ``WORLD_SIZE``, else one process."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
 
 
-def make_debug_mesh(shape=(1, 1), axes=("data", "model")):
-    """The reference's small ``(data, model)`` test mesh: not ported."""
-    raise NotPortedError(
-        f"a {tuple(shape)} mesh over {tuple(axes)} (tensor parallelism) "
-        f"waits for Slice E part 2; the port places agents on the (pod, "
-        f"agent) mesh (make_pod_mesh)")
+def production_shape(multi_pod: bool = False):
+    """(shape, axes) of the reference's production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
+def check_world(shape, axes) -> None:
+    """Raise ``ValueError`` unless the run has exactly the ranks a mesh of
+    ``shape`` needs, naming that number."""
+    need = 1
+    for n in shape:
+        need *= int(n)
+    have = world_size()
+    if have != need:
+        raise ValueError(
+            f"a {' x '.join(str(n) for n in shape)} {tuple(axes)} mesh needs "
+            f"{need} devices (one rank each); the world has {have}")
+
+
+def _mesh_over_world(shape, axes, device_type: str):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    check_world(shape, axes)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "a device mesh needs the process group: call "
+            "init_distributed(device) (or run under torchrun) first")
+    return init_device_mesh(device_type, tuple(int(n) for n in shape),
+                            mesh_dim_names=tuple(axes))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cuda"):
+    """Single pod: 16 x 16 = 256 devices over ("data", "model").
+    Multi-pod: 2 x 16 x 16 = 512 over ("pod", "data", "model"). A world
+    of another size raises ``ValueError`` naming the size it needs."""
+    shape, axes = production_shape(multi_pod)
+    return _mesh_over_world(shape, axes, device_type)
+
+
+def make_debug_mesh(shape=(1, 1), axes=("data", "model"),
+                    device_type: str = "cuda"):
+    """A small mesh over the process group's ranks (tests and the smoke
+    run); the world must have exactly prod(shape) ranks."""
+    return _mesh_over_world(shape, axes, device_type)
+
+
+def train_rules(mesh, pod_axis: str = "pod") -> dict:
+    """Logical→physical sharding rules for training on ``mesh``
+    (``pod_axis`` names the cross-pod axis of a pod mesh)."""
+    names = axis_names(mesh)
+    has_pod = pod_axis in names
+    if has_pod and "agent" in names:
+        agent = (pod_axis, "agent")
+    else:
+        agent = pod_axis if has_pod else None
+    return {
+        "agent": agent,
+        "batch": "data",
+        "vocab": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "qkv_fused": "model",
+        "ff": "model",
+        "experts": "model",
+        "ssm_inner": "model",
+        "kv_slots": None,        # training: no decode cache
+    }
+
+
+def serve_rules(mesh, global_batch: int) -> dict:
+    """Serving has no agent axis; the batch spreads over every non-model
+    axis when it divides (pod x data on the multi-pod mesh), and decode
+    caches shard their slot dim over "model"."""
+    has_pod = "pod" in axis_names(mesh)
+    batch_axes = ("pod", "data") if has_pod else ("data",)
+    n = axis_size(mesh, batch_axes)
+    batch = batch_axes if global_batch % n == 0 else None
+    if batch is not None and len(batch) == 1:
+        batch = batch[0]
+    return {
+        "agent": None,
+        "batch": batch,
+        "vocab": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "qkv_fused": "model",
+        "ff": "model",
+        "experts": "model",
+        "ssm_inner": "model",
+        "kv_slots": "model",
+    }

@@ -1,5 +1,23 @@
-"""Agent placement on the pod mesh — the agent-axis half of the port of
-``repro.launch.shardings``.
+"""Partition specs and placement — the port of ``repro.launch.shardings``
+(and of ``_sanitize``, ``repro.launch.dryrun_lib``).
+
+The model axis. A spec is a tuple with one entry per dim: a mesh axis
+name, a tuple of names or ``None``. ``param_partition_specs``,
+``batch_partition_specs``, ``group_plane_partition_specs``,
+``cache_partition_specs`` and ``train_state_partition_specs`` give the
+reference's specs entry for entry (``param_logical_axes`` through a
+rule table; batches over the data axes; caches by name and rank).
+``_sanitize`` replicates a dim that does not divide over its axes, as
+the reference's jit inputs do. Torch has no GSPMD to reshard inside the
+program, so the placement (``placement_spec``) adds one rule of its
+own: an attention projection is split only in whole heads (``wq`` /
+``bq`` need the query heads, ``wk`` / ``wv`` / ``bk`` / ``bv`` the kv
+heads, to divide over the axis), else it is placed replicated and the
+layer picks the heads it needs. ``place`` cuts a rank's local slice of
+full tensors by specs; ``gather`` puts full tensors back (a collective:
+every rank calls it). ``leaf_shards`` describes each parameter leaf's
+slice on the calling rank for the partial sums over the model axis
+(``repro_torch.common.sharding.ModelShards``).
 
 The reference shards dim 0 of every per-agent leaf of a ``TrainState``
 over ``ddal_agent_axis(mesh)``. Here that becomes: each rank keeps its
@@ -8,15 +26,17 @@ of every leaf with a leading agent axis — the parameters, the AdamW
 moments and step counts, the window's ``tg`` / ``rg`` / ``tsum`` /
 ``rsum`` and sketch ``sk`` — while ``rel``, ``alive`` and ``step`` stay
 global (every rank holds the group's). ``gather_agent_state`` is the
-inverse, for checkpoints and tests. The parameter partition specs and
-the cache / batch rules of the production meshes wait for Slice E
-part 2.
+inverse, for checkpoints and tests. A ``(data, model)`` mesh shards no
+agent axis: there ``train_state_partition_specs`` gives each leaf's
+spec over the model axis alone.
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Tuple, Union
 
-from repro_torch.common.pytree import tree_map
+from repro_torch.common.pytree import (tree_from_paths,
+                                       tree_leaves_with_paths, tree_map)
+from repro_torch.common.sharding import axis_names, axis_size
 
 Axis = Union[None, str, tuple]
 
@@ -25,8 +45,7 @@ def ddal_agent_axis(mesh, pod_axis: str = "pod") -> Axis:
     """The mesh axes the agent dim lies over: both levels of the pod mesh
     (agents pod-major), ``pod_axis`` alone on a one-level mesh, else
     ``None``."""
-    names = tuple(getattr(mesh, "mesh_dim_names", None) or ()
-                  ) if mesh is not None else ()
+    names = axis_names(mesh) if mesh is not None else ()
     if pod_axis in names and "agent" in names:
         return (pod_axis, "agent")
     if pod_axis in names:
@@ -71,3 +90,296 @@ def gather_agent_state(state, mesh, pod_axis: str = "pod"):
     n = state.know.tsum.shape[0] * mesh.size()
     shard = agent_shard(mesh, n, pod_axis)
     return _map_agent_leaves(state, shard.gather)
+
+
+# ---------------------------------------------------------------------
+# the model axis: partition specs (the reference's, entry for entry)
+# ---------------------------------------------------------------------
+def _dict_leaves(tree, prefix=()):
+    """(path, leaf) of a nest of dicts whose leaves are anything (spec
+    tuples included), keys sorted."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _dict_leaves(tree[k], prefix + (k,))
+        return out
+    return [(prefix, tree)]
+
+
+def param_partition_specs(cfg, rules: dict, lead: Tuple[Axis, ...] = ()):
+    """Physical specs for the parameter tree; ``lead`` prefixes extra
+    axes (the DDAL agent axis)."""
+    from repro_torch.models.model import param_logical_axes, param_specs
+    logical = param_logical_axes(cfg, param_specs(cfg))
+    return tree_from_paths(
+        (path, tuple(lead) + tuple(rules.get(n) if n is not None else None
+                                   for n in tup))
+        for path, tup in _dict_leaves(logical))
+
+
+def batch_partition_specs(cfg, shape, batch_axes: Axis,
+                          lead: Tuple[Axis, ...] = ()) -> dict:
+    """Specs for the input batch dict: dim 0 (after ``lead``) is the
+    batch dim of every leaf."""
+    from repro_torch.models.model import input_specs
+    return {k: tuple(lead) + (batch_axes,) + (None,) * (v.ndim - 1)
+            for k, v in input_specs(cfg, shape).items()}
+
+
+def group_plane_partition_specs(cfg, mesh, pod_axis: str = "pod"):
+    """Specs of the group serving engine's stacked per-agent planes: dim
+    0 (the agent axis) over ``ddal_agent_axis``, the rest replicated."""
+    from repro_torch.models.model import param_specs
+    axis = ddal_agent_axis(mesh, pod_axis)
+    return tree_map(lambda _: (axis,), param_specs(cfg))
+
+
+# key: {rank: {dim: logical}}. KV caches shard batch + SLOTS
+# (flash-decoding sweep; head dims often don't divide the mesh)
+_CACHE_RULES = {
+    "k":      {5: {1: "B", 2: "slots"}, },
+    "v":      {5: {1: "B", 2: "slots"}, },
+    "ck":     {5: {1: "B", 3: "model"}, },
+    "cv":     {5: {1: "B", 3: "model"}, },
+    "pos":    {3: {1: "B", 2: "slots"}},
+    "ckv":    {4: {1: "B", 2: "slots"}},
+    "k_rope": {4: {1: "B", 2: "slots"}},
+    "conv_x": {4: {1: "B", 3: "model"}, 5: {2: "B", 4: "model"}},
+    "conv_B": {4: {1: "B"}, 5: {2: "B"}},
+    "conv_C": {4: {1: "B"}, 5: {2: "B"}},
+    "ssm":    {5: {1: "B", 2: "model"}, 6: {2: "B", 3: "model"}},
+}
+
+
+def cache_partition_specs(cfg, shape, batch_axes: Axis,
+                          model_axis: Axis = "model",
+                          slots_axis: Axis = "model"):
+    """Specs matching ``repro_torch.models.model.cache_specs(cfg,
+    shape)``, by each leaf's last string key and rank."""
+    from repro_torch.models.model import cache_specs
+
+    def rule(path, leaf):
+        name = next((k for k in reversed(path) if isinstance(k, str)), None)
+        dims = _CACHE_RULES.get(name, {}).get(leaf.ndim, {})
+        axes = []
+        for d in range(leaf.ndim):
+            a = dims.get(d)
+            axes.append(batch_axes if a == "B" else model_axis
+                        if a == "model" else slots_axis if a == "slots"
+                        else None)
+        return tuple(axes)
+
+    return tree_from_paths(
+        (path, rule(path, leaf))
+        for path, leaf in tree_leaves_with_paths(cache_specs(cfg, shape)))
+
+
+def train_state_partition_specs(cfg, rules: dict, agent_axis: Axis,
+                                learn_relevance: bool = False,
+                                sketch_dim: int = 0):
+    """Specs for a streaming ``TrainState`` with AdamW (m / v mirror the
+    parameters, count and the window scalars are per agent); the learned
+    (A, A) relevance and the (A, d) sketch are row-sharded like the other
+    per-agent leaves when the estimator carries them; ``alive`` and the
+    step are replicated (``None`` / ``()``)."""
+    from repro_torch.core.sharded_ddal import Knowledge, TrainState
+    pspec = param_partition_specs(cfg, rules, lead=(agent_axis,))
+    vec = (agent_axis,)
+    rel = (agent_axis, None) if learn_relevance else None
+    sk = (agent_axis, None) if (learn_relevance and sketch_dim > 0) else None
+    return TrainState(
+        params=pspec,
+        opt_state={"m": pspec, "v": pspec, "count": vec},
+        know=Knowledge(tg=pspec, tsum=vec, rg=pspec, rsum=vec, rel=rel,
+                       sk=sk),
+        step=())
+
+
+def _sanitize(mesh, spec: tuple, shape) -> tuple:
+    """Drop every spec entry whose mesh-axis product does not divide its
+    dim (e.g. kv_heads 8 over model 16, vocab 49155 over 16): that dim is
+    placed replicated."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    return tuple(axes if axes and dim % axis_size(mesh, axes) == 0 else None
+                 for dim, axes in zip(shape, entries))
+
+
+# ---------------------------------------------------------------------
+# the model axis: placement
+# ---------------------------------------------------------------------
+_HEAD_LEAVES = {"wq": "q", "bq": "q", "wk": "kv", "bk": "kv", "wv": "kv",
+                "bv": "kv"}
+
+
+def placement_spec(cfg, mesh, path, spec: tuple, shape) -> tuple:
+    """The spec a leaf is placed by: ``_sanitize``'s, with an attention
+    projection's head dim replicated unless its heads (query heads for
+    ``wq`` / ``bq``, kv heads for ``wk`` / ``wv`` / ``bk`` / ``bv``)
+    divide over the axis: an explicit shard cannot split a head."""
+    out = _sanitize(mesh, spec, shape)
+    kind = _HEAD_LEAVES.get(path[-1]) if cfg is not None and path else None
+    if kind is None or (len(path) > 1 and path[-2] != "attn"):
+        return out
+    heads = cfg.n_heads if kind == "q" else cfg.n_kv_heads
+    axes = out[-1]
+    if axes is not None and heads % axis_size(mesh, axes):
+        out = out[:-1] + (None,)
+    return out
+
+
+def _coord(mesh, axes) -> Tuple[int, int]:
+    """(the calling rank's index along ``axes``, their size): row-major
+    over a tuple of names."""
+    if isinstance(axes, str):
+        axes = (axes,)
+    index, size = 0, 1
+    names = axis_names(mesh)
+    for a in axes:
+        n = mesh.size(names.index(a))
+        index = index * n + mesh.get_local_rank(a)
+        size *= n
+    return index, size
+
+
+def local_slices(mesh, spec: tuple, shape) -> tuple:
+    """The calling rank's slice of every dim of a full ``shape`` under a
+    (placement) ``spec``."""
+    out = []
+    for dim, axes in zip(shape, list(spec) + [None] * (len(shape)
+                                                      - len(spec))):
+        if axes is None:
+            out.append(slice(0, dim))
+            continue
+        index, size = _coord(mesh, axes)
+        if dim % size:
+            raise ValueError(f"dim {dim} does not split over {axes!r} "
+                             f"({size} devices)")
+        blk = dim // size
+        out.append(slice(index * blk, (index + 1) * blk))
+    return tuple(out)
+
+
+def _rebuild(tree, fn, specs, path=()):
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(
+            None if x is None else _rebuild(x, fn, s, path + (name,))
+            for name, x, s in zip(tree._fields, tree, specs)))
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, fn, specs[k], path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, specs)
+
+
+def _leaf_spec(cfg, mesh, path, x, spec):
+    """The placement spec of one leaf (``None``: as it is); a spec names
+    dims from the left, a ``TrainState``'s per-agent leaves with their
+    lead."""
+    import torch
+    if spec is None or not isinstance(x, torch.Tensor) or x.ndim == 0:
+        return None
+    key_path = tuple(k for k in path if isinstance(k, str))
+    return placement_spec(cfg, mesh, key_path, tuple(spec), tuple(x.shape))
+
+
+def place(tree, specs, mesh, cfg=None):
+    """The calling rank's local slice of every leaf of ``tree`` (full
+    tensors) under ``specs`` (a matching tree of spec tuples; ``cfg``
+    adds the whole-heads rule): each slice a contiguous tensor of its
+    own. A leaf whose slice is all of it (no spec, or axes of one rank)
+    is kept as it is, not copied."""
+    def cut(path, x, spec):
+        ps = _leaf_spec(cfg, mesh, path, x, spec)
+        if ps is None:
+            return x
+        sl = local_slices(mesh, ps, tuple(x.shape))
+        if all(s.stop - s.start == n for s, n in zip(sl, x.shape)):
+            return x                 # the whole leaf (axes of one rank)
+        return x[sl].clone()
+    return _rebuild(tree, cut, specs)
+
+
+def full_shapes(tree):
+    """``tree`` with every tensor replaced by a ``meta`` tensor of its
+    shape and dtype (nothing allocated): the shapes ``gather`` needs."""
+    import torch
+
+    def meta(path, x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        return torch.empty(x.shape, dtype=x.dtype, device="meta")
+    return _rebuild(tree, meta, _none_like(tree))
+
+
+def _none_like(tree):
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_none_like(x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: _none_like(v) for k, v in tree.items()}
+    return None
+
+
+def gather(tree, specs, mesh, like, cfg=None):
+    """The inverse of ``place``: every rank's slices gathered into the
+    full tensors on every rank (``all_gather`` over each split dim's
+    axes; a leaf that is whole on the rank is returned as it is). ``like``
+    (``full_shapes`` of the full tree) gives the shapes the placement
+    was resolved against."""
+    import torch
+    import torch.distributed as dist
+
+    def full(path, x, spec):
+        if spec is None or not isinstance(x, torch.Tensor) or x.ndim == 0:
+            return x
+        shape = tuple(_at(like, path).shape)
+        key_path = tuple(k for k in path if isinstance(k, str))
+        ps = placement_spec(cfg, mesh, key_path, tuple(spec), shape)
+        out = x
+        for d, axes in enumerate(ps):
+            if axes is None:
+                continue
+            names = (axes,) if isinstance(axes, str) else tuple(axes)
+            for a in reversed(names):
+                group = mesh.get_group(a)
+                n = mesh.size(axis_names(mesh).index(a))
+                if n == 1:
+                    continue
+                parts = [torch.empty_like(out) for _ in range(n)]
+                dist.all_gather(parts, out.contiguous(), group=group)
+                out = torch.cat(parts, dim=d)
+        return out
+    return _rebuild(tree, full, specs)
+
+
+def _at(tree, path):
+    for k in path:
+        if tree is None:
+            return None
+        tree = getattr(tree, k) if hasattr(tree, "_fields") else tree[k]
+    return tree
+
+
+def leaf_shards(cfg, mesh, rules: Optional[dict] = None):
+    """Each parameter leaf's slice on the calling rank, in leaf order, as
+    ``repro_torch.common.sharding.LeafShard`` s: its full shape, the dim
+    that is split over the model axis (``None``: replicated) and the
+    rank's start and length along it."""
+    from repro_torch.common.sharding import LeafShard
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.models.model import param_specs
+    rules = rules if rules is not None else train_rules(mesh)
+    specs = param_partition_specs(cfg, rules)
+    out = []
+    for path, x in tree_leaves_with_paths(param_specs(cfg)):
+        spec = _at(specs, path)
+        ps = placement_spec(cfg, mesh, path, spec, tuple(x.shape))
+        split = [d for d, a in enumerate(ps) if a is not None]
+        if len(split) > 1:
+            raise ValueError(f"leaf {'/'.join(map(str, path))}: more than "
+                             f"one split dim {ps}")
+        if not split:
+            out.append(LeafShard(tuple(x.shape), None, 0, 0))
+            continue
+        d = split[0]
+        sl = local_slices(mesh, ps, tuple(x.shape))[d]
+        out.append(LeafShard(tuple(x.shape), d, sl.start, sl.stop - sl.start))
+    return out

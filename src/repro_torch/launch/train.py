@@ -33,8 +33,22 @@ through the single-device pod dispatch. ``--mesh pods`` runs under
 other. Each rank trains its block of agents; rank 0 prints the lines
 and writes the checkpoints, gathered into the single-process ``.npz``
 format, so ``--restore`` reads either kind of run's file in either
-kind. ``--mesh prod`` / ``prod-multipod`` (tensor parallelism) wait
-for Slice E part 2 and raise ``NotPortedError``. The weights are drawn from
+kind. ``--mesh prod`` runs under ``torchrun`` on the reference's 16 x 16
+``(data, model)`` production mesh (``launch.mesh.make_production_mesh``;
+a world of another size raises ``ValueError`` naming the 256 it needs):
+the state is drawn whole on every rank, then each rank keeps its slices
+by ``train_state_partition_specs`` (``launch.shardings.place``), so each
+card must hold the whole state at start, and its
+B/16 rows of each agent's batch, and the step runs the model under
+``train_rules(mesh)`` (tensor-parallel dense and MoE layers; the other
+families refuse a model axis). This is the program that the
+reference's dry run lowers for that mesh (``dryrun_lib.lower_train``);
+it computes the numbers that the reference's own launcher, whose
+``--mesh prod`` installs the mesh but no rules, computes replicated.
+``--ckpt-full`` gathers the full leaves and rank 0 writes them.
+``--mesh prod-multipod`` builds the 2 x 16 x 16 ``(pod, data, model)``
+mesh (512 ranks) and then raises ``NotPortedError``: agents over
+``pod`` beside a model axis wait for Slice E part 3. The weights are drawn from
 a ``torch.Generator`` of ``--seed`` and the token streams are the
 port's own (``repro_torch.data.synthetic``), so neither is the
 reference's.
@@ -170,7 +184,9 @@ def _parser():
                    choices=["cpu", "prod", "prod-multipod", "pods"],
                    help="'cpu': one device; 'pods': the (pod, agent) "
                         "mesh of the torchrun world (needs --pods >= 1); "
-                        "'prod' / 'prod-multipod' wait for Slice E part 2")
+                        "'prod': the 16 x 16 (data, model) mesh of a "
+                        "256-rank torchrun world (tensor parallelism); "
+                        "'prod-multipod': 2 x 16 x 16, not ported")
     p.add_argument("--elastic", action="store_true",
                    help="elastic group membership: a per-agent alive "
                         "mask through the exchange")
@@ -200,12 +216,12 @@ def main(argv=None) -> dict:
     from repro_torch.common.device import resolve_device
     from repro_torch.common.pytree import tree_leaves_with_paths
     from repro_torch.configs import get_arch_config
-    from repro_torch.configs.base import (GroupSpec, NotPortedError,
-                                          ShapeConfig)
+    from repro_torch.configs.base import GroupSpec, ShapeConfig
     from repro_torch.core.exchange import build_exchange
     from repro_torch.core.sharded_ddal import (init_train_state,
                                                make_group_train_step)
-    from repro_torch.data import StreamSpec, make_group_batch, make_rows_batch
+    from repro_torch.data import (StreamSpec, make_data_batch,
+                                  make_group_batch, make_rows_batch)
 
     cfg = get_arch_config(args.arch)
     if not args.full:
@@ -230,11 +246,11 @@ def main(argv=None) -> dict:
         mesh = make_pod_mesh(spec.pods, pod_axis=spec.pod_axis,
                              device_type=dev.type)
     elif args.mesh != "cpu":
-        raise NotPortedError(
-            f"--mesh {args.mesh} (the production (data, model) mesh, "
-            f"tensor parallelism) waits for Slice E part 2; the port "
-            f"trains on one device (--mesh cpu) or on the pod mesh "
-            f"(--mesh pods)")
+        from repro_torch.launch import mesh as M
+        multi = args.mesh == "prod-multipod"
+        M.check_world(*M.production_shape(multi))
+        dev = M.init_distributed(args.device)
+        mesh = M.make_production_mesh(multi_pod=multi, device_type=dev.type)
     else:
         dev = resolve_device(args.device)
     shape = ShapeConfig("train_cli", args.seq, args.batch, "train")
@@ -245,7 +261,9 @@ def main(argv=None) -> dict:
     # relevance state and the step's estimator cannot drift apart
     exchange = build_exchange(spec, kind="streaming", mesh=mesh)
     shard = exchange.shard
-    say = print if shard is None or shard.index == 0 else _quiet
+    tensor = mesh is not None and shard is None     # a (data, model) mesh
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    say = print if rank0 else _quiet
     # the group's state from the seed (and the file), then the rank's rows
     state = init_train_state(cfg, spec, opt, seed=args.seed,
                              exchange=exchange, device=dev)
@@ -253,12 +271,25 @@ def main(argv=None) -> dict:
         state = restore_train(args.restore, state, strict=False)
         say(f"restored full TrainState from {args.restore} "
             f"(step {int(state.step)})")
-    if mesh is not None:
-        from repro_torch.launch.shardings import (agent_sharded_state,
-                                                  gather_agent_state)
-        state = agent_sharded_state(state, mesh, spec.pod_axis)
-    step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange)
-    leaves = [x for _, x in tree_leaves_with_paths(state.params)]
+    if tensor:
+        from repro_torch.launch import shardings as SH
+        from repro_torch.launch.mesh import train_rules
+        state_specs = SH.train_state_partition_specs(
+            cfg, train_rules(mesh), None,
+            learn_relevance=exchange.estimator.learns,
+            sketch_dim=exchange.sketch_dim)
+        state_shapes = SH.full_shapes(state)
+        state = SH.place(state, state_specs, mesh, cfg)
+        step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange,
+                                        mesh=mesh)
+    else:
+        if mesh is not None:
+            from repro_torch.launch.shardings import (agent_sharded_state,
+                                                      gather_agent_state)
+            state = agent_sharded_state(state, mesh, spec.pod_axis)
+        step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange)
+    leaves = [x for _, x in tree_leaves_with_paths(
+        state_shapes.params if tensor else state.params)]
     n_params = sum(x[0].numel() for x in leaves)
     say(f"arch={args.arch} reduced={not args.full} "
         f"params/agent={n_params:,} agents={args.agents}")
@@ -266,6 +297,12 @@ def main(argv=None) -> dict:
         import torch.distributed as dist
         say(f"mesh {spec.pod_axis} x agent = {tuple(mesh.mesh.shape)} over "
             f"{dist.get_backend()}: {shard.block} agents a rank")
+    if tensor:
+        import torch.distributed as dist
+        say(f"mesh data x model = {tuple(mesh.mesh.shape)} over "
+            f"{dist.get_backend()}: every agent on every rank, "
+            f"{args.batch // mesh.size(0)} rows of each agent's batch and "
+            f"its model-axis slices")
 
     def sync():
         if dev.type == "cuda":
@@ -277,7 +314,10 @@ def main(argv=None) -> dict:
     sync()
     t0 = time.perf_counter()
     for i in range(args.steps):
-        if shard is None:
+        if tensor:
+            batch = make_data_batch(cfg, shape, stream, args.agents,
+                                    int(state.step), mesh, dev)
+        elif shard is None:
             batch = make_group_batch(cfg, shape, stream, args.agents,
                                      int(state.step), dev)
         else:
@@ -315,9 +355,12 @@ def main(argv=None) -> dict:
     if args.ckpt or args.ckpt_full:
         # the single-process file: the group's rows gathered to every
         # rank, written by rank 0
-        full = (state if mesh is None
-                else gather_agent_state(state, mesh, spec.pod_axis))
-        if shard is None or shard.index == 0:
+        if tensor:
+            full = SH.gather(state, state_specs, mesh, state_shapes, cfg)
+        else:
+            full = (state if mesh is None
+                    else gather_agent_state(state, mesh, spec.pod_axis))
+        if rank0:
             if args.ckpt:
                 save(args.ckpt, full.params, step=args.steps)
                 say(f"saved params to {args.ckpt}")

@@ -3,6 +3,17 @@ self-attention (RoPE, M-RoPE or none, optional sliding window, optional
 QKV bias), MusicGen's cross-attention to a conditioning sequence and
 DeepSeek-V2's Multi-head Latent Attention.
 
+On the model axis (``repro_torch.models.common.model_axis``) a
+cache-free pass runs Megatron-style: ``wq`` / ``wk`` / ``wv`` (and their
+biases) are column slices giving the rank H/m query heads and K/m kv
+heads (the GQA group H/K kept), the flash kernel runs on those heads,
+and ``wo`` is a row slice whose partial product is all-reduced. A
+projection whose heads do not divide over the axis is placed whole
+(``repro_torch.launch.shardings.placement_spec``): its weight enters
+the split work through ``copy_to_model`` and the rank takes the heads
+its query heads need (the kv heads they read; with whole query heads,
+the output columns that meet its rows of ``wo``).
+
 Decode-time KV caches are functional values, as in the reference:
 :func:`self_attention` returns a new layer cache and leaves the one it
 was given as it was. Cache slots carry their absolute position
@@ -19,9 +30,11 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import DTYPES
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import (causal_mask_bias, dense_init,
-                                       per_row, recorded, refuse_pallas,
-                                       rms_norm, softmax_attention)
+from repro_torch.models.common import (MODEL_AXIS_LATER, causal_mask_bias,
+                                       copy_to_model, dense_init, per_row,
+                                       recorded, reduce_from_model,
+                                       refuse_pallas, rms_norm,
+                                       softmax_attention, split_axis)
 
 
 def init_self_attention(cfg, gen: torch.Generator, device=None) -> dict:
@@ -186,20 +199,58 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     and ``softmax_attention``; ``drop_past`` drops the writes at slots
     past the cache instead of requiring that none be made (the hybrid's
     right-padded prefill, whose pads past ``max_len`` still run on).
+    On a model axis a cache-free pass runs the rank's heads and returns
+    the all-reduced output (module docstring); with a cache an axis of
+    more than one rank raises ``NotPortedError``.
     """
     B, S, _ = x.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.dtype("compute")
-    xq = x @ p["wq"].to(cdt)
-    xk = x @ p["wk"].to(cdt)
-    xv = x @ p["wv"].to(cdt)
+    tp = split_axis(cfg, "heads", H * D)
+    if tp is not None and layer_cache is not None:
+        if tp.size > 1:
+            from repro_torch.configs.base import NotPortedError
+            raise NotPortedError(
+                f"attention with a KV cache on a model axis of {tp.size} "
+                f"ranks (serving under serve_rules) waits for "
+                f"{MODEL_AXIS_LATER}")
+        tp = None
+    # the rank's query heads h0 .. h0 + n_q − 1 (all of them on one
+    # device, or where wq is placed whole)
+    q_split = kv_split = True
+    n_q, h0 = H, 0
+    if tp is not None:
+        m, r = tp.size, tp.rank
+        q_split, kv_split = H % m == 0, K % m == 0
+        if q_split:
+            n_q, h0 = H // m, r * (H // m)
+        x = copy_to_model(x, tp)
+
+    def weight(name, split):
+        w = p[name]
+        return w if split or tp is None else copy_to_model(w, tp)
+    xq = x @ weight("wq", q_split).to(cdt)
+    xk = x @ weight("wk", kv_split).to(cdt)
+    xv = x @ weight("wv", kv_split).to(cdt)
     if cfg.qkv_bias:
-        xq = xq + per_row(p["bq"], xq).to(cdt)
-        xk = xk + per_row(p["bk"], xk).to(cdt)
-        xv = xv + per_row(p["bv"], xv).to(cdt)
-    q = rope_lib.apply_rope(cfg, xq.reshape(B, S, H, D), positions)
-    k = rope_lib.apply_rope(cfg, xk.reshape(B, S, K, D), positions)
-    v = xv.reshape(B, S, K, D)
+        xq = xq + per_row(weight("bq", q_split), xq).to(cdt)
+        xk = xk + per_row(weight("bk", kv_split), xk).to(cdt)
+        xv = xv + per_row(weight("bv", kv_split), xv).to(cdt)
+    if not kv_split:
+        # the whole projection: keep the kv heads the rank's query heads
+        # read
+        first, n, ids = _kv_heads_of(h0, n_q, H // K)
+        if ids is None:
+            xk = xk[..., first * D:(first + n) * D]
+            xv = xv[..., first * D:(first + n) * D]
+        else:
+            cols = torch.tensor([i * D + d for i in ids for d in range(D)],
+                                device=x.device)
+            xk, xv = xk.index_select(-1, cols), xv.index_select(-1, cols)
+    n_kv = xk.shape[-1] // D
+    q = rope_lib.apply_rope(cfg, xq.reshape(B, S, n_q, D), positions)
+    k = rope_lib.apply_rope(cfg, xk.reshape(B, S, n_kv, D), positions)
+    v = xv.reshape(B, S, n_kv, D)
     flat_pos = positions[:, -1, :] if positions.ndim == 3 else positions
 
     scale = 1.0 / (D ** 0.5)
@@ -218,7 +269,25 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         bias = causal_mask_bias(flat_pos, pc, cfg.sliding_window, pc >= 0)
         out = softmax_attention(q, kc, vc, bias, scale,
                                 DTYPES[cfg.attention_scores_dtype])
-    return out.reshape(B, S, H * D) @ p["wo"].to(cdt), new_cache
+    out = out.reshape(B, S, n_q * D)
+    if tp is None:
+        return out @ p["wo"].to(cdt), new_cache
+    if not q_split:
+        # whole query heads: the columns that meet the rank's rows of wo
+        width = H * D // m
+        out = out[..., r * width:(r + 1) * width]
+    return reduce_from_model(out @ p["wo"].to(cdt), tp, "attn_out"), None
+
+
+def _kv_heads_of(h0: int, n_q: int, group: int):
+    """The kv heads that query heads h0 .. h0 + n_q − 1 read (GQA group
+    ``group``): (first, count) when each reads kv head first + j //
+    (n_q / count), else the per-query-head list."""
+    ids = [(h0 + j) // group for j in range(n_q)]
+    first, n = ids[0], ids[-1] - ids[0] + 1
+    if n_q % n == 0 and ids == [first + j // (n_q // n) for j in range(n_q)]:
+        return first, n, None
+    return first, n, ids
 
 
 def cross_attention(cfg, p: dict, x: torch.Tensor,

@@ -8,6 +8,22 @@ The initialisers draw from a ``torch.Generator``, so they give the
 reference's distributions (a truncated normal of fan-in scale, a
 normal of std 0.02), not its bits: tests that need both sides on the
 same weights carry them across with ``repro_torch.interop``.
+
+The model axis (tensor parallelism, Megatron-style). Under a rule table
+and a ``(data, model)`` mesh (``repro_torch.common.sharding``) a layer
+of a dense or MoE transformer holds its weights' local slices and
+brackets its split work by two autograd functions written here:
+``copy_to_model`` (identity forward, all-reduce of the gradient over
+the model axis backward) where a replicated tensor enters, and
+``reduce_from_model`` (all-reduce forward, identity backward) where
+the ranks' partial sums leave. (``torch.distributed.nn``'s all-reduce
+all-reduces the gradient too, which would multiply a replicated loss's
+gradient by the axis size.) ``model_axis`` gives a layer its axis, or
+``None`` to run the one-device form; the ssm, hybrid, MLA, VLM and
+audio families refuse an axis of more than one rank. The embedding
+lookup and ``cross_entropy`` are vocab-parallel (``vocab=``), and
+``cross_entropy`` sums its tokens and their count over the data axis,
+so every data rank's loss is the global batch's mean.
 """
 from __future__ import annotations
 
@@ -15,6 +31,93 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+from repro_torch.common.sharding import AxisGroup, count, mesh_axis
+
+#: where the refused model-axis work is queued
+MODEL_AXIS_LATER = "Slice E part 3"
+
+
+def splits_over_model(cfg, size: int) -> bool:
+    """Whether ``cfg``'s layers split over a model axis of ``size``
+    ranks: the dense and MoE transformers with GQA attention (not MLA)
+    do; every other family runs its one-device form on one rank and
+    refuses more than one with ``NotPortedError``."""
+    if cfg.family in ("dense", "moe") and cfg.mla is None:
+        return True
+    if size > 1:
+        from repro_torch.configs.base import NotPortedError
+        raise NotPortedError(
+            f"{cfg.name}: a model axis of {size} ranks (tensor "
+            f"parallelism) is ported for the dense and MoE families "
+            f"with GQA attention; the {cfg.family} family"
+            f"{' with MLA' if cfg.mla is not None else ''} waits for "
+            f"{MODEL_AXIS_LATER}")
+    return False
+
+
+def model_axis(cfg, logical: str = "ff") -> Optional[AxisGroup]:
+    """The model-axis group ``logical`` resolves to under the installed
+    rules and mesh (``None``: the one-device form; ``splits_over_model``
+    decides, or refuses, for the family)."""
+    ax = mesh_axis(logical)
+    return ax if ax is not None and splits_over_model(cfg, ax.size) else None
+
+
+def split_axis(cfg, logical: str, dim: int) -> Optional[AxisGroup]:
+    """``model_axis``, if a dim of ``dim`` divides over it (the
+    placement's ``_sanitize``: a dim that does not divide stays whole)."""
+    ax = model_axis(cfg, logical)
+    return ax if ax is not None and dim % ax.size == 0 else None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, ax: AxisGroup) -> torch.Tensor:
+    """A replicated tensor entering split work: the identity forward; its
+    gradient, a partial sum on each rank, all-reduced over ``ax``
+    backward."""
+    return _CopyToModel.apply(x, ax.group)
+
+
+def reduce_from_model(x: torch.Tensor, ax: AxisGroup,
+                      site: str) -> torch.Tensor:
+    """The ranks' partial sums leaving split work: all-reduced over
+    ``ax`` forward (counted under ``site``); the gradient of the
+    replicated result passes through as it is backward."""
+    count(site)
+    return _ReduceFromModel.apply(x, ax.group)
+
+
+def vocab_split(cfg) -> Optional[AxisGroup]:
+    """The model axis the vocabulary rows of ``embed`` / columns of
+    ``lm_head`` split over, or ``None``."""
+    return split_axis(cfg, "vocab", cfg.vocab_size)
 
 
 def recorded(*tensors: torch.Tensor) -> bool:
@@ -57,17 +160,36 @@ def _rows(table: torch.Tensor, tokens: torch.Tensor,
     return table[agents[:, None], tokens.long()]
 
 
+def _split_rows(table: torch.Tensor, tokens: torch.Tensor,
+                vocab: AxisGroup) -> torch.Tensor:
+    """The rows of a vocab-split (V/m, E) table for (B, S) tokens: each
+    rank looks up the tokens its rows hold, zeros elsewhere, and one
+    all-reduce over the model axis assembles the rows (one nonzero term
+    per row, so the sum is exact)."""
+    n = table.shape[0]
+    local = tokens.long() - vocab.rank * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.nn.functional.embedding(
+        torch.where(inside, local, torch.zeros_like(local)), table)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return reduce_from_model(rows, vocab, "embed")
+
+
 def embed_rows(cfg, params: dict, tokens: torch.Tensor,
-               agents: Optional[torch.Tensor] = None) -> torch.Tensor:
+               agents: Optional[torch.Tensor] = None,
+               vocab: Optional[AxisGroup] = None) -> torch.Tensor:
     """The embedding rows the tokens pick, cast to the compute dtype
     (the reference casts the whole table first, which gives the same
     values); with ``agents`` (B,), row b's from agent ``agents[b]``'s
     table of stacked planes (A, V, E). The audio family's tokens are
     (B, C, S) over C codebook tables (C, V, E) (per agent (A, C, V,
     E)): the C rows of a position are summed in the compute dtype, in
-    codebook order, as the reference sums them."""
+    codebook order, as the reference sums them. ``vocab`` (the model
+    axis): ``embed`` holds the rank's rows of the vocabulary."""
     cdt = cfg.dtype("compute")
     table = params["embed"]
+    if vocab is not None:
+        return _split_rows(table, tokens, vocab).to(cdt)
     if cfg.family != "audio":
         return _rows(table, tokens, agents).to(cdt)
     x = 0
@@ -190,13 +312,48 @@ def softmax_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore: int = -100) -> torch.Tensor:
+                  ignore: int = -100,
+                  vocab: Optional[AxisGroup] = None) -> torch.Tensor:
     """Token-mean cross-entropy with an ignore mask; logits (..., V) of
-    any float dtype, fp32 math."""
+    any float dtype, fp32 math.
+
+    ``vocab`` (the model axis): ``logits`` are the rank's (..., V/m)
+    columns. Each rank's log-sum-exp is combined over the axis as
+    M + log Σ_r exp(lse_r − M), M the ranks' largest (an all-reduce max,
+    no gradient, then an all-reduce sum): on one rank it is lse itself,
+    bit for bit. The label's logit comes from the rank that holds it (an
+    all-reduce of one nonzero term). Under a data axis (``"batch"`` of
+    the installed rules) the token sum and the token count are
+    all-reduced over it, so the loss is the global batch's mean on every
+    rank (ignored labels make the counts differ between ranks); the
+    gradient each rank takes is its own tokens' part."""
     lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
     safe = torch.clamp(labels.long(), min=0)
-    gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    if vocab is None:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, safe[..., None])[..., 0]
+    else:
+        import torch.distributed as dist
+        lse = torch.logsumexp(lf, dim=-1)
+        top = lse.detach().clone()
+        count("ce_max")
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=vocab.group)
+        logz = top + torch.log(reduce_from_model(torch.exp(lse - top),
+                                                 vocab, "ce_sum"))
+        n = lf.shape[-1]
+        local = safe - vocab.rank * n
+        inside = (local >= 0) & (local < n)
+        g = torch.gather(lf, -1, torch.where(
+            inside, local, torch.zeros_like(local))[..., None])[..., 0]
+        gold = reduce_from_model(torch.where(inside, g, torch.zeros_like(g)),
+                                 vocab, "ce_gold")
     mask = (labels != ignore).to(torch.float32)
-    return torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask),
-                                                         min=1.0)
+    num = torch.sum((logz - gold) * mask)
+    den = torch.sum(mask)
+    data = mesh_axis("batch")
+    if data is not None:
+        import torch.distributed as dist
+        num = reduce_from_model(num, data, "loss_sum")
+        count("loss_count")
+        dist.all_reduce(den, group=data.group)
+    return num / torch.clamp(den, min=1.0)

@@ -1,10 +1,12 @@
 """Feed-forward blocks — the port of ``repro.models.mlp``: SwiGLU
-(the llama family) and the GELU MLP (MusicGen)."""
+(the llama family; column / row split over the model axis) and the GELU
+MLP (MusicGen)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import dense_init, per_row
+from repro_torch.models.common import (copy_to_model, dense_init, per_row,
+                                       reduce_from_model)
 
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
@@ -16,13 +18,18 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu(p: dict, x: torch.Tensor, compute_dtype: torch.dtype
-           ) -> torch.Tensor:
+def swiglu(p: dict, x: torch.Tensor, compute_dtype: torch.dtype,
+           tp=None) -> torch.Tensor:
     """silu(x W_gate) · (x W_up) W_down, every weight cast to the
-    compute dtype per call, as the reference does."""
+    compute dtype per call, as the reference does. ``tp`` (the model
+    axis): ``w_gate`` / ``w_up`` hold the rank's columns of the ff width
+    and ``w_down`` its rows, and the partial product is all-reduced."""
+    if tp is not None:
+        x = copy_to_model(x, tp)
     g = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
-    return (torch.nn.functional.silu(g) * u) @ p["w_down"].to(compute_dtype)
+    y = (torch.nn.functional.silu(g) * u) @ p["w_down"].to(compute_dtype)
+    return y if tp is None else reduce_from_model(y, tp, "mlp_out")
 
 
 def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,

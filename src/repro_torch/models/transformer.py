@@ -32,9 +32,11 @@ from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
                                        stack_layers, unstack_layers)
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (cross_entropy, dense_init, embed_init,
-                                       embed_rows, head_weight, rms_norm,
-                                       sinusoidal_positions)
+from repro_torch.models.common import (copy_to_model, cross_entropy,
+                                       dense_init, embed_init, embed_rows,
+                                       head_weight, rms_norm,
+                                       sinusoidal_positions, split_axis,
+                                       vocab_split)
 from repro_torch.models.mlp import gelu_mlp, init_gelu_mlp, init_swiglu, swiglu
 from repro_torch.models.moe import init_moe, moe_apply
 
@@ -117,7 +119,8 @@ def _layer_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     elif cfg.family == "audio":
         f, aux = gelu_mlp(p["mlp"], h2, cdt), None
     else:
-        f, aux = swiglu(p["mlp"], h2, cdt), None
+        width = cfg.d_ff if cfg.moe is None else cfg.dense_ff
+        f, aux = swiglu(p["mlp"], h2, cdt, split_axis(cfg, "ff", width)), None
     return x + f, aux, out_cache
 
 
@@ -129,7 +132,8 @@ def _embed(cfg, params: dict, batch: dict,
     where the batch has them (a prefill or scoring pass, not a decode
     step)."""
     cdt = cfg.dtype("compute")
-    x = embed_rows(cfg, params, batch["tokens"], agents)
+    x = embed_rows(cfg, params, batch["tokens"], agents,
+                   vocab_split(cfg) if agents is None else None)
     if cfg.family == "audio":
         return x + sinusoidal_positions(batch["positions"],
                                         cfg.d_model).to(cdt)
@@ -139,9 +143,14 @@ def _embed(cfg, params: dict, batch: dict,
 
 
 def _lm_head(cfg, params: dict, x: torch.Tensor,
-             agents: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Logits (B, S, V), or the audio family's (B, C, S, V)."""
+             agents: Optional[torch.Tensor] = None,
+             vocab=None) -> torch.Tensor:
+    """Logits (B, S, V), or the audio family's (B, C, S, V); ``vocab``
+    (the model axis): the rank's (B, S, V/m) columns (a tied head reads
+    the embedding's rows of the rank's vocabulary)."""
     w = head_weight(cfg, params, agents).to(cfg.dtype("compute"))
+    if vocab is not None:
+        return copy_to_model(x, vocab) @ w
     if cfg.family == "audio":
         return torch.einsum("bsd,kdv->bksv" if agents is None
                             else "bsd,bkdv->bksv", x, w)
@@ -224,13 +233,28 @@ def transformer_forward(cfg, params: dict, batch: dict,
     capacity depends on that width, so cutting it would route
     differently. Its caller checks that the real tokens fit
     (``api.prefill``)."""
+    logits, aux, new_cache, vocab = _forward(cfg, params, batch, cache)
+    if vocab is not None and vocab.size > 1:
+        from repro_torch.configs.base import NotPortedError
+        raise NotPortedError(
+            f"the full logits on a model axis of {vocab.size} ranks "
+            f"(scoring and serving under a mesh) wait for Slice E part 3; "
+            f"the loss (transformer_loss) reads each rank's vocabulary "
+            f"columns")
+    return logits, aux, new_cache
+
+
+def _forward(cfg, params: dict, batch: dict, cache: Optional[dict]):
+    """``transformer_forward`` with the logits as the rank holds them:
+    (logits, aux, new cache, the vocab's model axis or None)."""
     drop_past = cfg.moe is not None
     if cache is not None and not drop_past:
         check_fits(cfg, batch["positions"].shape[-1] - 1,
                    cache["layers"]["kv"]["pos"].shape[-1])
     x, aux, new_cache = _run_layers(cfg, params, batch, cache,
                                     drop_past=drop_past)
-    return _lm_head(cfg, params, x), aux, new_cache
+    vocab = vocab_split(cfg)
+    return _lm_head(cfg, params, x, vocab=vocab), aux, new_cache, vocab
 
 
 def transformer_decode(cfg, params: dict, batch: dict, cache: dict,
@@ -250,8 +274,8 @@ def transformer_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
     (−100 ignored) plus the MoE auxiliary loss. A VLM's labels cover
     the whole (vision + text) sequence, the vision rows −100; an audio
     batch's are (B, C, S), one row per codebook."""
-    logits, aux, _ = transformer_forward(cfg, params, batch)
-    return cross_entropy(logits, batch["labels"]) + aux
+    logits, aux, _, vocab = _forward(cfg, params, batch, None)
+    return cross_entropy(logits, batch["labels"], vocab=vocab) + aux
 
 
 def make_transformer_cache(cfg, batch: int, max_len: int,

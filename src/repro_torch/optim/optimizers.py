@@ -14,7 +14,8 @@ group makes no copy of a whole tree; with ``rows`` ((n,) bool) only
 those agents' rows change, the elastic trainer's row select. Every row
 is updated on its own, as the reference's vmapped update does, so
 clipping is per agent (the squared norm summed leaf by leaf in
-``jax.tree_util`` order). ``torch.optim`` is not used: its defaults and
+``jax.tree_util`` order; on a ``(data, model)`` mesh, ``shards=``, over
+the rank's slices and then over the model axis). ``torch.optim`` is not used: its defaults and
 state layout differ from the reference's.
 """
 from __future__ import annotations
@@ -43,15 +44,22 @@ def _rows(tree):
     return [x.reshape(x.shape[0], -1) for _, x in tree_leaves_with_paths(tree)]
 
 
-def _clip_scale(G, clip: float) -> torch.Tensor:
+def _clip_scale(G, clip: float, shards=None) -> torch.Tensor:
     """(n,) per-agent global-norm clip factors min(1, clip / (‖g‖ +
-    1e-6)) of the gradient rows ``G`` (a list of (n, p) views)."""
+    1e-6)) of the gradient rows ``G`` (a list of (n, p) views). With
+    ``shards`` (a ``ModelShards``: the rows are the rank's slices) the
+    squared norm is the partial sum over the leaves the rank owns,
+    all-reduced over the model axis."""
     n = G[0].shape[0]
     sq = torch.zeros((n,), dtype=torch.float32, device=G[0].device)
-    for g in G:
+    for i, g in enumerate(G):
+        if shards is not None and not shards.owned[i]:
+            continue
         for cols in column_chunks(g.shape[1]):
             gf = g[:, cols].to(torch.float32)
             sq = sq + torch.sum(gf * gf, dim=1)
+    if shards is not None:
+        shards.all_reduce(sq)
     norm = torch.sqrt(sq)
     limit = torch.as_tensor(clip, dtype=torch.float32, device=norm.device)
     return torch.clamp_max(limit / (norm + 1e-6), 1.0)
@@ -150,11 +158,12 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "count": torch.zeros((first.shape[0],), dtype=torch.int32,
                                      device=first.device)}
 
-    def tree_update_(grads, state, params, step, rows=None):
+    def tree_update_(grads, state, params, step, rows=None, shards=None):
         G, P = _rows(grads), _rows(params)
         M, V = _rows(state["m"]), _rows(state["v"])
         dev = G[0].device
-        scale = _clip_scale(G, clip) if clip is not None else None
+        scale = (_clip_scale(G, clip, shards) if clip is not None
+                 else None)
         count = state["count"] + 1
         cf = count.to(torch.float32)[:, None]
         bc1 = 1.0 - b1 ** cf

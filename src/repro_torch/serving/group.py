@@ -136,7 +136,7 @@ class ParamStore:
     returns ``(planes, version)`` of the live buffer. The planes given
     to the constructor or to ``publish`` are copied, unless
     ``donate=True`` hands them over. (The reference's ``placer``, which
-    places planes over a device mesh, waits for Slice E part 2.)
+    places planes over a device mesh, waits for Slice E part 3.)
     """
 
     def __init__(self, planes: Any, donate: bool = False):
@@ -238,8 +238,9 @@ class GroupServeEngine:
         if mesh is not None:
             raise NotPortedError(
                 "GroupServeEngine(mesh=...) places the planes over a "
-                "device mesh, which waits for Slice E part 2 (the "
-                "production meshes); the port serves from one card")
+                "device mesh, which waits for Slice E part 3 (serving "
+                "on the production meshes); the port serves from one "
+                "card")
         self.cfg = cfg
         self.serve = serve
         self.B = batch_size

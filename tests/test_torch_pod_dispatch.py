@@ -233,10 +233,25 @@ def test_non_pod_mesh_is_not_ported():
     from repro_torch.configs.base import NotPortedError
 
     class ProdMesh:
+        mesh_dim_names = ("pod", "data", "model")
+    pt, _, pl, _ = _hier(8, 4)
+    with pytest.raises(NotPortedError, match="Slice E part 3"):
+        PD.make_pod_dispatch(pt, pl, mesh=ProdMesh())
+
+
+def test_data_model_mesh_places_no_agents():
+    """Every rank of a (data, model) mesh holds every agent: the pod
+    dispatch refuses the mesh and ``agent_shard`` places nothing on it."""
+    from repro_torch.configs.base import NotPortedError
+    from repro_torch.core.sharded_ddal import agent_shard
+
+    class DataModelMesh:
         mesh_dim_names = ("data", "model")
     pt, _, pl, _ = _hier(8, 4)
-    with pytest.raises(NotPortedError, match="Slice E part 2"):
-        PD.make_pod_dispatch(pt, pl, mesh=ProdMesh())
+    with pytest.raises(NotPortedError, match="places none"):
+        PD.make_pod_dispatch(pt, pl, mesh=DataModelMesh())
+    with pytest.raises(ValueError, match="places no agents"):
+        agent_shard(DataModelMesh(), 8)
 
 
 # ---------------------------------------------------------------------

@@ -346,15 +346,20 @@ def test_placement_contract_errors(four_ranks):
 
 
 def test_production_mesh_is_not_ported():
+    """The production meshes are built over a world of their size only,
+    and the trainer refuses the (pod, data, model) mesh (Slice E part
+    3); the (data, model) meshes are held in ``test_torch_tp_mesh.py``."""
     from repro_torch.launch import mesh as M
 
     class ProdMesh:
-        mesh_dim_names = ("data", "model")
-    with pytest.raises(NotPortedError, match="Slice E part 2"):
-        M.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotPortedError, match="Slice E part 2"):
-        M.make_debug_mesh()
-    with pytest.raises(NotPortedError, match="Slice E part 2"):
+        mesh_dim_names = ("pod", "data", "model")
+    with pytest.raises(ValueError, match="needs 512 devices"):
+        M.make_production_mesh(multi_pod=True, device_type="cpu")
+    with pytest.raises(ValueError, match="needs 256 devices"):
+        M.make_production_mesh(device_type="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
+        M.make_debug_mesh(device_type="cpu")
+    with pytest.raises(NotPortedError, match="Slice E part 3"):
         SD.make_group_train_step(None, GroupSpec(
             n_agents=2, knowledge_mode="streaming"), optim.adamw(0.1),
             loss_fn=lambda p, b: 0, mesh=ProdMesh())

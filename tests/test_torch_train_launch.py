@@ -1,7 +1,7 @@
 """The streaming trainer's launcher, ``repro_torch.launch.train`` (the
 twin of ``repro.launch.train``), on the CPU: it runs a reduced arch
 with the reference's flags and lines, warns on the legacy spellings,
-refuses the production meshes by name (Slice E part 2), trains the pod
+refuses a production mesh in a world of another size, trains the pod
 dispatch on one device (``--pods``; the pod mesh is held in
 ``test_torch_train_launch_mesh.py``), and its
 ``--ckpt-full`` files cross-load with the reference launcher's both
@@ -18,7 +18,6 @@ torch.set_num_threads(1)
 from repro.checkpoint import restore as ref_restore  # noqa: E402
 from repro.launch import train as ref_train  # noqa: E402
 from repro_torch.common.pytree import tree_leaves_with_paths  # noqa: E402
-from repro_torch.configs.base import NotPortedError  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 ARGS = ["--device", "cpu", "--agents", "2", "--batch", "2", "--seq", "32",
@@ -49,9 +48,10 @@ def test_legacy_flags_warn_and_unported_meshes_refused():
     with pytest.warns(DeprecationWarning, match="--topology"):
         out = train.main(ARGS + ["--steps", "1", "--topology", "ring"])
     assert out["spec"].topology == "ring"
-    with pytest.raises(NotPortedError, match="Slice E"):
+    # the production meshes need a world of their size
+    with pytest.raises(ValueError, match="needs 256 devices"):
         train.main(ARGS + ["--steps", "1", "--mesh", "prod"])
-    with pytest.raises(NotPortedError, match="Slice E"):
+    with pytest.raises(ValueError, match="needs 512 devices"):
         train.main(ARGS + ["--steps", "1", "--mesh", "prod-multipod"])
     # the pod dispatch trains on one device (the single-device dispatch)
     out = train.main(ARGS + ["--steps", "3", "--exchange",

@@ -4,8 +4,8 @@ repro_torch.launch.train --device cpu --mesh pods`` (two ranks over
 gloo, one pod each) against the single-process ``--mesh cpu`` run of
 the same spec, and the checkpoints of each kind of run restored in the
 other. The launcher runs in subprocesses that import only torch and the
-port. Also: the production meshes are refused by name (Slice E part 2)
-and ``--device cuda`` never falls back to gloo or the host."""
+port. Also: the production meshes need a world of their size, and
+``--device cuda`` never falls back to gloo or the host."""
 from __future__ import annotations
 
 import os
@@ -19,7 +19,6 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from repro_torch.configs.base import NotPortedError  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -101,8 +100,8 @@ def test_checkpoints_restore_across_kinds(runs):
 
 def test_production_meshes_refused_and_no_fallback():
     base = ["--device", "cpu", "--agents", "2", "--steps", "1"]
-    for mesh in ("prod", "prod-multipod"):
-        with pytest.raises(NotPortedError, match="Slice E part 2"):
+    for mesh, need in (("prod", 256), ("prod-multipod", 512)):
+        with pytest.raises(ValueError, match=f"needs {need} devices"):
             train.main(base + ["--mesh", mesh])
     with pytest.raises(SystemExit):
         train.main(base + ["--mesh", "pods"])          # no --pods
