@@ -12,8 +12,10 @@ a reference pytree and a port tree the same way.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
+import threading
 from typing import Any, List, Sequence, Tuple
 
 import torch
@@ -85,15 +87,61 @@ def unstack_layers(tree, n: int):
     return [tree_map(lambda ts: ts[i], parts) for i in range(n)]
 
 
+_held = threading.local()
+
+
+@contextlib.contextmanager
+def agent_rows(rows):
+    """Within the scope, every per-slot row pick (:func:`pick_rows`,
+    :func:`slot_layer`) reads planes that hold only the calling rank's
+    block of a group's agents on a ``(pod, "agent")`` mesh spanning the
+    process group: ``rows.first .. rows.first + rows.block − 1``
+    (``repro_torch.launch.shardings.AgentPlanes``); ``None``: every
+    agent's."""
+    prev = getattr(_held, "rows", None)
+    _held.rows = rows
+    try:
+        yield
+    finally:
+        _held.rows = prev
+
+
+def pick_rows(t: torch.Tensor, agents: torch.Tensor, pick=None):
+    """Each slot's rows of an agents' stacked (A, ...) tensor for the (B,)
+    long index ``agents``: ``pick(t, agents)``, by default
+    ``t.index_select(0, agents)`` (B, ...). Under :func:`agent_rows` the
+    rank holds only its agents' rows: it picks the slots whose agents it
+    holds, zeros for the others, and one all-reduce (sum) over the mesh
+    gives every rank every slot's rows (one nonzero term each, so the
+    sum is exact) over the process group, counted as
+    ``"plane_rows"``."""
+    pick = pick or (lambda x, a: x.index_select(0, a))
+    rows = getattr(_held, "rows", None)
+    if rows is None:
+        return pick(t, agents)
+    import torch.distributed as dist
+
+    from repro_torch.common.sharding import count
+    local = agents - rows.first
+    own = (local >= 0) & (local < rows.block)
+    out = pick(t, torch.where(own, local, torch.zeros_like(local)))
+    out = torch.where(own.view((-1,) + (1,) * (out.ndim - 1)), out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    count("plane_rows")
+    dist.all_reduce(out)
+    return out
+
+
 def slot_layer(tree, agents: torch.Tensor, *index: int):
     """Layer ``index`` of each row's agent from agents' stacked trees
     (leaves (A, n_layers, ...), or (A, d1, d2, ...) with one index per
     depth axis, or (A, ...) with none) → leaves (B, ...) for the (B,)
-    long index ``agents``: a gather, B copies of one layer."""
+    long index ``agents``: a gather, B copies of one layer
+    (:func:`pick_rows`: on a pod mesh one collective a leaf)."""
     def pick(t):
         for i in index:
             t = t.select(1, i)
-        return t.index_select(0, agents)
+        return pick_rows(t, agents)
     return tree_map(pick, tree)
 
 

@@ -18,14 +18,19 @@ and the layer runs its one-device form.
 
 ``COLLECTIVES`` counts the collectives the layers issue in their
 forward, by site (``"attn_out"``, ``"mlp_out"``, ``"moe_combine"``,
-``"embed"``, ``"ce_max"``, ...), so a run can show where they went.
+``"embed"``, ``"ce_max"``, ``"kv_max"``, ``"kv_sum"``, ...), so a run
+can show where they went.
+
+Decode caches under ``serve_rules`` split their slot dim over the
+``"kv_slots"`` axis (the reference's flash-decoding layout):
+``slot_range`` gives the global slots a rank holds.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 _state = threading.local()
 
@@ -152,6 +157,21 @@ def mesh_axis(logical: str) -> Optional[AxisGroup]:
 
 def count(site: str) -> None:
     COLLECTIVES[site] += 1
+
+
+def slot_range(T: int, ax: Optional[AxisGroup]) -> Tuple[int, int]:
+    """The global slots [start, stop) of a ``T``-slot cache dim that the
+    calling rank holds on the slot axis ``ax``: the contiguous
+    [r·T/m, (r+1)·T/m) where m divides T. A dim that does not divide
+    keeps its whole shape on every rank (the placement's ``_sanitize``)
+    and its slots lie on model rank 0: (0, T) there, (T, T) on the
+    others, whose copies stay empty. ``ax`` None: (0, T)."""
+    if ax is None:
+        return 0, T
+    if T % ax.size == 0:
+        n = T // ax.size
+        return ax.rank * n, (ax.rank + 1) * n
+    return (0, T) if ax.rank == 0 else (T, T)
 
 
 class LeafShard(NamedTuple):

@@ -716,7 +716,8 @@ class TensorParallel(NamedTuple):
 def tensor_parallel(cfg, mesh) -> TensorParallel:
     """The ``TensorParallel`` of ``cfg`` on a ``(data, model)`` mesh; a
     model axis of more than one rank needs a family that splits over it
-    (dense and MoE with GQA; the others wait for Slice E part 3)."""
+    (the dense and MoE families, GQA or MLA; the others wait for Slice E
+    part 3)."""
     from repro_torch.common.sharding import (ModelShards, axis_rules,
                                              mesh_axis, set_mesh)
     from repro_torch.launch.mesh import train_rules

@@ -13,11 +13,21 @@ program, so the placement (``placement_spec``) adds one rule of its
 own: an attention projection is split only in whole heads (``wq`` /
 ``bq`` need the query heads, ``wk`` / ``wv`` / ``bk`` / ``bv`` the kv
 heads, to divide over the axis), else it is placed replicated and the
-layer picks the heads it needs. ``place`` cuts a rank's local slice of
-full tensors by specs; ``gather`` puts full tensors back (a collective:
-every rank calls it). ``leaf_shards`` describes each parameter leaf's
-slice on the calling rank for the partial sums over the model axis
+layer picks the heads it needs (MLA's ``w_uk`` / ``w_uv`` count the
+query heads). ``place`` cuts a rank's local slice of full tensors by
+specs; ``gather`` puts full tensors back (a collective: every rank calls
+it). Both handle a decode cache's slot dim (``common.sharding.
+slot_range``): a split dim is cut into contiguous blocks, and a dim that
+stays whole lies on model rank 0, the other ranks' copies empty.
+``local_cache_shapes`` gives the shapes a rank's cache is built at
+(``models.transformer.make_transformer_cache``). ``leaf_shards``
+describes each parameter leaf's slice on the calling rank for the
+partial sums over the model axis
 (``repro_torch.common.sharding.ModelShards``).
+
+Group serving on a ``(pod, "agent")`` mesh: ``AgentPlanes`` places a
+group's stacked planes by ``group_plane_partition_specs``, each rank
+keeping its agents' rows.
 
 The reference shards dim 0 of every per-agent leaf of a ``TrainState``
 over ``ddal_agent_axis(mesh)``. Here that becomes: each rank keeps its
@@ -32,7 +42,7 @@ spec over the model axis alone.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 from repro_torch.common.pytree import (tree_from_paths,
                                        tree_leaves_with_paths, tree_map)
@@ -208,14 +218,15 @@ def _sanitize(mesh, spec: tuple, shape) -> tuple:
 # the model axis: placement
 # ---------------------------------------------------------------------
 _HEAD_LEAVES = {"wq": "q", "bq": "q", "wk": "kv", "bk": "kv", "wv": "kv",
-                "bv": "kv"}
+                "bv": "kv", "w_uk": "q", "w_uv": "q"}
 
 
 def placement_spec(cfg, mesh, path, spec: tuple, shape) -> tuple:
     """The spec a leaf is placed by: ``_sanitize``'s, with an attention
     projection's head dim replicated unless its heads (query heads for
-    ``wq`` / ``bq``, kv heads for ``wk`` / ``wv`` / ``bk`` / ``bv``)
-    divide over the axis: an explicit shard cannot split a head."""
+    ``wq`` / ``bq`` and MLA's ``w_uk`` / ``w_uv``, kv heads for ``wk`` /
+    ``wv`` / ``bk`` / ``bv``) divide over the axis: an explicit shard
+    cannot split a head."""
     out = _sanitize(mesh, spec, shape)
     kind = _HEAD_LEAVES.get(path[-1]) if cfg is not None and path else None
     if kind is None or (len(path) > 1 and path[-2] != "attn"):
@@ -281,16 +292,40 @@ def _leaf_spec(cfg, mesh, path, x, spec):
     return placement_spec(cfg, mesh, key_path, tuple(spec), tuple(x.shape))
 
 
+def _whole_slots(mesh, path, x, spec, ps) -> Optional[Axis]:
+    """The slot axis of a decode-cache leaf (named by ``_CACHE_RULES``)
+    whose slot dim ``spec`` puts over more than one rank and the
+    placement ``ps`` keeps whole (it does not divide), else ``None``:
+    such a cache's slots lie on the axis's rank 0."""
+    name = next((k for k in reversed(path) if isinstance(k, str)), None)
+    for d, kind in _CACHE_RULES.get(name, {}).get(x.ndim, {}).items():
+        if (kind == "slots" and spec[d] is not None and ps[d] is None
+                and axis_size(mesh, spec[d]) > 1):
+            return spec[d]
+    return None
+
+
+def _empty_like(x):
+    """An empty cache leaf like ``x``: zeros, positions −1."""
+    import torch
+    return torch.full_like(x, 0 if x.dtype.is_floating_point else -1)
+
+
 def place(tree, specs, mesh, cfg=None):
     """The calling rank's local slice of every leaf of ``tree`` (full
     tensors) under ``specs`` (a matching tree of spec tuples; ``cfg``
     adds the whole-heads rule): each slice a contiguous tensor of its
     own. A leaf whose slice is all of it (no spec, or axes of one rank)
-    is kept as it is, not copied."""
+    is kept as it is, not copied. A cache leaf whose slot dim stays
+    whole on a slot axis of several ranks is kept by the axis's rank 0;
+    the other ranks take an empty copy (``common.sharding.slot_range``)."""
     def cut(path, x, spec):
         ps = _leaf_spec(cfg, mesh, path, x, spec)
         if ps is None:
             return x
+        whole = _whole_slots(mesh, path, x, tuple(spec), ps)
+        if whole is not None and _coord(mesh, whole)[0] != 0:
+            x = _empty_like(x)
         sl = local_slices(mesh, ps, tuple(x.shape))
         if all(s.stop - s.start == n for s, n in zip(sl, x.shape)):
             return x                 # the whole leaf (axes of one rank)
@@ -321,9 +356,10 @@ def _none_like(tree):
 def gather(tree, specs, mesh, like, cfg=None):
     """The inverse of ``place``: every rank's slices gathered into the
     full tensors on every rank (``all_gather`` over each split dim's
-    axes; a leaf that is whole on the rank is returned as it is). ``like``
-    (``full_shapes`` of the full tree) gives the shapes the placement
-    was resolved against."""
+    axes; a leaf that is whole on the rank is returned as it is, a cache
+    leaf whose slot dim stays whole is the slot axis's rank 0's,
+    broadcast). ``like`` (``full_shapes`` of the full tree) gives the
+    shapes the placement was resolved against."""
     import torch
     import torch.distributed as dist
 
@@ -334,6 +370,14 @@ def gather(tree, specs, mesh, like, cfg=None):
         key_path = tuple(k for k in path if isinstance(k, str))
         ps = placement_spec(cfg, mesh, key_path, tuple(spec), shape)
         out = x
+        whole = _whole_slots(mesh, path, x, tuple(spec), ps)
+        if whole is not None:
+            # a whole slot dim lies on the axis's rank 0
+            for a in ((whole,) if isinstance(whole, str) else whole):
+                group = mesh.get_group(a)
+                out = out.contiguous().clone()
+                dist.broadcast(out, dist.get_global_rank(group, 0),
+                               group=group)
         for d, axes in enumerate(ps):
             if axes is None:
                 continue
@@ -383,3 +427,73 @@ def leaf_shards(cfg, mesh, rules: Optional[dict] = None):
         sl = local_slices(mesh, ps, tuple(x.shape))[d]
         out.append(LeafShard(tuple(x.shape), d, sl.start, sl.stop - sl.start))
     return out
+
+
+def _on_mesh(mesh, spec: tuple) -> tuple:
+    """``spec`` with every entry naming an axis the mesh lacks dropped."""
+    names = axis_names(mesh)
+
+    def keep(axes):
+        if axes is None:
+            return None
+        parts = (axes,) if isinstance(axes, str) else tuple(axes)
+        return axes if all(a in names for a in parts) else None
+    return tuple(keep(a) for a in spec)
+
+
+def local_cache_shapes(cfg, batch: int, max_len: int):
+    """(the decode cache of a global ``batch`` and ``max_len`` on
+    ``meta``, each leaf's shape on the calling rank) under the installed
+    rules and mesh: ``cache_partition_specs`` with the rules' batch and
+    ``"kv_slots"`` axes, placed as ``place`` places it. ``None`` without
+    rules or a mesh."""
+    from repro_torch.common.sharding import get_mesh, get_rules, set_mesh
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models.model import cache_specs
+    rules, mesh = get_rules(), get_mesh()
+    if not rules or mesh is None:
+        return None
+    shape = ShapeConfig("cache", max_len, batch, "decode")
+    with set_mesh(None):
+        full = cache_specs(cfg, shape)
+        specs = cache_partition_specs(cfg, shape, rules.get("batch"),
+                                      slots_axis=rules.get("kv_slots"))
+
+    def local(path, x, spec):
+        ps = placement_spec(None, mesh, (), _on_mesh(mesh, tuple(spec)),
+                            tuple(x.shape))
+        return tuple(sl.stop - sl.start
+                     for sl in local_slices(mesh, ps, tuple(x.shape)))
+    return full, _rebuild(full, local, specs)
+
+
+class AgentPlanes(NamedTuple):
+    """The placer of a group's stacked serving planes on a ``(pod,
+    "agent")`` mesh, by ``group_plane_partition_specs``: dim 0 over the
+    agent axes, so the calling rank keeps the rows of its block of the
+    ``n_agents`` agents (``sharded_ddal.AgentShard``: pod-major, the
+    trainer's placement). Planes of ``n_agents`` rows are cut to the
+    rank's block (views); planes already of the block's rows (an
+    agent-sharded trainer's ``state.params``) are taken as they are, so
+    a publish from such a trainer is a handoff: no plane crosses
+    ranks."""
+    n_agents: int
+    first: int
+    block: int
+
+    @classmethod
+    def on(cls, mesh, n_agents: int, pod_axis: str = "pod"):
+        from repro_torch.core.sharded_ddal import agent_shard
+        shard = agent_shard(mesh, n_agents, pod_axis)
+        return cls(n_agents, shard.rows.start, shard.block)
+
+    def __call__(self, planes):
+        def rows(x):
+            if x.shape[0] == self.block:
+                return x
+            if x.shape[0] == self.n_agents:
+                return x[self.first:self.first + self.block]
+            raise ValueError(
+                f"a plane of {x.shape[0]} agents: expected the group's "
+                f"{self.n_agents} or the rank's block of {self.block}")
+        return tree_map(rows, planes)

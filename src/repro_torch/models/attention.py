@@ -14,6 +14,21 @@ the split work through ``copy_to_model`` and the rank takes the heads
 its query heads need (the kv heads they read; with whole query heads,
 the output columns that meet its rows of ``wo``).
 
+With a KV cache under ``serve_rules`` the cache's slot dim lies over
+the ``"kv_slots"`` axis (the reference's flash-decoding layout: kv head
+counts rarely divide the mesh): each rank holds its contiguous block of
+every layer's slots, every kv head
+(``repro_torch.common.sharding.slot_range``). The split projections'
+queries and new keys and values are all-gathered over the axis, each
+rank writes the slots it holds and attends every query head over them
+(a row max, a row sum and an unnormalised P·V in fp32), and the ranks'
+parts meet in a log-sum-exp combine: an all-reduce (max) of the (B, H,
+S) maxima, then one all-reduce (sum) of the sums and numerators. The
+rank's heads of the result then meet its rows of ``wo``. A layer's
+collectives carry O(B·S·H·D) numbers whatever the cache's length. MLA
+splits its query and up-projections by head and sweeps its latent cache
+the same way (:func:`mla_attention`).
+
 Decode-time KV caches are functional values, as in the reference:
 :func:`self_attention` returns a new layer cache and leaves the one it
 was given as it was. Cache slots carry their absolute position
@@ -27,14 +42,16 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.sharding import count, slot_range
 from repro_torch.configs.base import DTYPES
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.common import (MODEL_AXIS_LATER, causal_mask_bias,
-                                       copy_to_model, dense_init, per_row,
-                                       recorded, reduce_from_model,
-                                       refuse_pallas, rms_norm,
-                                       softmax_attention, split_axis)
+from repro_torch.models.common import (causal_mask_bias, copy_to_model,
+                                       dense_init, gather_from_model,
+                                       model_axis, per_row, recorded,
+                                       reduce_from_model, refuse_pallas,
+                                       rms_norm, softmax_attention,
+                                       split_axis)
 
 
 def init_self_attention(cfg, gen: torch.Generator, device=None) -> dict:
@@ -140,29 +157,99 @@ def make_mla_cache(cfg, batch: int, max_len: int, n_layers: int,
     }
 
 
-def _write_slots(buf: torch.Tensor, new: torch.Tensor,
-                 slot_idx: torch.Tensor,
-                 drop_past: bool = False) -> torch.Tensor:
-    """A copy of ``buf`` (B, Smax, ...) with the per-batch rows ``new``
-    (B, T, ...) scattered into slots ``slot_idx`` (B, T). Slots must lie
-    in [0, Smax): the reference drops writes beyond the cache silently,
-    torch indexing does not, so callers check first
+def _write_slots(layer_cache: dict, new: dict, slot_idx: torch.Tensor,
+                 drop_past: bool = False,
+                 start: Optional[int] = None) -> dict:
+    """A copy of the layer cache's leaves named in ``new`` (each (B, Smax,
+    ...)) with the per-batch rows ``new[name]`` (B, T, ...) scattered
+    into slots ``slot_idx`` (B, T), the index worked out once for them
+    all. Slots must lie in [0, Smax): the reference drops writes beyond
+    the cache silently, torch indexing does not, so callers check first
     (``transformer_forward``). With ``drop_past`` the writes at slots
     past the cache are dropped, as the reference's are: they go to one
-    spare row past the copy, which is cut off."""
+    spare row past the copy, which is cut off. ``start`` (a rank's block
+    of a cache split over the slot axis): global slot s goes to local
+    slot s − start, and the writes to the slots other ranks hold are
+    dropped the same way."""
     B, T = slot_idx.shape
-    if not drop_past:
-        bidx = torch.arange(B, device=buf.device)[:, None].expand(B, T)
-        out = buf.clone()
-        out[bidx, slot_idx.long()] = new.to(buf.dtype)
-        return out
-    smax, rest = buf.shape[1], tuple(buf.shape[2:])
-    flat = buf.new_empty((B * smax + 1,) + rest)
-    flat[:-1] = buf.reshape((B * smax,) + rest)
     s = slot_idx.long()
-    rows = torch.arange(B, device=buf.device)[:, None] * smax + s
-    flat[torch.where(s < smax, rows, B * smax)] = new.to(buf.dtype)
-    return flat[:-1].view(buf.shape)
+    smax = layer_cache["pos"].shape[1]
+    dev = slot_idx.device
+    if not drop_past and start is None:
+        bidx = torch.arange(B, device=dev)[:, None].expand(B, T)
+
+        def put(buf, x):
+            out = buf.clone()
+            out[bidx, s] = x.to(buf.dtype)
+            return out
+    else:
+        keep = s < smax
+        if start is not None:
+            s = s - start
+            keep = (s >= 0) & (s < smax)
+        rows = torch.where(keep, torch.arange(B, device=dev)[:, None] * smax
+                           + s, B * smax)
+
+        def put(buf, x):
+            rest = tuple(buf.shape[2:])
+            flat = buf.new_empty((B * smax + 1,) + rest)
+            flat[:-1] = buf.reshape((B * smax,) + rest)
+            flat[rows] = x.to(buf.dtype)
+            return flat[:-1].view(buf.shape)
+    return {name: put(layer_cache[name], x) for name, x in new.items()}
+
+
+def _slot_start(layer_cache: dict, key: str, sw) -> Optional[int]:
+    """The global slot of the rank's first local slot on the slot axis
+    ``sw`` (``None``: no axis): r·T_r for T_r local slots
+    (``slot_range`` of m·T_r). A whole cache (slots not dividing the
+    axis) thus lies on rank 0: every other rank's block starts past it.
+    (A MoE prefill's writes past such a cache, positions T .. m·T − 1,
+    land in those empty copies, where the causal mask hides them from
+    every position below T.)"""
+    if sw is None:
+        return None
+    return slot_range(layer_cache[key].shape[-1] * sw.size, sw)[0]
+
+
+def _sweep(scores: torch.Tensor, values: torch.Tensor, eq: str,
+           sw) -> torch.Tensor:
+    """Softmax attention over every rank's slots of the slot axis ``sw``:
+    ``scores`` (B, H, S, T_r) fp32 over the rank's slots, the mask
+    added; ``values`` as ``eq`` reads them against the probabilities.
+    M, the ranks' largest score per (b, h, q), is all-reduced (max);
+    then Σ exp(s − M) (B, H, S) and the numerator Σ exp(s − M)·v (B, S,
+    H, Dv) go through one all-reduce (sum). Returns the numerator over
+    the sum (fp32). A rank whose slots a row may not see adds exp(−1e30
+    − M) = 0."""
+    import torch.distributed as dist
+    top = scores.detach().amax(dim=-1)
+    count("kv_max")
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=sw.group)
+    p = torch.exp(scores - top[..., None])
+    den = p.sum(dim=-1)
+    num = torch.einsum(eq, p, values)
+    both = reduce_from_model(torch.cat([den.reshape(-1), num.reshape(-1)]),
+                             sw, "kv_sum")
+    den = both[:den.numel()].view(den.shape)
+    num = both[den.numel():].view(num.shape)
+    return num / den.transpose(1, 2)[..., None]
+
+
+def _weight(p: dict, name: str, split: bool, tp) -> torch.Tensor:
+    """``p[name]``: the rank's slice where it is ``split``; a weight
+    placed whole enters the split work of the model axis ``tp`` through
+    ``copy_to_model`` (its gradient all-reduced)."""
+    w = p[name]
+    return w if split or tp is None else copy_to_model(w, tp)
+
+
+def _gather_heads(t: torch.Tensor, ax, site: str) -> torch.Tensor:
+    """(..., n, d) per-head values of the rank's n heads → (..., m·n, d)
+    of every head, in head order (the ranks hold contiguous heads)."""
+    lead, (n, d) = t.shape[:-2], t.shape[-2:]
+    full = gather_from_model(t.reshape(lead + (n * d,)), ax, site)
+    return full.reshape(lead + (-1, d))
 
 
 def _slots_for(cfg, positions: torch.Tensor) -> torch.Tensor:
@@ -200,21 +287,14 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     past the cache instead of requiring that none be made (the hybrid's
     right-padded prefill, whose pads past ``max_len`` still run on).
     On a model axis a cache-free pass runs the rank's heads and returns
-    the all-reduced output (module docstring); with a cache an axis of
-    more than one rank raises ``NotPortedError``.
+    the all-reduced output; with a cache under ``serve_rules`` the rank
+    writes and sweeps the slots it holds (module docstring).
     """
     B, S, _ = x.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.dtype("compute")
     tp = split_axis(cfg, "heads", H * D)
-    if tp is not None and layer_cache is not None:
-        if tp.size > 1:
-            from repro_torch.configs.base import NotPortedError
-            raise NotPortedError(
-                f"attention with a KV cache on a model axis of {tp.size} "
-                f"ranks (serving under serve_rules) waits for "
-                f"{MODEL_AXIS_LATER}")
-        tp = None
+    sw = None if layer_cache is None else model_axis(cfg, "kv_slots")
     # the rank's query heads h0 .. h0 + n_q − 1 (all of them on one
     # device, or where wq is placed whole)
     q_split = kv_split = True
@@ -227,8 +307,7 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         x = copy_to_model(x, tp)
 
     def weight(name, split):
-        w = p[name]
-        return w if split or tp is None else copy_to_model(w, tp)
+        return _weight(p, name, split, tp)
     xq = x @ weight("wq", q_split).to(cdt)
     xk = x @ weight("wk", kv_split).to(cdt)
     xv = x @ weight("wv", kv_split).to(cdt)
@@ -236,7 +315,22 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
         xq = xq + per_row(weight("bq", q_split), xq).to(cdt)
         xk = xk + per_row(weight("bk", kv_split), xk).to(cdt)
         xv = xv + per_row(weight("bv", kv_split), xv).to(cdt)
-    if not kv_split:
+    if tp is not None and layer_cache is not None:
+        # a cache holds every kv head and the sweep runs every query
+        # head: the split projections are all-gathered, in one call
+        split = [t for t, ok in ((xq, q_split), (xk, kv_split),
+                                 (xv, kv_split)) if ok]
+        if split:
+            widths = [t.shape[-1] for t in split]
+            full = gather_from_model(torch.cat(split, dim=-1), tp,
+                                     "qkv_gather")
+            parts = full.unflatten(-1, (m, sum(widths))).split(widths, -1)
+            parts = iter(t.flatten(-2) for t in parts)
+            if q_split:
+                xq, n_q, h0 = next(parts), H, 0
+            if kv_split:
+                xk, xv = next(parts), next(parts)
+    elif not kv_split:
         # the whole projection: keep the kv heads the rank's query heads
         # read
         first, n, ids = _kv_heads_of(h0, n_q, H // K)
@@ -262,21 +356,46 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
             q, k, v, window=cfg.sliding_window, scale=scale)
     else:
         slots = _slots_for(cfg, flat_pos)
-        kc = _write_slots(layer_cache["k"], k, slots, drop_past)
-        vc = _write_slots(layer_cache["v"], v, slots, drop_past)
-        pc = _write_slots(layer_cache["pos"], flat_pos, slots, drop_past)
-        new_cache = {"k": kc, "v": vc, "pos": pc}
+        start = _slot_start(layer_cache, "pos", sw)
+        new_cache = _write_slots(layer_cache,
+                                 {"k": k, "v": v, "pos": flat_pos}, slots,
+                                 drop_past, start)
+        kc, vc, pc = new_cache["k"], new_cache["v"], new_cache["pos"]
         bias = causal_mask_bias(flat_pos, pc, cfg.sliding_window, pc >= 0)
-        out = softmax_attention(q, kc, vc, bias, scale,
-                                DTYPES[cfg.attention_scores_dtype])
+        sdt = DTYPES[cfg.attention_scores_dtype]
+        if sw is None:
+            out = softmax_attention(q, kc, vc, bias, scale, sdt)
+        else:
+            out = _slot_attention(q, kc, vc, bias, scale, sdt, sw)
     out = out.reshape(B, S, n_q * D)
     if tp is None:
         return out @ p["wo"].to(cdt), new_cache
-    if not q_split:
-        # whole query heads: the columns that meet the rank's rows of wo
+    if n_q == H:
+        # every query head: the columns that meet the rank's rows of wo
         width = H * D // m
         out = out[..., r * width:(r + 1) * width]
-    return reduce_from_model(out @ p["wo"].to(cdt), tp, "attn_out"), None
+    return (reduce_from_model(out @ p["wo"].to(cdt), tp, "attn_out"),
+            new_cache)
+
+
+def _slot_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, scale: float,
+                    scores_dtype: torch.dtype, sw) -> torch.Tensor:
+    """``softmax_attention``'s scores (GQA heads gathered onto the query
+    heads, the scores and mask in ``scores_dtype``) over the rank's
+    slots, combined over the slot axis ``sw`` by :func:`_sweep` in fp32;
+    cast to q's dtype."""
+    H, K = q.shape[2], k.shape[2]
+    if H != K:
+        idx = torch.arange(H, device=k.device) // (H // K)
+        k = k.index_select(2, idx)
+        v = v.index_select(2, idx)
+    sdt = scores_dtype
+    scores = torch.einsum("bqhd,bshd->bhqs", q.to(sdt), k.to(sdt))
+    scores = scores * torch.tensor(scale, dtype=sdt) + bias.to(sdt)
+    out = _sweep(scores.to(torch.float32),
+                 v.to(sdt).to(torch.float32), "bhqs,bshd->bqhd", sw)
+    return out.to(q.dtype)
 
 
 def _kv_heads_of(h0: int, n_q: int, group: int):
@@ -350,59 +469,115 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     round differently in bf16, so the condition is the reference's.
     Neither reaches the flash kernel (Dk = dn + dr differs from Dv).
     ``drop_past`` drops the cache writes at slots past the cache, as
-    :func:`self_attention`'s."""
-    m = cfg.mla
+    :func:`self_attention`'s.
+
+    On the model axis ``wq``, ``w_uk`` and ``w_uv`` hold the rank's heads
+    (whole where the heads do not divide the axis) and ``wo`` its rows;
+    ``w_dkv`` and ``ln_ckv`` stay replicated, so each rank computes the
+    latent and the rotary key whole. Both branches run the rank's heads.
+    With a cache under ``serve_rules`` the latent cache's slots lie over
+    the ``"kv_slots"`` axis: the absorbed branch all-gathers the rank's
+    heads' ``q_lat`` and rotary queries, scores every head against the
+    slots it holds and combines over the axis (the module docstring's
+    sweep), then takes its heads' context through ``w_uv``; the
+    expanded branch, which needs every head's keys, all-gathers the
+    split ``w_uk`` / ``w_uv`` as well. The branch condition reads the
+    cache's width as its local slots times the axis size, the global
+    width of a split cache."""
+    mc = cfg.mla
     B, S, _ = x.shape
-    H, r = cfg.n_heads, m.kv_lora_rank
-    dn, dr, dv = m.qk_nope_dim, m.qk_rope_dim, m.v_dim
+    H, r = cfg.n_heads, mc.kv_lora_rank
+    dn, dr, dv = mc.qk_nope_dim, mc.qk_rope_dim, mc.v_dim
     cdt = cfg.dtype("compute")
     f32 = torch.float32
+    tp = split_axis(cfg, "heads", H * dv)
+    sw = None if layer_cache is None else model_axis(cfg, "kv_slots")
+    split, n_h, h0 = False, H, 0
+    if tp is not None:
+        split = H % tp.size == 0
+        if split:
+            n_h, h0 = H // tp.size, tp.rank * (H // tp.size)
+        x = copy_to_model(x, tp)
 
-    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, dn + dr)
+    def weight(name, split):
+        return _weight(p, name, split, tp)
+
+    q = (x @ weight("wq", split).to(cdt)).reshape(B, S, n_h, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = rope_lib.rope(q_rope, positions, cfg.rope_theta)
 
-    dkv = x @ p["w_dkv"].to(cdt)
-    ckv = rms_norm(dkv[..., :r], p["ln_ckv"], cfg.norm_eps)
+    dkv = x @ weight("w_dkv", False).to(cdt)
+    ckv = rms_norm(dkv[..., :r], weight("ln_ckv", False), cfg.norm_eps)
     k_rope = dkv[..., r:][:, :, None, :]                  # 1 shared head
     k_rope = rope_lib.rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
 
     new_cache = layer_cache
     if layer_cache is not None:
         slots = _slots_for(cfg, positions)
-        ckv_all = _write_slots(layer_cache["ckv"], ckv, slots, drop_past)
-        k_rope_all = _write_slots(layer_cache["k_rope"], k_rope, slots,
-                                  drop_past)
-        k_pos = _write_slots(layer_cache["pos"], positions, slots, drop_past)
-        new_cache = {"ckv": ckv_all, "k_rope": k_rope_all, "pos": k_pos}
+        start = _slot_start(layer_cache, "pos", sw)
+        new_cache = _write_slots(
+            layer_cache, {"ckv": ckv, "k_rope": k_rope, "pos": positions},
+            slots, drop_past, start)
+        ckv_all, k_rope_all, k_pos = (new_cache["ckv"], new_cache["k_rope"],
+                                      new_cache["pos"])
         k_valid = k_pos >= 0
     else:
         ckv_all, k_rope_all, k_pos, k_valid = ckv, k_rope, positions, None
 
     T = ckv_all.shape[1]
+    width = T if sw is None else T * sw.size
     bias = causal_mask_bias(positions, k_pos, cfg.sliding_window, k_valid)
     scale = 1.0 / ((dn + dr) ** 0.5)
-    per_slot = p["w_uk"].ndim == 3
-    b = "b" if per_slot else ""
+    wuk = weight("w_uk", split)
+    wuv = weight("w_uv", split)
+    b = "b" if wuk.ndim == 3 else ""
 
-    if cfg.mla_absorb and layer_cache is not None and S < T:
-        wuk = _heads(p["w_uk"].to(cdt), r, H, dn)
-        q_lat = torch.einsum(f"bqhd,{b}rhd->bqhr", q_nope, wuk)
-        s_nope = torch.einsum("bqhr,btr->bhqt", q_lat.to(f32),
-                              ckv_all.to(f32))
-        s_rope = torch.einsum("bqhd,btd->bhqt", q_rope.to(f32),
-                              k_rope_all.to(f32))
-        scores = (s_nope + s_rope) * scale + bias
-        probs = torch.softmax(scores, dim=-1)
-        ctx = torch.einsum("bhqt,btr->bqhr", probs, ckv_all.to(f32))
-        wuv = _heads(p["w_uv"].to(cdt), r, H, dv)
-        out = torch.einsum(f"bqhr,{b}rhv->bqhv", ctx.to(cdt), wuv)
+    if cfg.mla_absorb and layer_cache is not None and S < width:
+        q_lat = torch.einsum(f"bqhd,{b}rhd->bqhr", q_nope,
+                             _heads(wuk.to(cdt), r, n_h, dn))
+        if sw is None:
+            s_nope = torch.einsum("bqhr,btr->bhqt", q_lat.to(f32),
+                                  ckv_all.to(f32))
+            s_rope = torch.einsum("bqhd,btd->bhqt", q_rope.to(f32),
+                                  k_rope_all.to(f32))
+            probs = torch.softmax((s_nope + s_rope) * scale + bias, dim=-1)
+            ctx = torch.einsum("bhqt,btr->bqhr", probs, ckv_all.to(f32))
+        else:
+            if split:
+                q_lat, q_rope = _gather_heads(
+                    torch.cat([q_lat, q_rope], dim=-1), tp,
+                    "q_gather").split([r, dr], dim=-1)
+            s_nope = torch.einsum("bqhr,btr->bhqt", q_lat.to(f32),
+                                  ckv_all.to(f32))
+            s_rope = torch.einsum("bqhd,btd->bhqt", q_rope.to(f32),
+                                  k_rope_all.to(f32))
+            ctx = _sweep((s_nope + s_rope) * scale + bias, ckv_all.to(f32),
+                         "bhqt,btr->bqhr", sw)[:, :, h0:h0 + n_h]
+        out = torch.einsum(f"bqhr,{b}rhv->bqhv", ctx.to(cdt),
+                           _heads(wuv.to(cdt), r, n_h, dv))
     else:
-        k_nope = (ckv_all @ p["w_uk"].to(cdt)).reshape(B, T, H, dn)
-        vv = (ckv_all @ p["w_uv"].to(cdt)).reshape(B, T, H, dv)
-        k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
-            B, T, H, dr)], dim=-1)
+        sdt = DTYPES[cfg.attention_scores_dtype]
         qfull = torch.cat([q_nope, q_rope], dim=-1)
-        out = softmax_attention(qfull, k, vv, bias, scale,
-                                DTYPES[cfg.attention_scores_dtype])
-    return out.reshape(B, S, H * dv) @ p["wo"].to(cdt), new_cache
+        if sw is not None and split:
+            qfull = _gather_heads(qfull, tp, "q_gather")
+            wuk = gather_from_model(wuk, tp, "w_gather")
+            wuv = gather_from_model(wuv, tp, "w_gather")
+        n = qfull.shape[2]
+        k_nope = (ckv_all @ wuk.to(cdt)).reshape(B, T, n, dn)
+        vv = (ckv_all @ wuv.to(cdt)).reshape(B, T, n, dv)
+        k = torch.cat([k_nope, k_rope_all[:, :, None, :].expand(
+            B, T, n, dr)], dim=-1)
+        if sw is None:
+            out = softmax_attention(qfull, k, vv, bias, scale, sdt)
+        else:
+            out = _slot_attention(qfull, k, vv, bias, scale, sdt, sw)
+    n = out.shape[2]
+    out = out.reshape(B, S, n * dv)
+    if tp is None:
+        return out @ p["wo"].to(cdt), new_cache
+    if n == H:
+        # every head: the columns that meet the rank's rows of wo
+        cols = H * dv // tp.size
+        out = out[..., tp.rank * cols:(tp.rank + 1) * cols]
+    return (reduce_from_model(out @ p["wo"].to(cdt), tp, "attn_out"),
+            new_cache)

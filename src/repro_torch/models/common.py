@@ -19,11 +19,12 @@ the model axis backward) where a replicated tensor enters, and
 the ranks' partial sums leave. (``torch.distributed.nn``'s all-reduce
 all-reduces the gradient too, which would multiply a replicated loss's
 gradient by the axis size.) ``model_axis`` gives a layer its axis, or
-``None`` to run the one-device form; the ssm, hybrid, MLA, VLM and
-audio families refuse an axis of more than one rank. The embedding
-lookup and ``cross_entropy`` are vocab-parallel (``vocab=``), and
-``cross_entropy`` sums its tokens and their count over the data axis,
-so every data rank's loss is the global batch's mean.
+``None`` to run the one-device form; the ssm, hybrid, VLM and audio
+families refuse an axis of more than one rank. The embedding lookup and
+``cross_entropy`` are vocab-parallel (``vocab=``), and ``cross_entropy``
+sums its tokens and their count over the data axis, so every data
+rank's loss is the global batch's mean; ``gather_from_model`` puts the
+full logits together for scoring and serving.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.common.pytree import pick_rows
 from repro_torch.common.sharding import AxisGroup, count, mesh_axis
 
 #: where the refused model-axis work is queued
@@ -40,19 +42,17 @@ MODEL_AXIS_LATER = "Slice E part 3"
 
 def splits_over_model(cfg, size: int) -> bool:
     """Whether ``cfg``'s layers split over a model axis of ``size``
-    ranks: the dense and MoE transformers with GQA attention (not MLA)
-    do; every other family runs its one-device form on one rank and
-    refuses more than one with ``NotPortedError``."""
-    if cfg.family in ("dense", "moe") and cfg.mla is None:
+    ranks: the dense and MoE transformers (GQA or MLA attention) do;
+    every other family runs its one-device form on one rank and refuses
+    more than one with ``NotPortedError``."""
+    if cfg.family in ("dense", "moe"):
         return True
     if size > 1:
         from repro_torch.configs.base import NotPortedError
         raise NotPortedError(
             f"{cfg.name}: a model axis of {size} ranks (tensor "
-            f"parallelism) is ported for the dense and MoE families "
-            f"with GQA attention; the {cfg.family} family"
-            f"{' with MLA' if cfg.mla is not None else ''} waits for "
-            f"{MODEL_AXIS_LATER}")
+            f"parallelism) is ported for the dense and MoE families; "
+            f"the {cfg.family} family waits for {MODEL_AXIS_LATER}")
     return False
 
 
@@ -114,6 +114,32 @@ def reduce_from_model(x: torch.Tensor, ax: AxisGroup,
     return _ReduceFromModel.apply(x, ax.group)
 
 
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        import torch.distributed as dist
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.width
+        return g[..., lo:lo + ctx.width], None, None, None
+
+
+def gather_from_model(x: torch.Tensor, ax: AxisGroup,
+                      site: str) -> torch.Tensor:
+    """The ranks' column blocks of the last dim put together in rank
+    order (an all-gather over ``ax`` forward, counted under ``site``;
+    the rank's block of the gradient backward): the full logits of a
+    vocab-parallel head."""
+    count(site)
+    return _GatherFromModel.apply(x, ax.group, ax.size, ax.rank)
+
+
 def vocab_split(cfg) -> Optional[AxisGroup]:
     """The model axis the vocabulary rows of ``embed`` / columns of
     ``lm_head`` split over, or ``None``."""
@@ -157,7 +183,8 @@ def _rows(table: torch.Tensor, tokens: torch.Tensor,
     # the order threads get to them on the CPU)
     if agents is None:
         return torch.nn.functional.embedding(tokens.long(), table)
-    return table[agents[:, None], tokens.long()]
+    return pick_rows(table, agents,
+                     lambda t, a: t[a[:, None], tokens.long()])
 
 
 def _split_rows(table: torch.Tensor, tokens: torch.Tensor,
@@ -209,8 +236,8 @@ def head_weight(cfg, params: dict,
     if agents is None:
         return params["embed"].T if tied else params["lm_head"]
     if tied:
-        return params["embed"][agents].transpose(-1, -2)
-    return params["lm_head"][agents]
+        return pick_rows(params["embed"], agents).transpose(-1, -2)
+    return pick_rows(params["lm_head"], agents)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -24,8 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
-                                       stack_layers, tree_map,
+from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
+                                       slot_layer, stack_layers, tree_map,
                                        unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (cross_entropy, dense_init,
@@ -195,7 +195,7 @@ def hybrid_forward(cfg, params: dict, batch: dict,
 
     norm, head = params["final_norm"], params["lm_head"]
     if agents is not None:
-        norm, head = norm[agents], head[agents]
+        norm, head = pick_rows(norm, agents), pick_rows(head, agents)
     x = rms_norm(x, norm, cfg.norm_eps)
     logits = x @ head.to(cdt)
     new_cache = None

@@ -143,9 +143,12 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
 
 
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig) -> Any:
-    """The decode cache of ``shape`` on ``meta``."""
-    return get_model(cfg).make_cache(cfg, shape.global_batch, shape.seq_len,
-                                     device="meta")
+    """The decode cache of ``shape`` on ``meta``, at its global shapes
+    whatever mesh is installed."""
+    from repro_torch.common.sharding import set_mesh
+    with set_mesh(None):
+        return get_model(cfg).make_cache(cfg, shape.global_batch,
+                                         shape.seq_len, device="meta")
 
 
 def param_specs(cfg: ArchConfig) -> Any:

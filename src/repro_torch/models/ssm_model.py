@@ -14,8 +14,9 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
-                                       stack_layers, unstack_layers)
+from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
+                                       slot_layer, stack_layers,
+                                       unstack_layers)
 from repro_torch.models.common import (cross_entropy, dense_init,
                                        embed_init, embed_rows, head_weight,
                                        rms_norm)
@@ -47,7 +48,7 @@ def init_ssm_model(cfg, gen: torch.Generator, device=None) -> dict:
 def _head(cfg, params: dict, x: torch.Tensor,
           agents: Optional[torch.Tensor] = None) -> torch.Tensor:
     norm = (params["final_norm"] if agents is None
-            else params["final_norm"][agents])
+            else pick_rows(params["final_norm"], agents))
     x = rms_norm(x, norm, cfg.norm_eps)
     return x @ head_weight(cfg, params, agents).to(cfg.dtype("compute"))
 

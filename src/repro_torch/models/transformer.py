@@ -29,12 +29,14 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import (init_stacked, layer, slot_layer,
-                                       stack_layers, unstack_layers)
+from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
+                                       slot_layer, stack_layers, tree_map,
+                                       unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (copy_to_model, cross_entropy,
                                        dense_init, embed_init, embed_rows,
-                                       head_weight, rms_norm,
+                                       gather_from_model, head_weight,
+                                       model_axis, rms_norm,
                                        sinusoidal_positions, split_axis,
                                        vocab_split)
 from repro_torch.models.mlp import gelu_mlp, init_gelu_mlp, init_swiglu, swiglu
@@ -209,7 +211,7 @@ def _run_layers(cfg, params: dict, batch: dict, cache: Optional[dict],
             aux_sum = aux_sum + aux
         new_caches.append(lc)
     final_norm = (params["final_norm"] if agents is None
-                  else params["final_norm"][agents])
+                  else pick_rows(params["final_norm"], agents))
     x = rms_norm(x, final_norm, cfg.norm_eps)
     if cache is not None:
         new_cache["layers"] = stack_layers(new_caches)
@@ -232,16 +234,22 @@ def transformer_forward(cfg, params: dict, batch: dict,
     writes past the cache, as the reference does: its experts'
     capacity depends on that width, so cutting it would route
     differently. Its caller checks that the real tokens fit
-    (``api.prefill``)."""
+    (``api.prefill``).
+
+    On a model axis the logits are the full rows on every rank: each
+    rank's vocabulary columns all-gathered (``gather_from_model``). A
+    cache there is the rank's slice (``make_transformer_cache``), and the
+    fit is checked against its slots times the slot axis's size."""
     logits, aux, new_cache, vocab = _forward(cfg, params, batch, cache)
-    if vocab is not None and vocab.size > 1:
-        from repro_torch.configs.base import NotPortedError
-        raise NotPortedError(
-            f"the full logits on a model axis of {vocab.size} ranks "
-            f"(scoring and serving under a mesh) wait for Slice E part 3; "
-            f"the loss (transformer_loss) reads each rank's vocabulary "
-            f"columns")
-    return logits, aux, new_cache
+    return _full_logits(logits, vocab), aux, new_cache
+
+
+def _full_logits(logits: torch.Tensor, vocab) -> torch.Tensor:
+    """The full rows of logits the rank holds the ``vocab`` columns of
+    (``None``: as they are)."""
+    if vocab is None:
+        return logits
+    return gather_from_model(logits, vocab, "logits")
 
 
 def _forward(cfg, params: dict, batch: dict, cache: Optional[dict]):
@@ -249,8 +257,10 @@ def _forward(cfg, params: dict, batch: dict, cache: Optional[dict]):
     (logits, aux, new cache, the vocab's model axis or None)."""
     drop_past = cfg.moe is not None
     if cache is not None and not drop_past:
+        sw = model_axis(cfg, "kv_slots")
         check_fits(cfg, batch["positions"].shape[-1] - 1,
-                   cache["layers"]["kv"]["pos"].shape[-1])
+                   cache["layers"]["kv"]["pos"].shape[-1]
+                   * (1 if sw is None else sw.size))
     x, aux, new_cache = _run_layers(cfg, params, batch, cache,
                                     drop_past=drop_past)
     vocab = vocab_split(cfg)
@@ -264,9 +274,13 @@ def transformer_decode(cfg, params: dict, batch: dict, cache: dict,
     here reads a value back from the card. With ``agents`` (B,) (long,
     on the planes' device), ``params`` are stacked planes (leaves (A,
     ...)) and row b runs under agent ``agents[b]``'s weights, gathered
-    one layer at a time (the transient is B copies of one layer)."""
+    one layer at a time (the transient is B copies of one layer). On a
+    model axis the logits are the full rows, as
+    :func:`transformer_forward`'s."""
     x, _, new_cache = _run_layers(cfg, params, batch, cache, agents)
-    return _lm_head(cfg, params, x, agents), new_cache
+    vocab = vocab_split(cfg) if agents is None else None
+    return (_full_logits(_lm_head(cfg, params, x, agents, vocab), vocab),
+            new_cache)
 
 
 def transformer_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
@@ -283,7 +297,22 @@ def make_transformer_cache(cfg, batch: int, max_len: int,
     """The stacked layers' KV (or MLA latent) cache, with the
     cross-attention's zero keys and values where the config has
     cross-attention, and, with a leading dense layer, ``layer0``'s of
-    depth 1."""
+    depth 1.
+
+    Under installed rules and a mesh (``serve_rules``) it is the calling
+    rank's slice of the cache of a global ``batch``: each leaf at the
+    shape ``repro_torch.launch.shardings.cache_partition_specs`` places
+    on the rank (its batch rows over the data axis where they divide,
+    its slots over ``"kv_slots"`` where they divide, every kv head), so
+    no rank allocates a layer's whole slot dim that splits
+    (``model.cache_specs`` gives the global shapes)."""
+    from repro_torch.launch.shardings import local_cache_shapes
+    local = local_cache_shapes(cfg, batch, max_len)
+    if local is not None:
+        dev = resolve_device(device)
+        return tree_map(lambda t, shape: torch.full(
+            shape, 0 if t.dtype.is_floating_point else -1, dtype=t.dtype,
+            device=dev), local[0], local[1])
     make = attn.make_mla_cache if cfg.mla is not None else attn.make_kv_cache
 
     def one(n):

@@ -25,7 +25,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.pytree import tree_map
-from repro_torch.configs.base import ArchConfig
+from repro_torch.common.sharding import mesh_axis, set_mesh
+from repro_torch.configs.base import TRANSFORMER_FAMILIES, ArchConfig
 from repro_torch.models import get_model
 from repro_torch.models.transformer import check_fits
 
@@ -121,11 +122,22 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
     whole (vision + text) sequence, so a VLM prompt's row lies
     ``vision_prefix`` rows before its last token's (ROADMAP §3: the
     reference's serving ignores the prefix offset). A VLM's cache must
-    hold P + ``vision_prefix`` positions."""
+    hold P + ``vision_prefix`` positions.
+
+    Under ``serve_rules`` and a ``(data, model)`` mesh (``axis_rules``,
+    ``set_mesh``) ``tokens`` and ``lengths`` are the rank's rows: the
+    global batch's share over the data axis where the rules split it,
+    every row where they replicate it. The cache is the rank's slice
+    (``make_transformer_cache``) and the logits the full rows, so the
+    row select and the sampler see what one device would; every rank of
+    a model group then draws the same greedy token."""
     B, P = tokens.shape[:2]
     if P > max_len and model.kv_pos is not None:
         check_fits(cfg, int(np.max(host_ints(lengths))) - 1, max_len)
-    cache = model.make_cache(cfg, B, max_len, device=tokens.device)
+    data = mesh_axis("batch")
+    n = B * (data.size if data is not None
+             and cfg.family in TRANSFORMER_FAMILIES else 1)
+    cache = model.make_cache(cfg, n, max_len, device=tokens.device)
     logits, cache = model.forward(cfg, params,
                                   build_prefill_batch(cfg, tokens), cache)
     if not torch.is_tensor(lengths):            # host ints
@@ -143,7 +155,10 @@ class Sampler:
     """Greedy (temperature ≤ 0) or temperature sampling over the last
     axis of (B, V) logits. Sampling draws from the explicit
     ``generator``; it gives the reference's distribution, not its
-    bits."""
+    bits. On a mesh every rank of a model group must draw the same
+    token: greedy does on the same logits, and temperature sampling
+    needs the same ``generator`` state on every model rank (seed each
+    rank's generator alike and draw on each)."""
     temperature: float = 0.0
 
     def __call__(self, logits: torch.Tensor,
@@ -199,8 +214,9 @@ def cache_batch_dims(cfg: ArchConfig, max_len: int) -> Any:
     Mamba2 states are (nb, mpb, B, ...), 2, and its KV cache and tail
     states 1."""
     model = get_model(cfg)
-    s1 = model.make_cache(cfg, 1, max_len, device="meta")
-    s2 = model.make_cache(cfg, 2, max_len, device="meta")
+    with set_mesh(None):                        # the global shapes
+        s1 = model.make_cache(cfg, 1, max_len, device="meta")
+        s2 = model.make_cache(cfg, 2, max_len, device="meta")
 
     def dim(a, b):
         for i, (x, y) in enumerate(zip(a.shape, b.shape)):

@@ -78,21 +78,29 @@ def device_of(tree) -> torch.device:
     return tree_leaves_with_paths(tree)[0][1].device
 
 
-def prefill_one(cfg: ArchConfig, model, params, prompt: Sequence[int],
-                prompt_pad: int, max_len: int, sampler: Sampler,
-                generator: Optional[torch.Generator]
-                ) -> Tuple[int, Any]:
+def prefill_logits(cfg: ArchConfig, model, params, prompt: Sequence[int],
+                   prompt_pad: int, max_len: int) -> Tuple[torch.Tensor, Any]:
     """B = 1 prefill of one prompt, right-padded to
-    :func:`prefill_width`, into a fresh 1-slot cache → (its first
-    sampled token, read back to the host, and the cache)."""
+    :func:`prefill_width`, into a fresh 1-slot cache → (its next-token
+    logits (1, V), the cache)."""
     n = len(prompt)
     toks = np.zeros((1, prefill_width(cfg, prompt_pad, n, max_len)),
                     np.int32)
     toks[0, :n] = prompt
     dev = device_of(params)
-    nl, one = prefill(cfg, model, params,
-                      torch.from_numpy(toks).to(dev, non_blocking=True),
-                      [n], max_len)
+    return prefill(cfg, model, params,
+                   torch.from_numpy(toks).to(dev, non_blocking=True),
+                   [n], max_len)
+
+
+def prefill_one(cfg: ArchConfig, model, params, prompt: Sequence[int],
+                prompt_pad: int, max_len: int, sampler: Sampler,
+                generator: Optional[torch.Generator]
+                ) -> Tuple[int, Any]:
+    """:func:`prefill_logits`, then its first token sampled and read back
+    to the host → (the token, the cache)."""
+    nl, one = prefill_logits(cfg, model, params, prompt, prompt_pad,
+                             max_len)
     return int(sampler(nl, generator)[0]), one
 
 

@@ -27,8 +27,20 @@ from its first prefill. The store checkpoints through
 the reference's keys, so a store saved by either package loads in the
 other.
 
-A ``mesh`` (the reference places planes over its agent axes) is not
-ported: the port runs on one card.
+On a ``(pod, "agent")`` mesh (``mesh=``, every rank of the process
+group running the same engine) the store places each publish by
+``group_plane_partition_specs``: a rank keeps its agents' rows of every
+plane (``repro_torch.launch.shardings.AgentPlanes``), the trainer's
+placement, so a publish from an agent-sharded trainer moves no plane.
+Every rank runs the same router and slots. An admission's B = 1 prefill
+runs on the rank that holds the request's agent, which broadcasts the
+next-token logits and the prompt's cache; each decode step takes every
+slot's layer rows from the rank that holds the slot's agent (an
+owner-masked all-reduce, one per gathered leaf:
+``common.pytree.pick_rows``). So every rank sees the same logits and
+draws the same tokens. A ``(data, model)`` mesh raises
+``NotPortedError``: the reference places group planes over its agent
+axes only.
 """
 from __future__ import annotations
 
@@ -41,11 +53,13 @@ import torch
 
 from repro_torch.checkpoint import npz
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_leaves_with_paths, tree_map
+from repro_torch.common.pytree import (agent_rows, tree_leaves_with_paths,
+                                       tree_map)
 from repro_torch.configs.base import ArchConfig, NotPortedError
 from repro_torch.models import get_model
 from repro_torch.serving.api import Sampler, ServeConfig, StopCriteria
-from repro_torch.serving.continuous import SlotBatch, device_of, prefill_one
+from repro_torch.serving.continuous import (SlotBatch, device_of,
+                                           prefill_logits, prefill_one)
 from repro_torch.serving.metrics import ServeMetrics
 
 
@@ -135,20 +149,25 @@ class ParamStore:
     The store keeps the live buffer and the previous one. ``acquire``
     returns ``(planes, version)`` of the live buffer. The planes given
     to the constructor or to ``publish`` are copied, unless
-    ``donate=True`` hands them over. (The reference's ``placer``, which
-    places planes over a device mesh, waits for Slice E part 3.)
+    ``donate=True`` hands them over. ``placer`` (the reference's: a
+    ``repro_torch.launch.shardings.AgentPlanes``) places each set of
+    planes before it is kept: on a pod mesh the rank's rows only;
+    ``n_agents`` stays the group's.
     """
 
-    def __init__(self, planes: Any, donate: bool = False):
+    def __init__(self, planes: Any, donate: bool = False, placer=None):
+        self._placer = placer
+        self._n_agents = (placer.n_agents if placer is not None else int(
+            tree_leaves_with_paths(planes)[0][1].shape[0]))
         planes = self._take(planes, donate)
         self._buf: List[Any] = [planes, planes]
         self._live = 0
         self._version = 0
 
-    @staticmethod
-    def _take(planes, donate: bool):
-        return planes if donate else tree_map(
-            lambda t: t.detach().clone(), planes)
+    def _take(self, planes, donate: bool):
+        placed = planes if self._placer is None else self._placer(planes)
+        return tree_map(lambda t, given: t if donate and t is given
+                        else t.detach().clone(), placed, planes)
 
     @property
     def version(self) -> int:
@@ -156,8 +175,7 @@ class ParamStore:
 
     @property
     def n_agents(self) -> int:
-        return int(tree_leaves_with_paths(self._buf[self._live])[0][1]
-                   .shape[0])
+        return self._n_agents
 
     def publish(self, planes: Any, donate: bool = False) -> int:
         """Install fresh planes (e.g. a trainer's post-exchange
@@ -178,20 +196,32 @@ class ParamStore:
 
     # -- checkpointing (repro_torch.checkpoint.npz) --------------------
     def save(self, path: str) -> None:
+        """Write the live planes and their version. With a placer the
+        ranks' rows are gathered first (every rank calls it) and the
+        process group's rank 0 writes the file."""
         planes, version = self.acquire()
+        if self._placer is not None:
+            import torch.distributed as dist
+
+            from repro_torch.core.sharded_ddal import gather_rows
+            ranks = self._n_agents // self._placer.block
+            planes = tree_map(lambda t: gather_rows(t, ranks, None), planes)
+            if dist.get_rank() != 0:
+                return
         npz.save(path, planes, step=version)
 
     @classmethod
-    def load(cls, path: str, template: Any, device=None) -> "ParamStore":
+    def load(cls, path: str, template: Any, device=None,
+             placer=None) -> "ParamStore":
         """Rebuild a store from a published checkpoint (written by
         either package). ``template`` is a matching nest of numpy
         arrays or tensors (``meta`` tensors allocate nothing): only its
         shapes and dtypes are read. The planes land on ``device``
-        (``None``: the card)."""
+        (``None``: the card), placed by ``placer``."""
         dev = resolve_device(device)
         tree = npz.restore(path, tree_map(_np_template, template))
         planes = tree_map(lambda a: torch.from_numpy(a).to(dev), tree)
-        store = cls(planes, donate=True)
+        store = cls(planes, donate=True, placer=placer)
         store._version = npz.restore_step(path) or 0
         return store
 
@@ -199,8 +229,30 @@ class ParamStore:
 def publish_from_trainer(store: ParamStore, state) -> int:
     """Push a live trainer's current per-agent parameter planes
     (``state.params``, a nest with a leading agent axis) into the
-    serving store, copied."""
+    serving store, copied. On a pod mesh an agent-sharded trainer's
+    state (``launch.shardings.agent_sharded_state``) holds the rank's
+    rows, which the store's placer takes as they are: no plane crosses
+    ranks."""
     return store.publish(state.params)
+
+
+def _plane_placer(mesh, pod_axis: str, n_agents: int):
+    """The ``AgentPlanes`` of ``mesh``: a ``(pod_axis, "agent")`` mesh;
+    a ``(data, model)`` mesh raises ``NotPortedError``, anything that is
+    not a device mesh ``ValueError``."""
+    from repro_torch.common.sharding import axis_names
+    from repro_torch.launch.shardings import AgentPlanes
+    names = axis_names(mesh)
+    if not names or not hasattr(mesh, "get_group"):
+        raise ValueError(
+            f"GroupServeEngine(mesh={mesh!r}): expected a DeviceMesh over "
+            f"({pod_axis!r}, 'agent')")
+    if "model" in names or "data" in names:
+        raise NotPortedError(
+            f"GroupServeEngine on a {names} mesh: the reference places "
+            f"group planes over its agent axes only ({pod_axis!r}, "
+            f"'agent'); a model axis for the group engine is not in it")
+    return AgentPlanes.on(mesh, n_agents, pod_axis)
 
 
 # ---------------------------------------------------------------------
@@ -219,7 +271,12 @@ class GroupServeEngine:
 
     ``planes`` is either a :class:`ParamStore` or a stacked-params nest
     (leaves ``(A, *param)``, on the serving device), which is wrapped in
-    a fresh store (copied). A ``mesh`` raises ``NotPortedError``.
+    a fresh store (copied). ``mesh`` (a ``(pod_axis, "agent")``
+    ``DeviceMesh`` over the whole process group, every rank running the
+    same engine): the store places each publish over the agent axes and
+    the steps gather per-slot rows from their owners (module docstring).
+    Temperature sampling draws from each rank's generator, seeded alike
+    from ``seed``, so the ranks agree.
 
     Incremental API (what the load bench drives)::
 
@@ -234,13 +291,7 @@ class GroupServeEngine:
                  batch_size: int, prompt_pad: int = 32,
                  router: Optional[Router] = None,
                  metrics: Optional[ServeMetrics] = None,
-                 mesh=None, seed: int = 0):
-        if mesh is not None:
-            raise NotPortedError(
-                "GroupServeEngine(mesh=...) places the planes over a "
-                "device mesh, which waits for Slice E part 3 (serving "
-                "on the production meshes); the port serves from one "
-                "card")
+                 mesh=None, pod_axis: str = "pod", seed: int = 0):
         self.cfg = cfg
         self.serve = serve
         self.B = batch_size
@@ -251,9 +302,25 @@ class GroupServeEngine:
         self.metrics = metrics
         self.router = router if router is not None else Router()
         self._seed = seed
-        self.store = (planes if isinstance(planes, ParamStore)
-                      else ParamStore(planes))
+        self._placement = None
+        if isinstance(planes, ParamStore):
+            self.store = planes
+        else:
+            placer = None
+            if mesh is not None:
+                placer = _plane_placer(mesh, pod_axis, int(
+                    tree_leaves_with_paths(planes)[0][1].shape[0]))
+            self.store = ParamStore(planes, placer=placer)
         self.n_agents = self.store.n_agents
+        if mesh is not None:
+            placer = self.store._placer
+            if placer is None:
+                _plane_placer(mesh, pod_axis, self.n_agents)  # the checks
+                raise ValueError(
+                    "GroupServeEngine(mesh=...) with a ParamStore of whole "
+                    "planes: build the store with placer=AgentPlanes.on("
+                    "mesh, n_agents)")
+            self._placement = placer
         self.reset()
 
     # -- host state ----------------------------------------------------
@@ -306,12 +373,7 @@ class GroupServeEngine:
             n = len(req.prompt)
             if self.metrics is not None:
                 self.metrics.admitted(req.rid, version=version)
-            # one tenant's weights: views of its row of every plane
-            params = tree_map(lambda p: p[req.agent_id], planes)
-            first, one = prefill_one(self.cfg, self.model, params,
-                                     req.prompt, self.prompt_pad,
-                                     self.serve.max_len, self.sampler,
-                                     self._gen)
+            first, one = self._prefill(planes, req)
             if self.metrics is not None:
                 self.metrics.first_token(req.rid)
             if self.stop.should_stop(1, first, n):
@@ -322,11 +384,44 @@ class GroupServeEngine:
                                    agent_id=req.agent_id,
                                    tokens=[first], done=False)
 
+    def _prefill(self, planes, req: GroupRequest) -> Tuple[int, Any]:
+        """The B = 1 prefill of ``req`` under its agent's weights (views
+        of its row of every plane) → (its first token, its cache). On a
+        mesh the rank that holds the agent runs it and broadcasts the
+        next-token logits and the cache to every rank, and each samples
+        the same token."""
+        if self._placement is None:
+            params = tree_map(lambda p: p[req.agent_id], planes)
+            return prefill_one(self.cfg, self.model, params, req.prompt,
+                               self.prompt_pad, self.serve.max_len,
+                               self.sampler, self._gen)
+        import torch.distributed as dist
+
+        from repro_torch.common.sharding import count
+        owner = req.agent_id // self._placement.block
+        if owner == dist.get_rank():
+            params = tree_map(
+                lambda p: p[req.agent_id - self._placement.first], planes)
+            nl, one = prefill_logits(self.cfg, self.model, params,
+                                     req.prompt, self.prompt_pad,
+                                     self.serve.max_len)
+        else:
+            one = self.model.make_cache(self.cfg, 1, self.serve.max_len,
+                                        device=self.device)
+            nl = torch.empty((1, self.cfg.vocab_size), device=self.device,
+                             dtype=self.cfg.dtype("compute"))
+        for t in [nl] + [x for _, x in tree_leaves_with_paths(one)]:
+            count("prefill_bcast")
+            dist.broadcast(t, owner)
+        return int(self.sampler(nl, self._gen)[0]), one
+
     def decode_step(self, planes, batch, cache):
         """The model's batched decode of every slot, each under its own
-        agent's weights (``self._state.agents``)."""
-        return self.model.decode(self.cfg, planes, batch, cache,
-                                 self._state.agents)
+        agent's weights (``self._state.agents``; on a mesh each slot's
+        rows from the rank that holds its agent)."""
+        with agent_rows(self._placement):
+            return self.model.decode(self.cfg, planes, batch, cache,
+                                     self._state.agents)
 
     @torch.no_grad()
     def step(self) -> Dict[int, List[int]]:

@@ -59,7 +59,8 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.configs.granite_3_8b",
              "repro_torch.configs.yi_34b", "repro_torch.models.moe",
              "repro_torch.configs.qwen3_moe_30b_a3b",
-             "repro_torch.configs.deepseek_v2_lite_16b"):
+             "repro_torch.configs.deepseek_v2_lite_16b",
+             "repro_torch.launch.dryrun_lib"):
     assert name in names, name
 print(len(names))
 """

@@ -202,9 +202,20 @@ def test_agent_id_out_of_range_and_mesh():
     with pytest.raises(ValueError, match="agent_id"):
         eng.submit(serving.GroupRequest(0, 2, [1, 2]))
     assert eng.run([]) == {}
-    with pytest.raises(NotPortedError, match="Slice E"):
+    # not a device mesh: a bad argument; a (data, model) mesh: the
+    # reference places group planes over its agent axes only
+    with pytest.raises(ValueError, match="DeviceMesh"):
         serving.GroupServeEngine(cfg, planes, serve, batch_size=2,
                                  mesh=object())
+
+    class _DataModelMesh:
+        mesh_dim_names = ("data", "model")
+
+        def get_group(self, axis=None):
+            return None
+    with pytest.raises(NotPortedError, match="agent axes"):
+        serving.GroupServeEngine(cfg, planes, serve, batch_size=2,
+                                 mesh=_DataModelMesh())
 
 
 def test_param_store_double_buffer():
