@@ -148,9 +148,18 @@ Phases, each printing its lines:
    with the latent cache's sweep and the expert-parallel dispatch,
    [equiv]'s gates) and ``[group-tp]`` (``GroupServeEngine(mesh=)`` on
    a (1, 1) ``(pod, agent)`` mesh, llama3.2-3b's widths at 2 layers, 4
-   agents: tokens equal to the one-process engine's); one rank on one
-   card shows that the code path and NCCL run, not traffic between
-   cards;
+   agents: tokens equal to the one-process engine's); the ssm, hybrid,
+   VLM and audio families on the same mesh (Slice E part 3b): ``[tp]
+   mamba2-780m, 4 layers`` (as ``[tp]``, the SSD kernel once per layer
+   in every agent's forward), ``[serve-tp] mamba2-780m`` (full depth,
+   bf16 compute, as ``[serve-tp] llama3.2-3b``; 48 SSD launches in the
+   prefill) and ``[score-tp]`` of zamba2-7b cut to 2 super-blocks (SSD
+   and flash counts), qwen2-vl-72b cut to 2 layers with bf16 weights
+   and musicgen-medium (flash counts), each against one device within
+   2^-5·max|want|; one rank on one card shows that the code path and
+   NCCL run, not traffic between cards (the kernel at a rank's heads of
+   a larger model axis: ``[kernel] ssd_intra_chunk`` at 24 and 12 of
+   mamba2-780m's heads and 56 and 28 of zamba2-7b's);
 5. the card against the port's CPU path: ``[train-equiv]``, the
    streaming trainer at reduced() llama3.2-3b and mamba2-780m with fp32
    compute, 8 steps with 2 shares, from the same state and batches,
@@ -263,11 +272,25 @@ LLAMA_SERVE_ARGV = ["--arch", LLAMA, "--full", "--serve", "engine=batch",
 LLAMA_SERVE_LABEL = "[serve] llama3.2-3b"
 # the hybrid: zamba2-7b at its published widths and depth (16 super-blocks
 # of 4 Mamba2 layers around a shared attention block, one tail layer)
+MAMBA = "mamba2-780m"
 ZAMBA = "zamba2-7b"
 ZAMBA_SERVE_ARGV = ["--arch", ZAMBA] + LLAMA_SERVE_ARGV[2:]
 ZAMBA_SERVE_LABEL = "[serve] zamba2-7b"
 ZAMBA_SCORE_LABEL = "[score] zamba2-7b"
 # the SSD kernel at zamba2-7b's scoring pass: the first shape with n = 64
+# a model rank's heads of the two SSD models' prefills (m = 2 and 4 of
+# mamba2-780m's 48 heads and zamba2-7b's 112): the shapes the kernel takes
+# on a (data, model) mesh, which the one-card (1, 1) mesh cannot reach
+SSD_LOCAL_HEADS = [
+    ("mamba2-780m prefill, a model rank's 24 heads (m = 2)",
+     (2, 4, 256, 24, 64, 128, 1)),
+    ("mamba2-780m prefill, a model rank's 12 heads (m = 4)",
+     (2, 4, 256, 12, 64, 128, 1)),
+    ("zamba2-7b prefill, a model rank's 56 heads (m = 2)",
+     (2, 4, 256, 56, 64, 64, 1)),
+    ("zamba2-7b prefill, a model rank's 28 heads (m = 4)",
+     (2, 4, 256, 28, 64, 64, 1)),
+]
 ZAMBA_SSD_LABEL = "zamba2-7b scoring, n = 64"
 # the MoE pair: qwen3-moe-30b-a3b (48 layers of 128 experts, top-8, GQA
 # 32 / 4) with bf16 weights (fp32 would take 122 GB), served from the
@@ -1062,6 +1085,8 @@ def ssd_kernel_phase(torch, built):
               False, True),
              ("zamba2-7b prefill, n = 64", (2, 4, 256, 112, 64, 64, 1),
               bf16, 0, False, False)] + [
+        (label, shape, bf16, 0, False, True)
+        for label, shape in SSD_LOCAL_HEADS] + [
         (f"bf16 {label}", shape, bf16, 0, False, False)
         for label, shape in SSD_BF16_EDGES]
     row, instances_run = {}, set()
@@ -1147,6 +1172,8 @@ def ssd_kernel_phase(torch, built):
             row = numbers
         elif label == ZAMBA_SSD_LABEL:
             row["zamba2"] = numbers
+        elif label in dict(SSD_LOCAL_HEADS):
+            row.setdefault("rank_heads", {})[label] = numbers
     per_sm = {k: ops.blocks_per_sm(k) for k in range(1, ops.MAX_HEADS + 1)}
     print(f"[kernel] ssd_intra_chunk instances run: "
           f"{sorted(instances_run)}; bf16 blocks one SM holds, by heads a "
@@ -3033,7 +3060,6 @@ def mesh_phase(torch, run):
               "one-device run's")
 
 
-TP_LABEL = "[tp] llama3.2-3b, 2 layers, (1, 1) (data, model) mesh"
 TP_STEPS = 6
 EP_LABEL = "[equiv] experts ep"
 STRIDED_LABEL = "[kernel] grad_sketch strided"
@@ -3055,13 +3081,12 @@ def _one_rank_nccl(torch):
     return make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
 
 
-def _tp_run(torch, mesh):
-    """``[tp]``'s trainer run (mesh None: the one-device step): (per-step
-    losses on the host, the final params (the state's own tensors, the
-    rest of the state freed), the kernel launches, the number of leaves,
-    ms per step, the share steps)."""
+def _tp_run(torch, mesh, cfg):
+    """``[tp]``'s trainer run of ``cfg`` (mesh None: the one-device
+    step): (per-step losses on the host, the final params (the state's
+    own tensors, the rest of the state freed), the kernel launches, the
+    number of leaves, ms per step, the share steps)."""
     from repro_torch import optim
-    from repro_torch.configs import get_arch_config
     from repro_torch.configs.base import GroupSpec, ShapeConfig
     from repro_torch.core.exchange import build_exchange
     from repro_torch.core.sharded_ddal import (init_train_state,
@@ -3070,7 +3095,6 @@ def _tp_run(torch, mesh):
     from repro_torch.launch import shardings as SH
     from repro_torch.launch.mesh import train_rules
 
-    cfg = get_arch_config(LLAMA).with_(n_layers=2)
     spec = GroupSpec(n_agents=4, threshold=2, minibatch=2,
                      knowledge_mode="streaming", topology="ring",
                      exchange_estimator="grad_cos+sketch",
@@ -3113,23 +3137,28 @@ def _tp_run(torch, mesh):
     return losses, params, launched, len(params), ms, shared
 
 
-def tp_phase(torch, mesh):
+def tp_phase(torch, mesh, arch=LLAMA, n_layers=2):
     """``[tp]``: the streaming trainer on the (1, 1) ``(data, model)``
     mesh over NCCL (the model under ``train_rules``: vocab-parallel
-    embedding and loss, split attention and SwiGLU, each with its
-    all-reduce; gradients over ``data``; partial sums over ``model``)
-    against the same step with no mesh on the card: llama3.2-3b's widths
-    cut to 2 layers, 4 agents on a ring, sketched relevance d 256, int8
+    embedding and loss, split attention and SwiGLU or Mamba2 split by its
+    SSD heads, each with its all-reduce; gradients over ``data``; partial
+    sums over ``model``) against the same step with no mesh on the card:
+    ``arch``'s widths cut to ``n_layers`` layers (llama3.2-3b 2,
+    mamba2-780m 4), 4 agents on a ring, sketched relevance d 256, int8
     planes, 6 steps, shares at 2 and 4. Gates: losses and parameters
-    within rtol 1e-5 / atol 1e-6; flash 2 x 4 x 6; the sketch once per
-    leaf per accumulation step; NCCL. Returns {kernel: {path: n}}."""
+    within rtol 1e-5 / atol 1e-6; flash (llama) or SSD (mamba2) once per
+    layer per agent per step; the sketch once per leaf per accumulation
+    step; NCCL. Returns {kernel: {path: n}}."""
     import torch.distributed as dist
 
     from repro_torch.common.sharding import COLLECTIVES
+    from repro_torch.configs import get_arch_config
     t0 = time.perf_counter()
-    want = _tp_run(torch, None)
+    cfg = get_arch_config(arch).with_(n_layers=n_layers)
+    label = (f"[tp] {arch}, {n_layers} layers, (1, 1) (data, model) mesh")
+    want = _tp_run(torch, None, cfg)
     COLLECTIVES.clear()
-    got = _tp_run(torch, mesh)
+    got = _tp_run(torch, mesh, cfg)
     w_loss, w_params, _, leaves, w_ms, w_shared = want
     loss, params, launched, _, ms, shared = got
     worst_loss = max(float((a - b).abs().max()) for a, b in zip(loss, w_loss))
@@ -3142,10 +3171,12 @@ def tp_phase(torch, mesh):
     gc.collect()
     torch.cuda.empty_cache()
     backend = dist.get_backend()
+    n_ssd, n_flash = kernel_layers(cfg)
     want_launches = dict({name: 0 for name in KERNELS},
-                         flash_attention=2 * 4 * TP_STEPS,
+                         flash_attention=n_flash * 4 * TP_STEPS,
+                         ssd_intra_chunk=n_ssd * 4 * TP_STEPS,
                          grad_sketch=leaves * (TP_STEPS - 2))
-    print(f"{TP_LABEL}: over {backend}; ms per step with the mesh "
+    print(f"{label}: over {backend}; ms per step with the mesh "
           f"{[round(x, 1) for x in ms]}, without "
           f"{[round(x, 1) for x in w_ms]}; losses max abs {worst_loss:.3e},"
           f" parameters max abs {worst:.3e} over {leaves} leaves (rtol "
@@ -3157,15 +3188,16 @@ def tp_phase(torch, mesh):
           + f"; {time.perf_counter() - t0:.1f} s. One rank on one card: "
           f"the code path and NCCL run on the card; traffic between "
           f"cards is not exercised")
-    check(backend == "nccl", f"{TP_LABEL}: the group runs {backend}")
-    check(loss_ok, f"{TP_LABEL}: losses differ from the one-device step")
-    check(params_ok, f"{TP_LABEL}: parameters differ from the one-device "
+    check(backend == "nccl", f"{label}: the group runs {backend}")
+    check(loss_ok, f"{label}: losses differ from the one-device step")
+    check(params_ok, f"{label}: parameters differ from the one-device "
                      f"step")
-    check(shared == w_shared == [2, 4], f"{TP_LABEL}: shared at {shared}")
+    check(shared == w_shared == [2, 4], f"{label}: shared at {shared}")
     check(launched == want_launches,
-          f"{TP_LABEL}: kernel launches {launched} != {want_launches}")
-    return {name: {TP_LABEL: launched[name]}
-            for name in ("flash_attention", "grad_sketch")}
+          f"{label}: kernel launches {launched} != {want_launches}")
+    return {name: {label: launched[name]}
+            for name in ("flash_attention", "ssd_intra_chunk", "grad_sketch")
+            if launched[name]}
 
 
 def expert_parallel_phase(torch, mesh):
@@ -3305,6 +3337,8 @@ def sketch_strided_phase(torch):
     return rows
 
 
+# the model-axis phases' cuts of the families that came to the axis last
+SCORE_TP_DEPTH = {ZAMBA: "2 super-blocks", QWEN_VL: "2 layers"}
 BF16_GATE = 2.0 ** -5          # × max|want|: bf16 logits, as the tests'
 
 
@@ -3412,8 +3446,11 @@ def serve_tp_phase(torch, mesh, arch=LLAMA, n_layers=None,
     at layer 0 + 1 MoE layer in fp32 (absorbed MLA with the latent
     cache's slot sweep, the expert-parallel dispatch on one rank), the
     [equiv] gates: logits within rtol = atol = 1e-4 and every token
-    equal, MLA's expanded branch never taken. The cache leaves at the
-    shapes ``cache_partition_specs`` places."""
+    equal, MLA's expanded branch never taken; mamba2-780m at full depth
+    in bf16 compute as llama, its Mamba2 layers on the rank's SSD heads
+    (the SSD kernel once per layer in the prefill). The cache leaves at
+    the shapes ``cache_partition_specs`` places. Returns {kernel: {path:
+    launches}} of the kernels the prefill ran."""
     from repro_torch.common.pytree import tree_leaves_with_paths
     from repro_torch.configs import get_arch_config
     from repro_torch.configs.base import ShapeConfig
@@ -3482,6 +3519,10 @@ def serve_tp_phase(torch, mesh, arch=LLAMA, n_layers=None,
                 f"tokens equal")
         parted = []
     tokens_equal = int((got_tok == want_tok).all(1).sum())
+    # a prefill with a cache runs the SSD kernel in each Mamba2 layer (on
+    # the rank's heads) and no flash: attention reads its cache's slots
+    want_launches = dict({k: 0 for k in KERNELS},
+                         ssd_intra_chunk=kernel_layers(cfg)[0])
     print(f"{label}: {cfg.n_layers} layers, {cfg.param_dtype} weights, "
           f"{cfg.compute_dtype} compute, (1, 1) (data, model) mesh over "
           f"NCCL; prompts {lens} as one batch, max_len "
@@ -3498,39 +3539,48 @@ def serve_tp_phase(torch, mesh, arch=LLAMA, n_layers=None,
           + f"; against the one-device ServeEngine: rows with every token "
           f"equal {tokens_equal} of 4, logits apart by at most {worst:.3e}"
           f"{' of max|want|' if dtype == 'bfloat16' else ''} ({gate}) -> "
-          f"{'ok' if ok and shapes_ok else 'FAIL'}; "
+          f"{'ok' if ok and shapes_ok and launched == want_launches else 'FAIL'}; "
           f"{time.perf_counter() - t0:.1f} s")
     check(ok, f"{label}: the mesh's tokens or logits differ from one "
               f"device")
     check(shapes_ok, f"{label}: a cache leaf is not at its placed shape")
     check(cfg.mla is None or not expanded,
           f"{label}: MLA took the expanded branch {len(expanded)} times")
-    check(all(v == 0 for v in launched.values()),
-          f"{label}: a kernel ran on a prefill with a cache: {launched}")
+    check(launched == want_launches,
+          f"{label}: launches {launched} != {want_launches}")
     del params, got, want
     gc.collect()
     torch.cuda.empty_cache()
+    return {"ssd_intra_chunk": {label: launched["ssd_intra_chunk"]}} \
+        if launched["ssd_intra_chunk"] else {}
 
 
-def score_tp_phase(torch, mesh):
-    """``[score-tp] llama3.2-3b``: the cache-free pass over 2 x 4096 ids
-    at its published widths and depth (bf16 compute) under
-    ``serve_rules`` on the (1, 1) mesh: the full logits (the
+def score_tp_phase(torch, mesh, arch=LLAMA, cut=None, param_dtype=None):
+    """``[score-tp] arch``: the cache-free pass over 2 x 4096 ids
+    (musicgen: 2 x 1500 frames; ``_score_batch``) at its published
+    widths (depth cut by ``cut``, a dict of config overrides, where
+    given; weights in ``param_dtype`` where given) with bf16 compute
+    under ``serve_rules`` on the (1, 1) mesh: the full logits (the
     vocab-parallel head's columns gathered) against the one-device pass
-    within 2^-5·max|want|; the flash kernel once per layer in each
-    pass. Returns {kernel: {path: launches}}."""
+    within 2^-5·max|want|; the flash kernel once per attention layer
+    and the SSD kernel once per Mamba2 layer in each pass, on the rank's
+    heads (``kernel_layers``). Returns {kernel: {path: launches}}."""
     from repro_torch.common.sharding import COLLECTIVES, axis_rules, set_mesh
     from repro_torch.configs import get_arch_config
     from repro_torch.launch.mesh import serve_rules
     from repro_torch.models import get_model
 
     t0 = time.perf_counter()
-    label = "[score-tp] llama3.2-3b"
-    cfg = get_arch_config(LLAMA)
+    cfg = get_arch_config(arch).with_(**(cut or {}))
+    if param_dtype:
+        cfg = cfg.with_(param_dtype=param_dtype)
+    label = f"[score-tp] {arch}" + (f", {SCORE_TP_DEPTH[arch]}" if cut
+                                   else "")
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
-    batch = _score_batch(torch, cfg, SCORE_S)
+    batch = _score_batch(torch, cfg, MUSICGEN_FRAMES
+                         if cfg.family == "audio" else SCORE_S)
     batch = {k: v for k, v in batch.items() if k != "labels"}
     with torch.no_grad():
         want, _ = model.forward(cfg, params, batch, None)
@@ -3550,10 +3600,13 @@ def score_tp_phase(torch, mesh):
         top = float(want.float().abs().max())
         d = float((got.float() - want.float()).abs().max())
     ok = d <= BF16_GATE * top and got.shape == want.shape
+    n_ssd, n_flash = kernel_layers(cfg)
     want_launches = dict({k: 0 for k in KERNELS},
-                         flash_attention=cfg.n_layers * passes)
-    print(f"{label}: {SCORE_B} x {SCORE_S} ids, {cfg.n_layers} layers, "
-          f"bf16 compute, cache-free, on the (1, 1) mesh under serve_rules;"
+                         flash_attention=n_flash * passes,
+                         ssd_intra_chunk=n_ssd * passes)
+    print(f"{label}: {widths(cfg)}; {tuple(batch['tokens'].shape)} ids, "
+          f"{cfg.n_layers} layers, {cfg.param_dtype} weights, bf16 "
+          f"compute, cache-free, on the (1, 1) mesh under serve_rules;"
           f" ms per pass {', '.join(f'{x:.2f}' for x in ms)}; full logits "
           f"{tuple(got.shape)} against one device: max abs {d:.3e} "
           f"({d / top:.3e} of max|want|, gate 2^-5); peak memory "
@@ -3568,7 +3621,9 @@ def score_tp_phase(torch, mesh):
     del params, got, want
     gc.collect()
     torch.cuda.empty_cache()
-    return {"flash_attention": {label: launched["flash_attention"]}}
+    return {name: {label: launched[name]}
+            for name in ("flash_attention", "ssd_intra_chunk")
+            if launched[name]}
 
 
 def group_tp_phase(torch):
@@ -3625,25 +3680,49 @@ def group_tp_phase(torch):
 
 
 def model_axis_phases(torch, table):
-    """``[tp]``, ``[equiv] experts ep``, ``[serve-tp]``, ``[score-tp]``
-    and ``[group-tp]`` in one one-rank NCCL group, destroyed after them,
-    then ``[kernel] grad_sketch strided``."""
+    """``[tp]`` (llama3.2-3b, then mamba2-780m), ``[equiv] experts ep``,
+    ``[serve-tp]``, ``[score-tp]`` and ``[group-tp]`` in one one-rank
+    NCCL group, destroyed after them, then ``[kernel] grad_sketch
+    strided``. The families that came to the model axis last take
+    ``[tp] mamba2-780m, 4 layers``, ``[serve-tp] mamba2-780m`` and
+    ``[score-tp]`` of zamba2-7b (2 super-blocks), qwen2-vl-72b (2
+    layers, bf16 weights) and musicgen-medium, timed together."""
+    import dataclasses
+
     import torch.distributed as dist
+
+    from repro_torch.configs import get_arch_config
     mesh = _one_rank_nccl(torch)
+    paths = []
     try:
-        launches = tp_phase(torch, mesh)
+        paths.append(tp_phase(torch, mesh))
         expert_parallel_phase(torch, mesh)
         t0 = time.perf_counter()
         serve_tp_phase(torch, mesh)
-        launches["flash_attention"].update(
-            score_tp_phase(torch, mesh)["flash_attention"])
+        paths.append(score_tp_phase(torch, mesh))
         serve_tp_phase(torch, mesh, DEEPSEEK, 2, "float32")
         group_tp_phase(torch)
         print(f"[time] serving on the mesh: "
               f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        paths.append(tp_phase(torch, mesh, MAMBA, 4))
+        paths.append(serve_tp_phase(torch, mesh, MAMBA))
+        zamba = get_arch_config(ZAMBA).hybrid
+        paths.append(score_tp_phase(torch, mesh, ZAMBA, dict(
+            n_layers=11, hybrid=dataclasses.replace(zamba,
+                                                    n_super_blocks=2))))
+        paths.append(score_tp_phase(torch, mesh, QWEN_VL, dict(n_layers=2),
+                                    "bfloat16"))
+        paths.append(score_tp_phase(torch, mesh, MUSICGEN))
+        print(f"[time] the ssm, hybrid, VLM and audio families on the "
+              f"mesh: {time.perf_counter() - t0:.1f} s")
     finally:
         dist.destroy_process_group()
     table["grad_sketch"]["strided"] = sketch_strided_phase(torch)
+    launches = {}
+    for by_kernel in paths:
+        for name, by_path in by_kernel.items():
+            launches.setdefault(name, {}).update(by_path)
     return launches
 
 
@@ -5003,7 +5082,8 @@ def main() -> int:
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms")}, **{extra: table[name][extra]
                            for extra in ("zamba2", "qwen3_moe",
-                                         "qwen2_vl", "musicgen", "strided")
+                                         "qwen2_vl", "musicgen", "strided",
+                                         "rank_heads")
                            if extra in table[name]})
         for name in KERNELS]
     check_finite = all(math.isfinite(k["ms"]) for k in kernels)

@@ -18,8 +18,9 @@ and the layer runs its one-device form.
 
 ``COLLECTIVES`` counts the collectives the layers issue in their
 forward, by site (``"attn_out"``, ``"mlp_out"``, ``"moe_combine"``,
-``"embed"``, ``"ce_max"``, ``"kv_max"``, ``"kv_sum"``, ...), so a run
-can show where they went.
+``"embed"``, ``"ce_max"``, ``"kv_max"``, ``"kv_sum"``, ``"ssm_norm"``,
+``"ssm_out"``, ``"xattn_out"``, ...), so a run can show where they
+went.
 
 Decode caches under ``serve_rules`` split their slot dim over the
 ``"kv_slots"`` axis (the reference's flash-decoding layout):

@@ -62,7 +62,7 @@ parameter leaves are cut by the reference's partition specs
 ``launch.shardings.place``): each rank holds its model-axis slice of
 every parameter, AdamW moment and window leaf, and its B/d rows of each
 agent's batch (``data.sharded.make_data_batch``). The step runs the
-model's loss under ``train_rules(mesh)``, so the dense and MoE layers
+model's loss under ``train_rules(mesh)``, so every family's layers
 take their split forms (``repro_torch.models.common``); the gradients
 are summed over ``data`` (each data rank's loss is the global token
 mean, so its gradient is its own rows' part); eq. 4, the window and
@@ -71,7 +71,13 @@ agent's positions is taken as partial sums over the slices, a
 replicated leaf counted on model rank 0 only, all-reduced over
 ``model`` (``common.sharding.ModelShards``): the gradient clip's norm,
 exact ``grad_cos``'s dot products and norms, and the sketch (the
-``grad_sketch`` kernel on each slice's positions in the full leaf). The
+``grad_sketch`` kernel on each slice's positions in the full leaf). A
+replicated leaf's gradient is the same on every model rank: where it
+feeds split work, its value enters through ``copy_to_model``, whose
+backward sums the ranks' parts (Mamba2's ``w_B`` / ``w_C`` / ``w_dt``,
+``conv_B`` / ``conv_C``, ``dt_bias``, ``A_log`` and ``D``, the hybrid's
+LoRA factors of a split target), or it acts after the split work's
+all-reduce on the full value (the GELU MLP's ``b2``). The
 ``(pod, data, model)`` mesh raises ``NotPortedError`` (Slice E part 3).
 
 Everything else is the reference's arithmetic: ``(T_t·g_f32)`` cast to
@@ -714,22 +720,18 @@ class TensorParallel(NamedTuple):
 
 
 def tensor_parallel(cfg, mesh) -> TensorParallel:
-    """The ``TensorParallel`` of ``cfg`` on a ``(data, model)`` mesh; a
-    model axis of more than one rank needs a family that splits over it
-    (the dense and MoE families, GQA or MLA; the others wait for Slice E
-    part 3)."""
+    """The ``TensorParallel`` of ``cfg`` on a ``(data, model)`` mesh
+    (every family splits over its model axis)."""
     from repro_torch.common.sharding import (ModelShards, axis_rules,
                                              mesh_axis, set_mesh)
     from repro_torch.launch.mesh import train_rules
     from repro_torch.launch.shardings import leaf_shards
-    from repro_torch.models.common import splits_over_model
     if cfg is None:
         raise ValueError("a (data, model) mesh needs the model's config "
                          "(its leaves are cut by the partition specs)")
     rules = train_rules(mesh)
     with axis_rules(rules), set_mesh(mesh):
         data, model = mesh_axis("batch"), mesh_axis("ff")
-    splits_over_model(cfg, model.size)
     return TensorParallel(mesh, rules, data, model,
                           ModelShards(leaf_shards(cfg, mesh, rules), model))
 

@@ -29,11 +29,10 @@ import torch
 
 from repro_torch.common.pytree import tree_leaves_with_paths
 from repro_torch.common.sharding import axis_rules, set_mesh
-from repro_torch.configs.base import ArchConfig, NotPortedError, ShapeConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.launch import shardings as SH
 from repro_torch.launch.mesh import serve_rules
 from repro_torch.models import get_model
-from repro_torch.models.common import MODEL_AXIS_LATER
 from repro_torch.models.model import cache_specs, param_specs
 
 
@@ -84,13 +83,6 @@ def _rows(batch: dict, shape: ShapeConfig, mesh, rules: dict) -> dict:
             for k, v in batch.items()}
 
 
-def _check(cfg: ArchConfig, mesh) -> None:
-    if cfg.family in ("ssm", "hybrid") and mesh.size() > 1:
-        raise NotPortedError(
-            f"{cfg.name}: serving the {cfg.family} family on a mesh of "
-            f"{mesh.size()} ranks waits for {MODEL_AXIS_LATER}")
-
-
 def place_params(cfg: ArchConfig, shape: ShapeConfig, mesh, params) -> Any:
     """The rank's slices of ``params`` under ``serve_rules(mesh,
     shape.global_batch)`` (full leaves cut, the rank's leaves kept)."""
@@ -126,7 +118,6 @@ def prefill_on_mesh(cfg: ArchConfig, shape: ShapeConfig, mesh, params,
     ``params`` and ``batch`` may be full (cut here) or already the
     rank's. Returns (the full logits of the rank's rows, the rank's
     cache)."""
-    _check(cfg, mesh)
     model = get_model(cfg)
     rules = serve_rules(mesh, shape.global_batch)
     params = place_params(cfg, shape, mesh, params)
@@ -152,7 +143,6 @@ def decode_on_mesh(cfg: ArchConfig, shape: ShapeConfig, mesh, params,
     the positions fit (``transformer.check_fits``), as for
     ``transformer_decode``. Returns (the full logits of the rank's rows,
     the rank's new cache)."""
-    _check(cfg, mesh)
     model = get_model(cfg)
     rules = serve_rules(mesh, shape.global_batch)
     params = place_params(cfg, shape, mesh, params)

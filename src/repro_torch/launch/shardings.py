@@ -10,11 +10,15 @@ rule table; batches over the data axes; caches by name and rank).
 ``_sanitize`` replicates a dim that does not divide over its axes, as
 the reference's jit inputs do. Torch has no GSPMD to reshard inside the
 program, so the placement (``placement_spec``) adds one rule of its
-own: an attention projection is split only in whole heads (``wq`` /
-``bq`` need the query heads, ``wk`` / ``wv`` / ``bk`` / ``bv`` the kv
-heads, to divide over the axis), else it is placed replicated and the
-layer picks the heads it needs (MLA's ``w_uk`` / ``w_uv`` count the
-query heads). ``place`` cuts a rank's local slice of full tensors by
+own: a leaf made of heads is split only in whole heads
+(``whole_heads``), else that dim is placed replicated and the layer
+picks the heads it needs. An attention projection (``wq`` / ``bq`` and
+MLA's ``w_uk`` / ``w_uv`` need the query heads, ``wk`` / ``wv`` /
+``bk`` / ``bv`` the kv heads, to divide over the axis); the
+cross-attention's projections, ``wo``'s rows and its ``ck`` / ``cv``
+cache by its heads; Mamba2's ``ssm_inner`` leaves (``w_z``, ``w_x``,
+``conv_x``, ``norm_w``, ``out_proj``'s rows and the cache's ``conv_x``
+/ ``ssm``) by its SSD heads d_inner / head_dim. ``place`` cuts a rank's local slice of full tensors by
 specs; ``gather`` puts full tensors back (a collective: every rank calls
 it). Both handle a decode cache's slot dim (``common.sharding.
 slot_range``): a split dim is cut into contiguous blocks, and a dim that
@@ -219,22 +223,59 @@ def _sanitize(mesh, spec: tuple, shape) -> tuple:
 # ---------------------------------------------------------------------
 _HEAD_LEAVES = {"wq": "q", "bq": "q", "wk": "kv", "bk": "kv", "wv": "kv",
                 "bv": "kv", "w_uk": "q", "w_uv": "q"}
+_XATTN_LEAVES = {"wq": -1, "wk": -1, "wv": -1, "wo": -2}
+# Mamba2's d_inner leaves (its SSD heads' channels): the dim, from the
+# end, that lies over the model axis
+_SSM_LEAVES = {"w_z": -1, "w_x": -1, "norm_w": -1, "out_proj": -2}
+
+
+def whole_heads(cfg, path) -> Optional[Tuple[int, int]]:
+    """(heads, dim counted from the end) of a leaf whose model-axis dim
+    splits only in whole heads, else ``None``: an attention projection
+    (query heads for ``wq`` / ``bq`` and MLA's ``w_uk`` / ``w_uv``, kv
+    heads for ``wk`` / ``wv`` / ``bk`` / ``bv``), the cross-attention's
+    ``wq`` / ``wk`` / ``wv`` and ``wo``'s rows (its heads), the
+    cross-attention cache's ``ck`` / ``cv``, and Mamba2's ``ssm_inner``
+    leaves, whose channels are the SSD heads' (``w_z``, ``w_x``,
+    ``conv_x``'s ``w`` / ``b``, ``norm_w``, ``out_proj``'s rows; the
+    cache's ``conv_x`` and ``ssm``)."""
+    if cfg is None or not path:
+        return None
+    last = path[-1]
+    parent = path[-2] if len(path) > 1 else None
+    if last in _HEAD_LEAVES and parent in ("attn", None):
+        kind = _HEAD_LEAVES[last]
+        return (cfg.n_heads if kind == "q" else cfg.n_kv_heads), -1
+    if parent == "xattn" and last in _XATTN_LEAVES:
+        return cfg.n_heads, _XATTN_LEAVES[last]
+    if last in ("ck", "cv"):
+        return cfg.n_heads, -2
+    if getattr(cfg, "ssm", None) is None:
+        return None
+    heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    if parent == "mamba" and last in _SSM_LEAVES:
+        return heads, _SSM_LEAVES[last]
+    if parent == "conv_x" or last == "conv_x":
+        return heads, -1
+    if last == "ssm":
+        return heads, -3
+    return None
 
 
 def placement_spec(cfg, mesh, path, spec: tuple, shape) -> tuple:
-    """The spec a leaf is placed by: ``_sanitize``'s, with an attention
-    projection's head dim replicated unless its heads (query heads for
-    ``wq`` / ``bq`` and MLA's ``w_uk`` / ``w_uv``, kv heads for ``wk`` /
-    ``wv`` / ``bk`` / ``bv``) divide over the axis: an explicit shard
+    """The spec a leaf is placed by: ``_sanitize``'s, with the dim of a
+    leaf that splits in whole heads (:func:`whole_heads`) replicated
+    unless its heads divide over the dim's axes: an explicit shard
     cannot split a head."""
     out = _sanitize(mesh, spec, shape)
-    kind = _HEAD_LEAVES.get(path[-1]) if cfg is not None and path else None
-    if kind is None or (len(path) > 1 and path[-2] != "attn"):
+    rule = whole_heads(cfg, path)
+    if rule is None:
         return out
-    heads = cfg.n_heads if kind == "q" else cfg.n_kv_heads
-    axes = out[-1]
+    heads, d = rule
+    d += len(out)
+    axes = out[d]
     if axes is not None and heads % axis_size(mesh, axes):
-        out = out[:-1] + (None,)
+        out = out[:d] + (None,) + out[d + 1:]
     return out
 
 
@@ -460,11 +501,30 @@ def local_cache_shapes(cfg, batch: int, max_len: int):
                                       slots_axis=rules.get("kv_slots"))
 
     def local(path, x, spec):
-        ps = placement_spec(None, mesh, (), _on_mesh(mesh, tuple(spec)),
+        key_path = tuple(k for k in path if isinstance(k, str))
+        ps = placement_spec(cfg, mesh, key_path, _on_mesh(mesh, tuple(spec)),
                             tuple(x.shape))
         return tuple(sl.stop - sl.start
                      for sl in local_slices(mesh, ps, tuple(x.shape)))
     return full, _rebuild(full, local, specs)
+
+
+def local_cache(cfg, batch: int, max_len: int, device=None):
+    """The calling rank's slice of an empty decode cache of a global
+    ``batch`` and ``max_len`` under the installed rules and mesh, each
+    leaf at its ``local_cache_shapes`` shape on ``device`` (``None``: the
+    card): zeros, positions −1. ``None`` without rules or a mesh (the
+    family then builds its one-device cache)."""
+    import torch
+
+    from repro_torch.common.device import resolve_device
+    local = local_cache_shapes(cfg, batch, max_len)
+    if local is None:
+        return None
+    dev = resolve_device(device)
+    return tree_map(lambda t, shape: torch.full(
+        shape, 0 if t.dtype.is_floating_point else -1, dtype=t.dtype,
+        device=dev), local[0], local[1])
 
 
 class AgentPlanes(NamedTuple):

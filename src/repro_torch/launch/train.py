@@ -40,8 +40,8 @@ the state is drawn whole on every rank, then each rank keeps its slices
 by ``train_state_partition_specs`` (``launch.shardings.place``), so each
 card must hold the whole state at start, and its
 B/16 rows of each agent's batch, and the step runs the model under
-``train_rules(mesh)`` (tensor-parallel dense and MoE layers; the other
-families refuse a model axis). This is the program that the
+``train_rules(mesh)`` (the tensor-parallel layers of every family). This
+is the program that the
 reference's dry run lowers for that mesh (``dryrun_lib.lower_train``);
 it computes the numbers that the reference's own launcher, whose
 ``--mesh prod`` installs the mesh but no rules, computes replicated.

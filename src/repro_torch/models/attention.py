@@ -3,7 +3,7 @@ self-attention (RoPE, M-RoPE or none, optional sliding window, optional
 QKV bias), MusicGen's cross-attention to a conditioning sequence and
 DeepSeek-V2's Multi-head Latent Attention.
 
-On the model axis (``repro_torch.models.common.model_axis``) a
+On the model axis (``repro_torch.models.common.split_axis``) a
 cache-free pass runs Megatron-style: ``wq`` / ``wk`` / ``wv`` (and their
 biases) are column slices giving the rank H/m query heads and K/m kv
 heads (the GQA group H/K kept), the flash kernel runs on those heads,
@@ -42,13 +42,13 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.sharding import count, slot_range
+from repro_torch.common.sharding import count, mesh_axis, slot_range
 from repro_torch.configs.base import DTYPES
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.common import (causal_mask_bias, copy_to_model,
                                        dense_init, gather_from_model,
-                                       model_axis, per_row, recorded,
+                                       per_row, recorded,
                                        reduce_from_model, refuse_pallas,
                                        rms_norm, softmax_attention,
                                        split_axis)
@@ -294,7 +294,7 @@ def self_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     cdt = cfg.dtype("compute")
     tp = split_axis(cfg, "heads", H * D)
-    sw = None if layer_cache is None else model_axis(cfg, "kv_slots")
+    sw = None if layer_cache is None else mesh_axis("kv_slots")
     # the rank's query heads h0 .. h0 + n_q − 1 (all of them on one
     # device, or where wq is placed whole)
     q_split = kv_split = True
@@ -421,21 +421,35 @@ def cross_attention(cfg, p: dict, x: torch.Tensor,
     caches hold zeros); without one, k and v are ``cond``'s projections.
     The scores are fp32 whatever ``attention_scores_dtype`` says (the
     reference passes it no scores dtype), unmasked. Every weight may
-    carry a leading batch axis (the group engine's per-slot weights)."""
+    carry a leading batch axis (the group engine's per-slot weights).
+
+    On the model axis, where the heads divide over it, ``wq`` / ``wk`` /
+    ``wv`` are the rank's heads' columns, ``wo`` their rows and the
+    cache's ``ck`` / ``cv`` their keys and values: the rank attends its
+    heads and its partial product is all-reduced. Where they do not,
+    every weight and the cache are whole on every rank and the layer
+    runs its one-device form (``shardings.placement_spec``)."""
     B, S, _ = x.shape
     H, D = cfg.n_heads, cfg.head_dim
     cdt = cfg.dtype("compute")
-    q = (x @ p["wq"].to(cdt)).reshape(B, S, H, D)
+    tp = split_axis(cfg, "heads", H)
+    n = H if tp is None else H // tp.size
+    if tp is not None:
+        x = copy_to_model(x, tp)
+    q = (x @ p["wq"].to(cdt)).reshape(B, S, n, D)
     if layer_cache is not None:
         k, v = layer_cache["ck"], layer_cache["cv"]
     else:
         Lc = cond.shape[1]
-        k = (cond @ p["wk"].to(cdt)).reshape(B, Lc, H, D)
-        v = (cond @ p["wv"].to(cdt)).reshape(B, Lc, H, D)
+        k = (cond @ p["wk"].to(cdt)).reshape(B, Lc, n, D)
+        v = (cond @ p["wv"].to(cdt)).reshape(B, Lc, n, D)
     bias = torch.zeros((B, 1, S, k.shape[1]), dtype=torch.float32,
                        device=x.device)
     out = softmax_attention(q, k, v, bias, 1.0 / (D ** 0.5))
-    return out.reshape(B, S, H * D) @ p["wo"].to(cdt), {"ck": k, "cv": v}
+    out = out.reshape(B, S, n * D) @ p["wo"].to(cdt)
+    if tp is not None:
+        out = reduce_from_model(out, tp, "xattn_out")
+    return out, {"ck": k, "cv": v}
 
 
 def _heads(w: torch.Tensor, r: int, H: int, d: int) -> torch.Tensor:
@@ -491,7 +505,7 @@ def mla_attention(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     cdt = cfg.dtype("compute")
     f32 = torch.float32
     tp = split_axis(cfg, "heads", H * dv)
-    sw = None if layer_cache is None else model_axis(cfg, "kv_slots")
+    sw = None if layer_cache is None else mesh_axis("kv_slots")
     split, n_h, h0 = False, H, 0
     if tp is not None:
         split = H % tp.size == 0

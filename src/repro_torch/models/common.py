@@ -18,9 +18,10 @@ the model axis backward) where a replicated tensor enters, and
 ``reduce_from_model`` (all-reduce forward, identity backward) where
 the ranks' partial sums leave. (``torch.distributed.nn``'s all-reduce
 all-reduces the gradient too, which would multiply a replicated loss's
-gradient by the axis size.) ``model_axis`` gives a layer its axis, or
-``None`` to run the one-device form; the ssm, hybrid, VLM and audio
-families refuse an axis of more than one rank. The embedding lookup and
+gradient by the axis size.) ``split_axis`` gives a layer its axis
+(``common.sharding.mesh_axis`` of a logical name where the dim divides
+over it), or ``None`` to run the one-device form; every family of the
+zoo splits. The embedding lookup and
 ``cross_entropy`` are vocab-parallel (``vocab=``), and ``cross_entropy``
 sums its tokens and their count over the data axis, so every data
 rank's loss is the global batch's mean; ``gather_from_model`` puts the
@@ -36,38 +37,13 @@ import torch
 from repro_torch.common.pytree import pick_rows
 from repro_torch.common.sharding import AxisGroup, count, mesh_axis
 
-#: where the refused model-axis work is queued
-MODEL_AXIS_LATER = "Slice E part 3"
-
-
-def splits_over_model(cfg, size: int) -> bool:
-    """Whether ``cfg``'s layers split over a model axis of ``size``
-    ranks: the dense and MoE transformers (GQA or MLA attention) do;
-    every other family runs its one-device form on one rank and refuses
-    more than one with ``NotPortedError``."""
-    if cfg.family in ("dense", "moe"):
-        return True
-    if size > 1:
-        from repro_torch.configs.base import NotPortedError
-        raise NotPortedError(
-            f"{cfg.name}: a model axis of {size} ranks (tensor "
-            f"parallelism) is ported for the dense and MoE families; "
-            f"the {cfg.family} family waits for {MODEL_AXIS_LATER}")
-    return False
-
-
-def model_axis(cfg, logical: str = "ff") -> Optional[AxisGroup]:
-    """The model-axis group ``logical`` resolves to under the installed
-    rules and mesh (``None``: the one-device form; ``splits_over_model``
-    decides, or refuses, for the family)."""
-    ax = mesh_axis(logical)
-    return ax if ax is not None and splits_over_model(cfg, ax.size) else None
-
-
 def split_axis(cfg, logical: str, dim: int) -> Optional[AxisGroup]:
-    """``model_axis``, if a dim of ``dim`` divides over it (the
-    placement's ``_sanitize``: a dim that does not divide stays whole)."""
-    ax = model_axis(cfg, logical)
+    """The model-axis group ``logical`` resolves to under the installed
+    rules and mesh (``common.sharding.mesh_axis``), if a dim of ``dim``
+    divides over it (the placement's ``_sanitize``: a dim that does not
+    divide stays whole), else ``None``: the one-device form."""
+    del cfg
+    ax = mesh_axis(logical)
     return ax if ax is not None and dim % ax.size == 0 else None
 
 
@@ -189,15 +165,20 @@ def _rows(table: torch.Tensor, tokens: torch.Tensor,
 
 def _split_rows(table: torch.Tensor, tokens: torch.Tensor,
                 vocab: AxisGroup) -> torch.Tensor:
-    """The rows of a vocab-split (V/m, E) table for (B, S) tokens: each
-    rank looks up the tokens its rows hold, zeros elsewhere, and one
-    all-reduce over the model axis assembles the rows (one nonzero term
-    per row, so the sum is exact)."""
-    n = table.shape[0]
+    """The rows of a vocab-split (V/m, E) table for (B, S) tokens, or of
+    (C, V/m, E) codebook tables for (C, B, S) tokens (codebook c's
+    tokens in its table): each rank looks up the tokens its rows hold,
+    zeros elsewhere, and one all-reduce over the model axis assembles
+    the rows (one nonzero term per row, so the sum is exact)."""
+    n = table.shape[-2]
     local = tokens.long() - vocab.rank * n
     inside = (local >= 0) & (local < n)
-    rows = torch.nn.functional.embedding(
-        torch.where(inside, local, torch.zeros_like(local)), table)
+    local = torch.where(inside, local, torch.zeros_like(local))
+    if table.ndim == 2:
+        rows = torch.nn.functional.embedding(local, table)
+    else:
+        rows = torch.stack([torch.nn.functional.embedding(local[c], table[c])
+                            for c in range(table.shape[0])])
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
     return reduce_from_model(rows, vocab, "embed")
 
@@ -212,17 +193,26 @@ def embed_rows(cfg, params: dict, tokens: torch.Tensor,
     (B, C, S) over C codebook tables (C, V, E) (per agent (A, C, V,
     E)): the C rows of a position are summed in the compute dtype, in
     codebook order, as the reference sums them. ``vocab`` (the model
-    axis): ``embed`` holds the rank's rows of the vocabulary."""
+    axis): ``embed`` holds the rank's rows of the vocabulary (audio: of
+    each codebook's, (C, V/m, E)); each codebook's rows are looked up
+    on the rank that holds them, all C of them assembled by one
+    all-reduce of the stacked (C, B, S, E) rows, then summed in codebook
+    order, so the sum rounds as on one device."""
     cdt = cfg.dtype("compute")
     table = params["embed"]
-    if vocab is not None:
-        return _split_rows(table, tokens, vocab).to(cdt)
     if cfg.family != "audio":
+        if vocab is not None:
+            return _split_rows(table, tokens, vocab).to(cdt)
         return _rows(table, tokens, agents).to(cdt)
+    if vocab is not None:
+        books = _split_rows(table, tokens.transpose(0, 1), vocab).to(cdt)
+    else:
+        books = [_rows(table[c] if agents is None else table[:, c],
+                       tokens[:, c], agents).to(cdt)
+                 for c in range(cfg.n_codebooks)]
     x = 0
     for c in range(cfg.n_codebooks):
-        book = table[c] if agents is None else table[:, c]
-        x = x + _rows(book, tokens[:, c], agents).to(cdt)
+        x = x + books[c]
     return x
 
 
@@ -231,7 +221,8 @@ def head_weight(cfg, params: dict,
     """The LM head (E, V) — the embedding's transpose when tied — or,
     with ``agents`` (B,), each row's agent's (B, E, V) from stacked
     planes; the audio family's C codebook heads (C, E, V), per agent
-    (B, C, E, V). Not yet cast."""
+    (B, C, E, V). On a vocab-split model axis each holds the rank's V/m
+    columns ((E, V/m), audio (C, E, V/m)). Not yet cast."""
     tied = cfg.tie_embeddings and cfg.family != "audio"
     if agents is None:
         return params["embed"].T if tied else params["lm_head"]

@@ -16,6 +16,15 @@ Every cache-free pass runs the SSD kernel in each Mamba2 sub-layer and
 the flash attention in each call of the shared block
 (``repro_torch.models.attention``); a pass with a cache attends over
 its slots instead, as the reference does.
+
+On a model axis the Mamba2 layers run their rank's SSD heads
+(``repro_torch.models.mamba2``), the shared block runs the split
+attention (its KV cache's slots over ``"kv_slots"`` when serving) and
+the split SwiGLU, the embedding and head are vocab-parallel (the full
+logits gathered, the loss vocab-parallel), and a cache is the rank's
+slice (``shardings.local_cache``). The reference forms W + a·b at each
+call site with W split and the LoRA factors whole; here each rank forms
+its slice of the sum (:func:`_merge_lora`).
 """
 from __future__ import annotations
 
@@ -24,12 +33,15 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.sharding import mesh_axis
 from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
                                        slot_layer, stack_layers, tree_map,
                                        unstack_layers)
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (cross_entropy, dense_init,
-                                       embed_init, embed_rows, rms_norm)
+from repro_torch.models.common import (copy_to_model, cross_entropy,
+                                       dense_init, embed_init, embed_rows,
+                                       gather_from_model,
+                                       rms_norm, split_axis, vocab_split)
 from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
                                        mamba2_decode, mamba2_forward)
 from repro_torch.models.mlp import init_swiglu, swiglu
@@ -60,18 +72,34 @@ def _init_lora(cfg, gen: torch.Generator, shapes: dict, device) -> dict:
             for name, (din, dout) in shapes.items()}
 
 
-def _merge_lora(shared: dict, lora: dict, cdt: torch.dtype) -> dict:
+def _merge_lora(shared: dict, lora: dict, cdt: torch.dtype,
+                tp=None) -> dict:
     """Effective weights for one call site: W + A·B, each cast to the
     compute dtype first and the sum formed in it, as the reference
     does. With per-row weights (leaves (B, ...), the group engine's
-    slots) the products are batched, one row's delta each."""
+    slots) the products are batched, one row's delta each. On the model
+    axis ``tp`` a split W is the rank's slice and takes the same slice
+    of the delta: A·B[:, cols] for a column target (``wq``, ``wk``,
+    ``wv``, ``w_gate``, ``w_up``), A[rows]·B for a row target (``wo``,
+    ``w_down``); their factors enter through ``copy_to_model``, so their
+    gradients sum the ranks' parts. A target placed whole takes the
+    whole delta (the layer that reads it sums its gradient)."""
     out = dict(shared)
     out["attn"] = dict(shared["attn"])
     out["mlp"] = dict(shared["mlp"])
     for grp, names in _LORA_TARGETS.items():
         for n in names:
-            delta = lora[n]["a"].to(cdt) @ lora[n]["b"].to(cdt)
-            out[grp][n] = shared[grp][n].to(cdt) + delta
+            w, a, b = shared[grp][n], lora[n]["a"], lora[n]["b"]
+            if tp is not None and w.shape[-1] < b.shape[-1]:
+                c = w.shape[-1]
+                a = copy_to_model(a, tp)
+                b = copy_to_model(b, tp)[..., tp.rank * c:(tp.rank + 1) * c]
+            elif tp is not None and w.shape[-2] < a.shape[-2]:
+                r = w.shape[-2]
+                a = copy_to_model(a, tp)[..., tp.rank * r:(tp.rank + 1) * r,
+                                         :]
+                b = copy_to_model(b, tp)
+            out[grp][n] = w.to(cdt) + a.to(cdt) @ b.to(cdt)
     return out
 
 
@@ -120,7 +148,8 @@ def _shared_block(cfg, weights: dict, x: torch.Tensor,
                                     kv_cache, drop_past=not decode)
     x = x + a
     h2 = rms_norm(x, weights["ln2"], cfg.norm_eps)
-    x = x + swiglu(weights["mlp"], h2, cfg.dtype("compute"))
+    x = x + swiglu(weights["mlp"], h2, cfg.dtype("compute"),
+                   split_axis(cfg, "ff", cfg.d_ff))
     return x, new_kv
 
 
@@ -132,26 +161,18 @@ def _mamba_sublayer(cfg, lp: dict, x: torch.Tensor,
     return x + o, new_state
 
 
-def hybrid_forward(cfg, params: dict, batch: dict,
-                   cache: Optional[dict] = None, decode: bool = False,
-                   agents: Optional[torch.Tensor] = None):
-    """Full-sequence pass (scoring / prefill), or with ``decode`` one
-    token. Returns (logits, aux = 0, new cache or None). A prefill into
-    a cache runs its whole right-padded width, which may pass the KV
-    slots: the KV writes past them are dropped, as the reference's are,
-    while the pads run on through the Mamba2 states, which keep them.
-    The caller checks that the real tokens fit (``api.prefill``), and a
-    decode step's caller checks the fit too. With ``agents`` (B,) (long, on the planes' device),
-    ``params`` are stacked planes (leaves (A, ...)) and row b runs under
-    agent ``agents[b]``'s weights, each gathered at its own depth just
-    before it runs: the shared block once a step, a call site's LoRA
-    factors and each Mamba2 layer as they come (B copies of one)."""
+def _run(cfg, params: dict, batch: dict, cache: Optional[dict],
+         decode: bool, agents: Optional[torch.Tensor]):
+    """:func:`hybrid_forward`'s pass: (the logits as the rank holds
+    them, the new cache or None, the vocab's model axis or None)."""
     hy = cfg.hybrid
     nb, mpb, nt = hy.n_super_blocks, hy.mamba_per_block, hy.tail_mamba
     cdt = cfg.dtype("compute")
     positions = batch["positions"]
     want_cache = cache is not None
-    x = embed_rows(cfg, params, batch["tokens"], agents)
+    vocab = vocab_split(cfg) if agents is None else None
+    tp = mesh_axis("ff") if agents is None else None
+    x = embed_rows(cfg, params, batch["tokens"], agents, vocab)
     if agents is None:
         shared = params["shared"]
         blocks = [unstack_layers(b, mpb) for b in
@@ -181,7 +202,7 @@ def hybrid_forward(cfg, params: dict, batch: dict,
             states.append(st)
         lora = (loras[i] if agents is None
                 else slot_layer(params["lora"], agents, i))
-        x, kv = _shared_block(cfg, _merge_lora(shared, lora, cdt), x,
+        x, kv = _shared_block(cfg, _merge_lora(shared, lora, cdt, tp), x,
                               positions, state("kv", i), decode)
         new_m.append(states)
         new_kv.append(kv)
@@ -197,6 +218,8 @@ def hybrid_forward(cfg, params: dict, batch: dict,
     if agents is not None:
         norm, head = pick_rows(norm, agents), pick_rows(head, agents)
     x = rms_norm(x, norm, cfg.norm_eps)
+    if vocab is not None:
+        x = copy_to_model(x, vocab)
     logits = x @ head.to(cdt)
     new_cache = None
     if want_cache:
@@ -204,6 +227,28 @@ def hybrid_forward(cfg, params: dict, batch: dict,
                                             for s in new_m]),
                      "kv": stack_layers(new_kv),
                      "tail": stack_layers(new_tail) if nt else None}
+    return logits, new_cache, vocab
+
+
+def hybrid_forward(cfg, params: dict, batch: dict,
+                   cache: Optional[dict] = None, decode: bool = False,
+                   agents: Optional[torch.Tensor] = None):
+    """Full-sequence pass (scoring / prefill), or with ``decode`` one
+    token. Returns (logits, aux = 0, new cache or None). A prefill into
+    a cache runs its whole right-padded width, which may pass the KV
+    slots: the KV writes past them are dropped, as the reference's are,
+    while the pads run on through the Mamba2 states, which keep them.
+    The caller checks that the real tokens fit (``api.prefill``), and a
+    decode step's caller checks the fit too. With ``agents`` (B,) (long, on the planes' device),
+    ``params`` are stacked planes (leaves (A, ...)) and row b runs under
+    agent ``agents[b]``'s weights, each gathered at its own depth just
+    before it runs: the shared block once a step, a call site's LoRA
+    factors and each Mamba2 layer as they come (B copies of one). On a
+    model axis the logits are the full rows on every rank."""
+    logits, new_cache, vocab = _run(cfg, params, batch, cache, decode,
+                                    agents)
+    if vocab is not None:
+        logits = gather_from_model(logits, vocab, "logits")
     return logits, torch.zeros((), dtype=torch.float32), new_cache
 
 
@@ -220,12 +265,20 @@ def hybrid_decode(cfg, params: dict, batch: dict, cache: dict,
 
 def hybrid_loss(cfg, params: dict, batch: dict) -> torch.Tensor:
     """Token-mean cross-entropy of a cache-free pass over ``labels``
-    (−100 ignored) plus the aux term (0)."""
-    logits, aux, _ = hybrid_forward(cfg, params, batch)
-    return cross_entropy(logits, batch["labels"]) + aux
+    (−100 ignored; vocab-parallel on a model axis) plus the aux term
+    (0)."""
+    logits, _, vocab = _run(cfg, params, batch, None, False, None)
+    return cross_entropy(logits, batch["labels"], vocab=vocab)
 
 
 def make_hybrid_cache(cfg, batch: int, max_len: int, device=None) -> dict:
+    """The Mamba2 states, the shared block's KV caches and the tail's
+    states; under installed rules and a mesh the rank's slice of a
+    global ``batch``'s (``shardings.local_cache``)."""
+    from repro_torch.launch.shardings import local_cache
+    local = local_cache(cfg, batch, max_len, device)
+    if local is not None:
+        return local
     hy = cfg.hybrid
     nb, mpb = hy.n_super_blocks, hy.mamba_per_block
     return {

@@ -1,6 +1,6 @@
 """Feed-forward blocks — the port of ``repro.models.mlp``: SwiGLU
-(the llama family; column / row split over the model axis) and the GELU
-MLP (MusicGen)."""
+(the llama family) and the GELU MLP (MusicGen), each a column / row
+split over the model axis."""
 from __future__ import annotations
 
 import torch
@@ -42,14 +42,21 @@ def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def gelu_mlp(p: dict, x: torch.Tensor, compute_dtype: torch.dtype
-             ) -> torch.Tensor:
+def gelu_mlp(p: dict, x: torch.Tensor, compute_dtype: torch.dtype,
+             tp=None) -> torch.Tensor:
     """gelu(x W1 + b1) W2 + b2 with GELU's tanh approximation, which is
     what the reference's ``jax.nn.gelu`` computes by default; weights
     cast to the compute dtype per call. Each weight may carry a leading
-    batch axis (the group engine's per-slot weights)."""
+    batch axis (the group engine's per-slot weights). ``tp`` (the model
+    axis): ``w1`` / ``b1`` hold the rank's columns of the ff width and
+    ``w2`` its rows; the partial product is all-reduced and the
+    replicated ``b2`` added once, after it."""
+    if tp is not None:
+        x = copy_to_model(x, tp)
     h = x @ p["w1"].to(compute_dtype)
     h = h + per_row(p["b1"], h).to(compute_dtype)
     h = torch.nn.functional.gelu(h, approximate="tanh")
     out = h @ p["w2"].to(compute_dtype)
+    if tp is not None:
+        out = reduce_from_model(out, tp, "mlp_out")
     return out + per_row(p["b2"], out).to(compute_dtype)

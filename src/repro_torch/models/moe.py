@@ -14,7 +14,7 @@ Every weight may carry a leading batch axis, one row's weights each
 (the group engine's per-slot weights: router (B, E, Ne), experts (B,
 Ne, E, F), the shared SwiGLU (B, E, F)).
 
-On a model axis (``repro_torch.models.common.model_axis``) whose size
+On a model axis (``repro_torch.models.common.split_axis``) whose size
 divides Ne the experts hold the rank's Ne/m (the expert axis is split),
 and ``moe_apply`` chooses as the reference does: ``moe_dispatch ==
 "dense"`` keeps the dense scatter (each rank runs its experts' slots of

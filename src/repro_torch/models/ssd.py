@@ -25,10 +25,33 @@ from repro_torch.kernels.ssd_scan.ref import heads_of
 from repro_torch.models.common import recorded, refuse_pallas
 
 
+def rank_groups(t: torch.Tensor, head0: int, h: int,
+                total_heads: Optional[int]) -> torch.Tensor:
+    """(…, g, n) per-group projections of a layer of ``total_heads``
+    heads → the groups that its heads ``head0`` .. ``head0 + h − 1``
+    read, as (…, g', n) with local head k reading group k // (h / g'),
+    the layout ``ssd_chunked`` and the kernel expect: the rank's whole
+    groups where its heads cover them, its one group where they lie in
+    one, else a group per head. ``total_heads`` None: all the heads."""
+    if total_heads is None or (head0 == 0 and h == total_heads):
+        return t
+    per = total_heads // t.shape[-2]          # heads a group
+    first = head0 // per
+    if h % per == 0:
+        return t[..., first:first + h // per, :]
+    if (head0 + h - 1) // per == first:
+        return t[..., first:first + 1, :]
+    idx = torch.tensor([(head0 + k) // per for k in range(h)],
+                       device=t.device)
+    return t.index_select(-2, idx)
+
+
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 B: torch.Tensor, C: torch.Tensor, chunk: int,
                 initial_state: Optional[torch.Tensor] = None,
-                impl: str = "xla") -> Tuple[torch.Tensor, torch.Tensor]:
+                impl: str = "xla", head0: int = 0,
+                total_heads: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence SSD.
 
     x: (b, s, h, p) per-head inputs; dt: (b, s, h) positive step sizes
@@ -36,9 +59,14 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (b, s, g, n) projections, g groups broadcast onto the heads.
     Returns (y (b, s, h, p) in x's dtype, final_state (b, h, p, n)
     fp32). ``impl`` is ``ArchConfig.ssd_impl``: it matters only to a
-    pass that autograd records, which needs ``"xla"``.
+    pass that autograd records, which needs ``"xla"``. ``head0`` /
+    ``total_heads``: the h heads are global heads head0 .. head0 + h − 1
+    of ``total_heads`` (a rank's block on the model axis), B and C the
+    layer's g groups (:func:`rank_groups`).
     """
     b, s, h, p = x.shape
+    B = rank_groups(B, head0, h, total_heads)
+    C = rank_groups(C, head0, h, total_heads)
     g, n = B.shape[2], B.shape[3]
     if s % chunk:
         # pad to a chunk multiple with dt = 0 steps: exp(0·A) = 1 and
@@ -96,14 +124,18 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
-                    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor
+                    A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                    head0: int = 0, total_heads: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-token recurrent update.
 
     state: (b, h, p, n); x: (b, h, p); dt: (b, h); B, C: (b, g, n).
-    Returns (y (b, h, p) in x's dtype, new_state)."""
+    Returns (y (b, h, p) in x's dtype, new_state). ``head0`` /
+    ``total_heads``: as :func:`ssd_chunked`'s."""
     f32 = torch.float32
     h = x.shape[1]
+    B = rank_groups(B, head0, h, total_heads)
+    C = rank_groups(C, head0, h, total_heads)
     Bh = heads_of(B, h).to(f32)                         # (b,h,n)
     Ch = heads_of(C, h).to(f32)
     dtf = dt.to(f32)

@@ -21,6 +21,16 @@ carries ``vision`` (B, vision_prefix, E), pre-projected patch
 embeddings put ahead of the text's, and positions (B, 3, S) over the
 whole sequence; an audio batch carries tokens (B, n_codebooks, S),
 positions (B, S) and ``cond`` (B, cond_len, E).
+
+On a model axis every family splits the same way: attention by heads
+(M-RoPE's sections lie along ``head_dim``, so it rotates the rank's
+heads as it would all of them), the cross-attention by heads, the
+SwiGLU and GELU feed-forwards by columns then rows, the experts over
+the axis, the embedding and the head by the vocabulary (the audio
+family's C codebook tables and heads each by its own; its logits
+(B, C, S, V/m) before they are gathered). The VLM's vision rows enter
+replicated, and its −100 labels over them pass through the
+vocab-parallel loss as ignored tokens.
 """
 from __future__ import annotations
 
@@ -29,14 +39,15 @@ from typing import Optional
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.sharding import mesh_axis
 from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
-                                       slot_layer, stack_layers, tree_map,
+                                       slot_layer, stack_layers,
                                        unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (copy_to_model, cross_entropy,
                                        dense_init, embed_init, embed_rows,
                                        gather_from_model, head_weight,
-                                       model_axis, rms_norm,
+                                       rms_norm,
                                        sinusoidal_positions, split_axis,
                                        vocab_split)
 from repro_torch.models.mlp import gelu_mlp, init_gelu_mlp, init_swiglu, swiglu
@@ -119,7 +130,8 @@ def _layer_apply(cfg, p: dict, x: torch.Tensor, positions: torch.Tensor,
     if "moe" in p:
         f, aux = moe_apply(cfg, p["moe"], h2)
     elif cfg.family == "audio":
-        f, aux = gelu_mlp(p["mlp"], h2, cdt), None
+        f, aux = gelu_mlp(p["mlp"], h2, cdt,
+                          split_axis(cfg, "ff", cfg.d_ff)), None
     else:
         width = cfg.d_ff if cfg.moe is None else cfg.dense_ff
         f, aux = swiglu(p["mlp"], h2, cdt, split_axis(cfg, "ff", width)), None
@@ -148,11 +160,12 @@ def _lm_head(cfg, params: dict, x: torch.Tensor,
              agents: Optional[torch.Tensor] = None,
              vocab=None) -> torch.Tensor:
     """Logits (B, S, V), or the audio family's (B, C, S, V); ``vocab``
-    (the model axis): the rank's (B, S, V/m) columns (a tied head reads
-    the embedding's rows of the rank's vocabulary)."""
+    (the model axis): the rank's V/m columns, (B, S, V/m) or (B, C, S,
+    V/m) (a tied head reads the embedding's rows of the rank's
+    vocabulary)."""
     w = head_weight(cfg, params, agents).to(cfg.dtype("compute"))
     if vocab is not None:
-        return copy_to_model(x, vocab) @ w
+        x = copy_to_model(x, vocab)
     if cfg.family == "audio":
         return torch.einsum("bsd,kdv->bksv" if agents is None
                             else "bsd,bkdv->bksv", x, w)
@@ -257,7 +270,7 @@ def _forward(cfg, params: dict, batch: dict, cache: Optional[dict]):
     (logits, aux, new cache, the vocab's model axis or None)."""
     drop_past = cfg.moe is not None
     if cache is not None and not drop_past:
-        sw = model_axis(cfg, "kv_slots")
+        sw = mesh_axis("kv_slots")
         check_fits(cfg, batch["positions"].shape[-1] - 1,
                    cache["layers"]["kv"]["pos"].shape[-1]
                    * (1 if sw is None else sw.size))
@@ -306,13 +319,10 @@ def make_transformer_cache(cfg, batch: int, max_len: int,
     its slots over ``"kv_slots"`` where they divide, every kv head), so
     no rank allocates a layer's whole slot dim that splits
     (``model.cache_specs`` gives the global shapes)."""
-    from repro_torch.launch.shardings import local_cache_shapes
-    local = local_cache_shapes(cfg, batch, max_len)
+    from repro_torch.launch.shardings import local_cache
+    local = local_cache(cfg, batch, max_len, device)
     if local is not None:
-        dev = resolve_device(device)
-        return tree_map(lambda t, shape: torch.full(
-            shape, 0 if t.dtype.is_floating_point else -1, dtype=t.dtype,
-            device=dev), local[0], local[1])
+        return local
     make = attn.make_mla_cache if cfg.mla is not None else attn.make_kv_cache
 
     def one(n):

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.common.pytree import tree_map
 from repro_torch.common.sharding import mesh_axis, set_mesh
-from repro_torch.configs.base import TRANSFORMER_FAMILIES, ArchConfig
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models import get_model
 from repro_torch.models.transformer import check_fits
 
@@ -128,15 +128,14 @@ def prefill(cfg: ArchConfig, model, params, tokens: torch.Tensor,
     ``set_mesh``) ``tokens`` and ``lengths`` are the rank's rows: the
     global batch's share over the data axis where the rules split it,
     every row where they replicate it. The cache is the rank's slice
-    (``make_transformer_cache``) and the logits the full rows, so the
+    (``shardings.local_cache``) and the logits the full rows, so the
     row select and the sampler see what one device would; every rank of
     a model group then draws the same greedy token."""
     B, P = tokens.shape[:2]
     if P > max_len and model.kv_pos is not None:
         check_fits(cfg, int(np.max(host_ints(lengths))) - 1, max_len)
     data = mesh_axis("batch")
-    n = B * (data.size if data is not None
-             and cfg.family in TRANSFORMER_FAMILIES else 1)
+    n = B * (1 if data is None else data.size)
     cache = model.make_cache(cfg, n, max_len, device=tokens.device)
     logits, cache = model.forward(cfg, params,
                                   build_prefill_batch(cfg, tokens), cache)

@@ -267,6 +267,97 @@ def test_head_rule_replicates_a_split_head():
                                     spec, (2, 256, 512)) == spec
 
 
+def _placed(cfg, mesh, kind="train"):
+    """{path: placement spec} of every parameter leaf (``kind``
+    "cache": of the decode cache's leaves, under serve_rules)."""
+    if kind == "cache":
+        rules = mesh_lib.serve_rules(mesh, 256)
+        shape = INPUT_SHAPES["decode_32k"]
+        specs = shardings.cache_partition_specs(
+            cfg, shape, rules["batch"], slots_axis=rules["kv_slots"])
+        full = model_lib.cache_specs(cfg, shape)
+    else:
+        specs = shardings.param_partition_specs(
+            cfg, mesh_lib.train_rules(mesh))
+        full = model_lib.param_specs(cfg)
+    flat = dict(shardings._dict_leaves(specs))
+    return {"/".join(p): shardings.placement_spec(
+        cfg, mesh, p, flat[p], tuple(x.shape))
+        for p, x in tree_leaves_with_paths(full)}
+
+
+def _split_dims(spec):
+    return [d for d, a in enumerate(spec) if a == "model"]
+
+
+# (arch, {leaf suffix: the dim from the end split over "model", or None
+# for a leaf placed whole}) at m = 16
+_M16_CASES = {
+    # 48 SSD heads, 3 a rank: every ssm_inner leaf splits
+    "mamba2-780m": {"mamba/w_z": -1, "mamba/w_x": -1, "mamba/norm_w": -1,
+                    "mamba/out_proj": -2, "conv_x/w": -1, "conv_x/b": -1,
+                    "mamba/w_B": None, "mamba/w_dt": None,
+                    "conv_B/w": None, "mamba/A_log": None},
+    # 112 SSD heads, 7 a rank; the shared block's 32 heads, 2 a rank
+    "zamba2-7b": {"mamba/w_z": -1, "mamba/out_proj": -2, "conv_x/w": -1,
+                  "shared/attn/wq": -1, "shared/attn/wk": -1,
+                  "shared/attn/wo": -2, "shared/mlp/w_down": -2,
+                  "lora/wq/a": None, "lora/wq/b": None},
+    # 24 heads do not divide 16: the self- and cross-attention's heads
+    # stay whole (the self-attention's wo splits by rows, as for llama)
+    "musicgen-medium": {"attn/wq": None, "attn/wk": None, "attn/wv": None,
+                        "xattn/wq": None, "xattn/wk": None, "xattn/wv": None,
+                        "xattn/wo": None, "layers/attn/wo": -2, "mlp/w1": -1,
+                        "mlp/b1": -1, "mlp/w2": -2, "mlp/b2": None,
+                        "embed": -2, "lm_head": -1},
+}
+
+
+@pytest.mark.parametrize("arch", list(_M16_CASES))
+def test_whole_heads_placement_at_m16(arch):
+    """The placement on the 16 x 16 (data, model) mesh splits a leaf made
+    of heads (Mamba2's ``ssm_inner`` leaves by the SSD heads, attention
+    and cross-attention by theirs) only where the heads divide 16, while
+    ``param_partition_specs`` keeps the reference's entries."""
+    cfg = get_arch_config(arch)
+    mesh = MESHES["data_model"]
+    placed = _placed(cfg, mesh)
+    for suffix, dim in _M16_CASES[arch].items():
+        hits = [k for k in placed if k.endswith(suffix)]
+        assert hits, suffix
+        for k in hits:
+            split = _split_dims(placed[k])
+            want = [] if dim is None else [len(placed[k]) + dim]
+            assert split == want, (k, placed[k])
+    cache = _placed(cfg, mesh, "cache")
+    whole = arch == "musicgen-medium"
+    for k, spec in cache.items():
+        if k.endswith(("conv_x", "ssm", "/ck", "/cv")):
+            assert bool(_split_dims(spec)) != whole, (k, spec)
+        if k.endswith(("conv_B", "conv_C")):
+            assert not _split_dims(spec), (k, spec)
+
+
+def test_ssm_inner_leaves_stay_whole_where_the_heads_do_not_divide():
+    """mamba2-780m at reduced() with a head_dim of 256: d_inner 512
+    divides 4, its 2 SSD heads do not, so ``w_z`` / ``w_x`` / ``conv_x``
+    / ``norm_w`` / ``out_proj`` and the cache's ``conv_x`` / ``ssm`` are
+    placed whole on a 4-rank model axis; ``_sanitize`` alone would cut
+    them."""
+    import dataclasses
+    cfg = get_arch_config("mamba2-780m").reduced()
+    cfg = cfg.with_(ssm=dataclasses.replace(cfg.ssm, head_dim=256))
+    mesh = StubMesh((1, 4), ("data", "model"))
+    placed = _placed(cfg, mesh)
+    for k, spec in placed.items():
+        assert not _split_dims(spec) or k.endswith(("embed", "lm_head")), (
+            k, spec)
+    assert shardings._sanitize(mesh, (None, None, "model"),
+                               (2, 256, 512)) == (None, None, "model")
+    for k, spec in _placed(cfg, mesh, "cache").items():
+        assert not _split_dims(spec), (k, spec)
+
+
 @pytest.mark.parametrize("B,S,k,Ne,C", [(3, 16, 2, 4, 5), (2, 24, 2, 4, 12),
                                         (2, 64, 8, 16, 40), (1, 7, 1, 3, 1)])
 def test_dispatch_indices_match_the_reference_bitwise(B, S, k, Ne, C):
