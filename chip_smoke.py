@@ -3081,31 +3081,45 @@ def _one_rank_nccl(torch):
     return make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
 
 
-def _tp_run(torch, mesh, cfg):
+def _tp_run(torch, mesh, cfg, spec_kw=None):
     """``[tp]``'s trainer run of ``cfg`` (mesh None: the one-device
-    step): (per-step losses on the host, the final params (the state's
-    own tensors, the rest of the state freed), the kernel launches, the
-    number of leaves, ms per step, the share steps)."""
+    step; ``spec_kw`` overrides the ring exchange): (per-step losses on
+    the host, the final params (the state's own tensors, the rest of
+    the state freed), the kernel launches, the number of leaves, ms per
+    step, the share steps). On a ``(pod, data, model)`` mesh the state
+    is drawn sliced (``init_train_state(..., mesh=)``) and the batch is
+    the rank's pod's agents' rows."""
     from repro_torch import optim
     from repro_torch.configs.base import GroupSpec, ShapeConfig
     from repro_torch.core.exchange import build_exchange
     from repro_torch.core.sharded_ddal import (init_train_state,
-                                               make_group_train_step)
+                                               make_group_train_step,
+                                               mesh_kind)
     from repro_torch.data import StreamSpec, make_data_batch, make_group_batch
     from repro_torch.launch import shardings as SH
     from repro_torch.launch.mesh import train_rules
 
+    kw = dict(topology="ring", exchange_estimator="grad_cos+sketch",
+              relevance_sketch_dim=SKETCH_DIM,
+              knowledge_quant_block=QUANT_BLOCK)
+    kw.update(spec_kw or {})
     spec = GroupSpec(n_agents=4, threshold=2, minibatch=2,
-                     knowledge_mode="streaming", topology="ring",
-                     exchange_estimator="grad_cos+sketch",
-                     relevance_sketch_dim=SKETCH_DIM,
-                     knowledge_quant_block=QUANT_BLOCK)
+                     knowledge_mode="streaming", **kw)
     opt = optim.adamw(1e-3)
     shape = ShapeConfig("train_smoke", 256, 2, "train")
     ex = build_exchange(spec, kind="streaming", mesh=mesh)
-    state = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
-                             device="cuda")
-    if mesh is not None:
+    pods = mesh_kind(mesh) == "pod_model"
+    if pods:
+        specs = SH.state_placement_specs(cfg, mesh, ex.estimator.learns,
+                                         ex.sketch_dim)
+        like = SH.full_shapes(init_train_state(
+            cfg, spec, opt, seed=0, exchange=ex, device="meta"))
+        state = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                                 device="cuda", mesh=mesh)
+    else:
+        state = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                                 device="cuda")
+    if mesh is not None and not pods:
         specs = SH.train_state_partition_specs(
             cfg, train_rules(mesh), None, ex.estimator.learns, ex.sketch_dim)
         like = SH.full_shapes(state)
@@ -3118,8 +3132,9 @@ def _tp_run(torch, mesh, cfg):
             batch = make_group_batch(cfg, shape, StreamSpec(seed=0), 4, i,
                                      "cuda")
         else:
-            batch = make_data_batch(cfg, shape, StreamSpec(seed=0), 4, i,
-                                    mesh, "cuda")
+            batch = make_data_batch(
+                cfg, shape, StreamSpec(seed=0), 4, i, mesh, "cuda",
+                rows=None if ex.shard is None else ex.shard.rows)
         t = time.perf_counter()
         state, m = step(state, batch)
         torch.cuda.synchronize()
@@ -3198,6 +3213,178 @@ def tp_phase(torch, mesh, arch=LLAMA, n_layers=2):
     return {name: {label: launched[name]}
             for name in ("flash_attention", "ssd_intra_chunk", "grad_sketch")
             if launched[name]}
+
+
+def tp_pods_phase(torch):
+    """``[tp-pods]``: the streaming trainer on the (1, 1, 1) ``(pod,
+    data, model)`` mesh over NCCL (agents over ``pod``, the model under
+    ``train_rules``, the state drawn sliced, the exchange gathered over
+    ``pod``) against the same step with no mesh, as ``[tp]``: llama3.2-3b
+    cut to 2 layers, 4 agents on a ring, sketched relevance d 256, int8
+    planes, 6 steps, shares at 2 and 4; then the same with
+    ``topology=hierarchical``, 2 pods of 2 and the ``pod`` combiner
+    (the one-device pod dispatch beside it). Gates as ``[tp]``. Returns
+    {kernel: {path: n}}."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch_config
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh((1, 1, 1), ("pod", "data", "model"),
+                           device_type="cuda")
+    cfg = get_arch_config(LLAMA).with_(n_layers=2)
+    out = {}
+    for case, kw in (("ring", {}), ("pod combiner", dict(
+            topology="hierarchical", degree=2, pods=2))):
+        t0 = time.perf_counter()
+        label = (f"[tp-pods] {LLAMA}, 2 layers, (1, 1, 1) (pod, data, "
+                 f"model) mesh, {case}")
+        w_loss, w_params, _, leaves, w_ms, w_shared = _tp_run(
+            torch, None, cfg, kw)
+        loss, params, launched, _, ms, shared = _tp_run(torch, mesh, cfg,
+                                                        kw)
+        worst_loss = max(float((a - b).abs().max())
+                         for a, b in zip(loss, w_loss))
+        loss_ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                      for a, b in zip(loss, w_loss))
+        worst = max(float((a - b).abs().max())
+                    for a, b in zip(params, w_params))
+        params_ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                        for a, b in zip(params, w_params))
+        del params, w_params
+        gc.collect()
+        torch.cuda.empty_cache()
+        backend = dist.get_backend()
+        n_ssd, n_flash = kernel_layers(cfg)
+        want_launches = dict({name: 0 for name in KERNELS},
+                             flash_attention=n_flash * 4 * TP_STEPS,
+                             grad_sketch=leaves * (TP_STEPS - 2))
+        print(f"{label}: over {backend}; ms per step with the mesh "
+              f"{[round(x, 1) for x in ms]}, without "
+              f"{[round(x, 1) for x in w_ms]}; losses max abs "
+              f"{worst_loss:.3e}, parameters max abs {worst:.3e} over "
+              f"{leaves} leaves (rtol 1e-5, atol 1e-6) -> "
+              f"{'ok' if loss_ok and params_ok else 'FAIL'}; shared at "
+              f"{shared}; launches " + ", ".join(
+                  f"{k} {v}" for k, v in launched.items())
+              + f"; {time.perf_counter() - t0:.1f} s. One rank on one "
+              f"card: traffic between cards is not exercised")
+        check(backend == "nccl", f"{label}: the group runs {backend}")
+        check(loss_ok, f"{label}: losses differ from the one-device step")
+        check(params_ok, f"{label}: parameters differ from the one-device "
+                         f"step")
+        check(shared == w_shared == [2, 4], f"{label}: shared at {shared}")
+        check(launched == want_launches,
+              f"{label}: kernel launches {launched} != {want_launches}")
+        for name in ("flash_attention", "grad_sketch"):
+            out.setdefault(name, {})[label] = launched[name]
+    return out
+
+
+def _state_bytes(torch, state) -> int:
+    from repro_torch.checkpoint.npz import _paths
+    return sum(x.numel() * x.element_size() for _, x in _paths(state)
+               if isinstance(x, torch.Tensor))
+
+
+def _largest_drawn_tree(cfg) -> int:
+    """Bytes of the largest tree one agent's init draws whole: a layer
+    of a stack (its leaves' bytes over the stacked dims), the
+    embedding, the head or a tree drawn whole (``layer0``, ``shared``)."""
+    from repro_torch.common.pytree import tree_leaves_with_paths
+    from repro_torch.models.model import param_specs
+    STACKS = {"layers": 1, "mamba_blocks": 2, "lora": 1, "tail": 1}
+    trees = {}
+    for path, x in tree_leaves_with_paths(param_specs(cfg)):
+        lead = STACKS.get(path[0], 0)
+        n = x.numel() * x.element_size()
+        for d in range(lead):
+            n //= x.shape[d]
+        trees[path[0]] = trees.get(path[0], 0) + n
+    return max(trees.values())
+
+
+def init_slice_phase(torch):
+    """``[init-slice]``: the sliced init alone (no step runs at that size
+    on one card). Rank (0, 0, 0) of the 2 x 16 x 16 ``(pod, data,
+    model)`` mesh, described by a ``MeshPoint`` (no process group),
+    draws its slice of qwen3-moe-30b-a3b's state at published widths
+    and depth in fp32, 2 agents, sketch d 256: its state bytes, the peak
+    allocated during the init and the seconds, gated on the peak being
+    at most the rank's state + the largest tree drawn whole for one
+    agent + 1 GiB. Then llama3.2-3b at full width cut to 4 layers, 2
+    agents: the sliced params at every coordinate of a (1, 1, 4) and a
+    (2, 1, 2) description bitwise ``place`` of a whole draw."""
+    from repro_torch import optim
+    from repro_torch.common.pytree import tree_leaves_with_paths
+    from repro_torch.common.sharding import MeshPoint
+    from repro_torch.configs import get_arch_config
+    from repro_torch.configs.base import GroupSpec
+    from repro_torch.core.exchange import build_exchange
+    from repro_torch.core.sharded_ddal import init_train_state
+    from repro_torch.launch import shardings as SH
+    axes = ("pod", "data", "model")
+    spec = GroupSpec(n_agents=2, knowledge_mode="streaming",
+                     exchange_estimator="grad_cos+sketch",
+                     relevance_sketch_dim=SKETCH_DIM)
+    opt = optim.adamw(1e-3)
+    ex = build_exchange(spec, kind="streaming")
+    label = (f"[init-slice] {QWEN}, published widths and depth, fp32, 2 "
+             f"agents, rank (0, 0, 0) of the 2 x 16 x 16 (pod, data, "
+             f"model) mesh")
+    cfg = get_arch_config(QWEN).with_(param_dtype="float32")
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                             device="cuda",
+                             mesh=MeshPoint(axes, (2, 16, 16), (0, 0, 0)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    held = _state_bytes(torch, state)
+    tree = _largest_drawn_tree(cfg)
+    bound = held + tree + (1 << 30)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: the rank's state {held / 2**30:.3f} GiB, peak "
+          f"allocated during the init {peak / 2**30:.3f} GiB, the largest "
+          f"tree drawn whole for one agent {tree / 2**30:.3f} GiB, bound "
+          f"(state + tree + 1 GiB) {bound / 2**30:.3f} GiB -> "
+          f"{'ok' if peak <= bound else 'FAIL'}; {secs:.1f} s. This "
+          f"phase measures the init alone: no step runs at that size on "
+          f"one card")
+    check(peak <= bound, f"{label}: peak {peak} > bound {bound}")
+    t0 = time.perf_counter()
+    cfg = get_arch_config(LLAMA).with_(n_layers=4)
+    whole = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                             device="cuda").params
+    n_points = 0
+    for shape in ((1, 1, 4), (2, 1, 2)):
+        for pt in MeshPoint(axes, shape, (0, 0, 0)).points():
+            specs = SH.state_placement_specs(cfg, pt, True, SKETCH_DIM)
+            want = SH.place(whole, specs.params, pt, cfg)
+            got = init_train_state(cfg, spec, opt, seed=0, exchange=ex,
+                                   device="cuda", mesh=pt).params
+            same = all(
+                a.shape == b.shape and torch.equal(a, b)
+                for (_, a), (_, b) in zip(tree_leaves_with_paths(got),
+                                          tree_leaves_with_paths(want)))
+            check(same, f"[init-slice] {LLAMA}, 4 layers: the slice at "
+                        f"{pt.coord} of {shape} is not place() of the "
+                        f"whole draw")
+            n_points += 1
+            del want, got
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[init-slice] {LLAMA} at full width, 4 layers, 2 agents: the "
+          f"sliced params at every coordinate of (1, 1, 4) and (2, 1, 2) "
+          f"({n_points} ranks) bitwise place() of the whole draw -> ok; "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 def expert_parallel_phase(torch, mesh):
@@ -3680,7 +3867,9 @@ def group_tp_phase(torch):
 
 
 def model_axis_phases(torch, table):
-    """``[tp]`` (llama3.2-3b, then mamba2-780m), ``[equiv] experts ep``,
+    """``[tp]`` (llama3.2-3b, then mamba2-780m), ``[tp-pods]`` (the
+    (1, 1, 1) ``(pod, data, model)`` mesh), ``[init-slice]`` (no group
+    needed), ``[equiv] experts ep``,
     ``[serve-tp]``, ``[score-tp]`` and ``[group-tp]`` in one one-rank
     NCCL group, destroyed after them, then ``[kernel] grad_sketch
     strided``. The families that came to the model axis last take
@@ -3696,6 +3885,11 @@ def model_axis_phases(torch, table):
     paths = []
     try:
         paths.append(tp_phase(torch, mesh))
+        t0 = time.perf_counter()
+        paths.append(tp_pods_phase(torch))
+        init_slice_phase(torch)
+        print(f"[time] [tp-pods] and [init-slice]: "
+              f"{time.perf_counter() - t0:.1f} s")
         expert_parallel_phase(torch, mesh)
         t0 = time.perf_counter()
         serve_tp_phase(torch, mesh)

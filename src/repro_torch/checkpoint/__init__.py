@@ -3,9 +3,12 @@
 from repro_torch.checkpoint.npz import (  # noqa: F401
     restore,
     restore_group,
+    restore_sliced,
     restore_step,
     restore_train,
     save,
     save_group,
+    save_sliced,
     save_train,
+    save_train_sliced,
 )

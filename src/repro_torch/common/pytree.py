@@ -151,21 +151,55 @@ def stack_layers(trees):
     return tree_map(lambda *ts: torch.stack(ts), *trees)
 
 
-def init_stacked(n_layers, draw):
+_slice = threading.local()
+
+
+@contextlib.contextmanager
+def slicing(cut):
+    """Within the scope a model's ``init`` hands every tree it draws to
+    ``cut(path, tree, lead)`` before keeping it: ``path`` is the tree's
+    place in the parameter tree, ``lead`` the stacking dims the drawn
+    tree lacks (``()`` for a tree drawn whole: :func:`sliced`; a layer's
+    for :func:`init_stacked`). ``cut`` returns the part the calling rank
+    keeps (``repro_torch.core.sharded_ddal.init_train_state`` draws a
+    rank's slice of a state this way). ``None``: keep everything."""
+    prev = getattr(_slice, "cut", None)
+    _slice.cut = cut
+    try:
+        yield
+    finally:
+        _slice.cut = prev
+
+
+def sliced(path: Path, tree, lead: Tuple[int, ...] = ()):
+    """``tree``, drawn whole at ``path`` of the parameter tree, as the
+    active :func:`slicing` keeps it (as it is outside one)."""
+    cut = getattr(_slice, "cut", None)
+    return tree if cut is None else cut(tuple(path), tree, tuple(lead))
+
+
+def init_stacked(n_layers, draw, path: Path = ()):
     """``draw()`` called once per layer, each layer's tree copied into
     its slot of leaves stacked on axis 0 as soon as it is drawn, so a
     model's weights are never held twice (the reference draws them all
     at once under ``vmap``). ``n_layers`` is a count, or a tuple of
     counts for nested stacks (leaves (d1, d2, ...)), filled in
-    row-major order. On ``meta`` one layer is drawn, for its shapes."""
+    row-major order. On ``meta`` one layer is drawn, for its shapes.
+    Under :func:`slicing` each drawn layer is cut (``path``: the
+    stack's place in the parameter tree) before it is copied into a
+    stack of the cut's shape."""
     lead = (n_layers,) if isinstance(n_layers, int) else tuple(n_layers)
-    first = draw()
+    first = sliced(path, draw(), lead)
     stacked = tree_map(lambda t: t.new_empty(lead + tuple(t.shape)), first)
     if all(t.is_meta for _, t in tree_leaves_with_paths(first)):
         return stacked              # shapes only: no values to copy
+    src = first
+    del first
     for n, idx in enumerate(itertools.product(*map(range, lead))):
-        tree_map(lambda dst, src: dst[idx].copy_(src), stacked,
-                 first if n == 0 else draw())
+        if n:
+            src = sliced(path, draw(), lead)
+        tree_map(lambda dst, x: dst[idx].copy_(x), stacked, src)
+        src = None                  # one drawn layer alive at a time
     return stacked
 
 

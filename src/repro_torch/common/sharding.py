@@ -221,3 +221,36 @@ class ModelShards:
         import torch.distributed as dist
         dist.all_reduce(t, group=self.axis.group)
         return t
+
+
+class MeshPoint(NamedTuple):
+    """A plain description of a device mesh seen from one rank: its axis
+    names, their sizes and the rank's coordinate. It answers what the
+    placement reads of a ``DeviceMesh`` (``size``, ``get_local_rank``,
+    ``shape`` by name), so a rank's slices can be computed, drawn and
+    tested without a process group."""
+    axis_names: tuple
+    sizes: tuple
+    coord: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    def size(self, dim: Optional[int] = None) -> int:
+        if dim is not None:
+            return int(self.sizes[dim])
+        n = 1
+        for s in self.sizes:
+            n *= int(s)
+        return n
+
+    def get_local_rank(self, name: str) -> int:
+        return int(self.coord[self.axis_names.index(name)])
+
+    def points(self):
+        """Every coordinate of the mesh, row-major, as ``MeshPoint`` s."""
+        import itertools
+        return [self._replace(coord=c) for c in
+                itertools.product(*(range(int(n)) for n in self.sizes))]
+

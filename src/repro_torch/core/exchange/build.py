@@ -34,7 +34,11 @@ rank's rows of ḡ. A ``(data, model)`` mesh places no agents (every rank
 holds the group's slices of each leaf): the protocol is the one-device
 one, and ``sketch_step`` / ``observe`` take the rank's ``ModelShards``
 (``shards=``) to sum their partial sketches and cosines over the model
-axis.
+axis. A ``(pod_axis, "data", "model")`` mesh does both: the shard is
+the pod's block, gathered over ``pod_axis`` only, and ``observe`` takes
+the gather and the ``shards`` together (the sketch summed over
+``model`` in ``sketch_step``, then its rows gathered; exact
+``grad_cos``'s chunks gathered, then its sums taken over ``model``).
 """
 from __future__ import annotations
 
@@ -141,7 +145,8 @@ class ExchangeProtocol:
         every rank gets the group's relevance. ``shards`` (a
         ``ModelShards``: ``grads`` are the rank's slices of each leaf)
         makes exact ``grad_cos`` sum its partial dot products and norms
-        over the model axis (a sketch is already the whole one)."""
+        over the model axis (a sketch is already the whole one); on a
+        ``(pod, data, model)`` mesh both apply."""
         kw = {}
         if self.shard is not None and enabled and self.estimator.learns:
             if sketch is not None:
@@ -366,7 +371,8 @@ def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
     ``relevance`` / ``delay`` are dense (n, n) src→dst or per-edge
     (n, k) overrides; ``obs_dim`` is needed by the ``obs_stats``
     estimator only; ``mesh`` places the streaming trainer's agents on a
-    ``(spec.pod_axis, "agent")`` device mesh."""
+    ``(spec.pod_axis, "agent")`` or a ``(spec.pod_axis, "data",
+    "model")`` device mesh."""
     from repro_torch.core.transport import make_transport, transport_enabled
     kind = kind or spec.knowledge_mode
     if kind not in KINDS:
@@ -417,10 +423,11 @@ def build_exchange(spec, *, kind: Optional[str] = None, topology=None,
     transport = make_transport(
         spec, tuple(schedule.base.nbr.shape) if schedule is not None
         else (spec.n_agents, spec.n_agents))
-    # only the pod mesh places agents: on a (data, model) mesh every rank
-    # holds the group, and the combiner runs its one-device form
+    # the pod mesh and the (pod, data, model) mesh place agents: on a
+    # (data, model) mesh every rank holds the group, and the combiner
+    # runs its one-device form
     from repro_torch.core.sharded_ddal import agent_shard, mesh_kind
-    if mesh_kind(mesh, spec.pod_axis) != "pod":
+    if mesh_kind(mesh, spec.pod_axis) not in ("pod", "pod_model"):
         mesh = None
     combiner = COMBINERS.get(comb_key)(spec=spec, schedule=schedule,
                                        estimator=estimator, dense_R=dense_R,

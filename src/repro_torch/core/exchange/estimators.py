@@ -37,7 +37,9 @@ that does not sketch. On a pod mesh the exchange protocol gathers
 the sketch rows before ``observe``, and hands exact ``grad_cos`` a
 ``gather`` that collects the window's rows a column chunk at a time; on
 a ``(data, model)`` mesh it hands them the rank's ``ModelShards``
-(partial sketches and cosines, summed over the model axis).
+(partial sketches and cosines, summed over the model axis); on a
+``(pod, data, model)`` mesh the gather (over ``pod``) and the
+``ModelShards`` together.
 """
 from __future__ import annotations
 

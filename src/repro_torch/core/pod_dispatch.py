@@ -41,8 +41,13 @@ become ``torch.distributed`` ones on the mesh's groups:
   ``dist.get_global_rank``;
 * ``axis_index`` → ``mesh.get_local_rank(axis)``.
 
-Each rank returns its block of ``pod_size / n_agent_dev`` destination
-rows. Only the ranks whose block holds their pod's leader (one column
+On a ``(pod_axis, "data", "model")`` mesh the reference takes its plain
+decomposition, so the one-device dispatch runs on the window's chunks
+gathered over ``pod_axis`` and the rank keeps its destination rows
+(``_make_reference_dispatch(..., shard)``).
+
+On the two-level mesh each rank returns its block of ``pod_size /
+n_agent_dev`` destination rows. Only the ranks whose block holds their pod's leader (one column
 of the mesh: the leader is the first agent of every pod) take part in
 the leader exchange; the other ranks' rows do not read it. The leader
 planes cross the pod axis in the planes' own dtype after the int8 round
@@ -168,19 +173,29 @@ def make_pod_dispatch(topo: Topology, layout: PodLayout, *, mesh=None,
     ``alive`` ((n,) bool, the group's) zeroes dead agents' rows before
     either segment; ``q_block > 0`` takes the planes through the int8
     round trip; ``out`` receives ḡ. With ``mesh`` (``(pod_axis,
-    agent_axis)``) ``know``, ``out`` and the result are the rank's rows;
-    any other mesh raises ``NotPortedError`` (a ``(data, model)`` mesh
-    places no agents: its trainer dispatches on one device)."""
+    agent_axis)``) ``know``, ``out`` and the result are the rank's rows.
+    On a ``(pod_axis, "data", "model")`` mesh the reference takes its
+    plain decomposition (its ``shard_map`` needs an ``"agent"`` axis)
+    and GSPMD turns the agent sums into collectives over ``pod``: here
+    the one-device dispatch runs on the window's chunks gathered over
+    ``pod_axis`` (the int8 codes and scales when ``q_block > 0``), on
+    the rank's model-axis slices, and the rank keeps its destination
+    rows. A ``(data, model)`` mesh raises ``NotPortedError`` (it places
+    no agents: its trainer dispatches on one device)."""
     edges = split_topology(topo, layout)
-    if mesh is not None:
-        if SD.mesh_kind(mesh, pod_axis, agent_axis) != "pod":
-            raise NotPortedError(
-                f"the pod dispatch places agents on the ({pod_axis!r}, "
-                f"{agent_axis!r}) mesh; a (data, model) mesh places none "
-                f"(its trainer dispatches on one device: mesh=None)")
+    kind = SD.mesh_kind(mesh, pod_axis, agent_axis)
+    if kind == "pod":
         return _make_sharded_dispatch(topo, layout, edges, mesh, pod_axis,
                                       agent_axis)
-    return _make_reference_dispatch(topo, layout, edges)
+    if kind == "model":
+        raise NotPortedError(
+            f"the pod dispatch places agents on the ({pod_axis!r}, "
+            f"{agent_axis!r}) or the ({pod_axis!r}, 'data', 'model') "
+            f"mesh; a (data, model) mesh places none (its trainer "
+            f"dispatches on one device: mesh=None)")
+    shard = (None if kind is None
+             else SD.agent_shard(mesh, layout.n_agents, pod_axis))
+    return _make_reference_dispatch(topo, layout, edges, shard)
 
 
 def _masked(rel: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -195,27 +210,32 @@ def _edge_rel(topo: Topology, rel, device) -> torch.Tensor:
 
 
 def _make_reference_dispatch(topo: Topology, layout: PodLayout,
-                             edges: PodEdges):
+                             edges: PodEdges, shard=None):
     """The decomposed combine on one device: the intra-pod edge sums
     plus, with more than one pod, the leader-level ones (added after
     them), then ``_finish_combine``. With one pod the intra set is the
-    whole edge set, and this is ``_combine_topo``."""
+    whole edge set, and this is ``_combine_topo``. ``shard`` (an
+    ``AgentShard`` of the ``(pod, data, model)`` mesh) makes it the
+    flat combine's mesh form: ``know`` holds the rank's rows, each
+    chunk is gathered over the shard's group and the rank keeps its
+    rows of ḡ."""
     multi_pod = layout.n_pods > 1
 
     def combine(know, rel=None, alive=None, out=None, q_block: int = 0):
         dev = know.tsum.device
         nbr, _, _ = SD.topo_tables(topo, dev)
         rel = _edge_rel(topo, rel, dev)
+        know_g, local, kw = SD._sharded(know, alive, shard)
         intra = torch.as_tensor(edges.intra_mask, device=dev)
         rel_i = _masked(rel, intra)
-        w_i = SD._edge_weights(know, nbr, intra, rel_i, alive)
+        w_i = SD._edge_weights(know_g, nbr, intra, rel_i, alive)
         if multi_pod:
             lead = torch.as_tensor(edges.leader_mask, device=dev)
             rel_l = _masked(rel, lead)
-            w_l = SD._edge_weights(know, nbr, lead, rel_l, alive)
+            w_l = SD._edge_weights(know_g, nbr, lead, rel_l, alive)
 
         def fold(tg, rg):
-            chunk = know._replace(tg=tg, rg=rg)
+            chunk = know_g._replace(tg=tg, rg=rg)
             tnum, tden, rnum, rden = SD._edge_sums(chunk, nbr, intra, rel_i,
                                                    w_i)
             if multi_pod:
@@ -224,7 +244,7 @@ def _make_reference_dispatch(topo: Topology, layout: PodLayout,
                 tnum, rnum = tnum + lt, rnum + lr
                 tden, rden = tden + ltd, rden + lrd
             return SD._finish_combine(tnum, tden, rnum, rden)
-        return SD._eq4(know, fold, out, alive, q_block)
+        return SD._eq4(know, fold, out, local, q_block, **kw)
 
     return combine
 

@@ -1,7 +1,7 @@
 """DDAL at LLM scale — the streaming group-agent trainer of the model
 zoo; the port of ``repro.core.sharded_ddal``, on one device or over
-``torch.distributed`` on a two-level ``(pod, "agent")`` device mesh or
-a ``(data, model)`` device mesh.
+``torch.distributed`` on a two-level ``(pod, "agent")`` device mesh, a
+``(data, model)`` device mesh or a ``(pod, data, model)`` one.
 
 Each agent trains its own copy of a model on its own data stream
 (``repro_torch.data.synthetic``). Parameters, AdamW moments and the
@@ -77,8 +77,17 @@ feeds split work, its value enters through ``copy_to_model``, whose
 backward sums the ranks' parts (Mamba2's ``w_B`` / ``w_C`` / ``w_dt``,
 ``conv_B`` / ``conv_C``, ``dt_bias``, ``A_log`` and ``D``, the hybrid's
 LoRA factors of a split target), or it acts after the split work's
-all-reduce on the full value (the GELU MLP's ``b2``). The
-``(pod, data, model)`` mesh raises ``NotPortedError`` (Slice E part 3).
+all-reduce on the full value (the GELU MLP's ``b2``).
+
+On a ``(pod, data, model)`` mesh (the reference's multi-pod mesh, one
+agent block per pod) both hold: a rank keeps its pod's block of the
+agents (``AgentShard`` over the ``pod`` axis's process group) and their
+model-axis slices. The estimator gathers over ``pod`` what it sums over
+``model`` (the sketch rows after their model-axis sum; exact
+``grad_cos``'s window chunks before it), and the combine gathers each
+window chunk over ``pod`` on the rank's slices (int8 codes and scales
+where ``knowledge_quant_block > 0``), as the reference's GSPMD program
+turns its sums over the agent axis into collectives over ``pod``.
 
 Everything else is the reference's arithmetic: ``(T_t·g_f32)`` cast to
 ``knowledge_dtype`` and added, elastic rows held with a select, the
@@ -131,17 +140,23 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------
-# placement on a (pod, "agent") device mesh
+# placement of the agents: a (pod, "agent") or a (pod, data, model) mesh
 # ---------------------------------------------------------------------
 class AgentShard(NamedTuple):
-    """A rank's block of the group's agents on a two-level ``(pod_axis,
-    "agent")`` mesh: agents are laid out pod-major, so the rank at mesh
-    coordinate (p, a) — global rank ``p·A_dev + a``, ``init_device_mesh``'s
-    row-major order — holds agents ``index·block .. (index + 1)·block −
-    1`` with ``index = p·A_dev + a``."""
+    """A rank's block of the group's agents. On a two-level ``(pod_axis,
+    "agent")`` mesh agents are laid out pod-major over the whole world,
+    so the rank at mesh coordinate (p, a) — global rank ``p·A_dev + a``,
+    ``init_device_mesh``'s row-major order — holds agents ``index·block
+    .. (index + 1)·block − 1`` with ``index = p·A_dev + a``, and
+    ``group`` is ``None`` (the world). On a ``(pod_axis, "data",
+    "model")`` mesh the block is the pod's: ``index`` is the rank's
+    ``pod_axis`` coordinate, ``ranks`` the axis's size and ``group`` its
+    process group (the ranks that share the rank's (data, model)
+    coordinate)."""
     n_agents: int
-    index: int            # the rank's flat mesh coordinate
-    ranks: int            # devices in the mesh (the world)
+    index: int            # the rank's coordinate over the agent blocks
+    ranks: int            # the blocks: ranks of ``group``
+    group: Any = None     # the process group gathers run over (None: world)
 
     @property
     def block(self) -> int:
@@ -152,9 +167,9 @@ class AgentShard(NamedTuple):
         return slice(self.index * self.block, (self.index + 1) * self.block)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's (block, ...) rows → the group's (n_agents, ...),
-        in agent order (``all_gather`` over the world)."""
-        return gather_rows(x, self.ranks, None)
+        """Every block's (block, ...) rows → the group's (n_agents, ...),
+        in agent order (``all_gather`` over ``group``)."""
+        return gather_rows(x, self.ranks, self.group)
 
 
 def gather_rows(x: torch.Tensor, size: int, group) -> torch.Tensor:
@@ -174,8 +189,10 @@ MODEL_AXES = ("data", "model")
 def mesh_kind(mesh, pod_axis: str = "pod",
               agent_axis: str = "agent") -> Optional[str]:
     """``"pod"`` for the two-level ``(pod_axis, agent_axis)`` mesh,
-    ``"model"`` for a ``(data, model)`` mesh, ``None`` for no mesh; the
-    ``(pod, data, model)`` mesh and any other raise ``NotPortedError``."""
+    ``"model"`` for a ``(data, model)`` mesh, ``"pod_model"`` for the
+    ``(pod_axis, data, model)`` mesh (agents over ``pod_axis`` beside the
+    model axis), ``None`` for no mesh; any other raises
+    ``NotPortedError``."""
     if mesh is None:
         return None
     names = axis_names(mesh)
@@ -184,22 +201,21 @@ def mesh_kind(mesh, pod_axis: str = "pod",
     if names == MODEL_AXES:
         return "model"
     if names == (pod_axis,) + MODEL_AXES:
-        raise NotPortedError(
-            f"the {names} mesh (agents over {pod_axis!r} beside a model "
-            f"axis) waits for Slice E part 3; the port trains on the "
-            f"({pod_axis!r}, {agent_axis!r}) pod mesh or a (data, model) "
-            f"mesh")
+        return "pod_model"
     raise NotPortedError(
-        f"a device mesh with axes {names or None} is neither the "
-        f"({pod_axis!r}, {agent_axis!r}) pod mesh (Slice E part 1) nor a "
-        f"(data, model) mesh (Slice E part 2)")
+        f"a device mesh with axes {names or None} is none of the meshes "
+        f"of Slice E: the ({pod_axis!r}, {agent_axis!r}) pod mesh, a "
+        f"(data, model) mesh or the ({pod_axis!r}, 'data', 'model') mesh")
 
 
 def mesh_axes(mesh, pod_axis: str = "pod", agent_axis: str = "agent"):
     """(pod devices, agent devices) of a two-level pod mesh; a ``(data,
     model)`` mesh gives (data devices, model devices); any other mesh
-    raises ``NotPortedError`` (``mesh_kind``)."""
-    mesh_kind(mesh, pod_axis, agent_axis)
+    raises ``ValueError`` (``NotPortedError`` for an unknown one,
+    ``mesh_kind``)."""
+    if mesh_kind(mesh, pod_axis, agent_axis) not in ("pod", "model"):
+        raise ValueError(f"a mesh with axes {axis_names(mesh)} has three "
+                         f"axes, not two")
     return mesh.size(0), mesh.size(1)
 
 
@@ -207,24 +223,36 @@ def agent_shard(mesh, n_agents: int, pod_axis: str = "pod") -> AgentShard:
     """The calling rank's ``AgentShard`` on ``mesh``, after checking the
     placement: the mesh spans the whole process group in
     ``init_device_mesh``'s row-major rank order, and the agents split
-    evenly over its devices."""
+    evenly over its devices (the pod mesh) or over its ``pod_axis``
+    (the ``(pod, data, model)`` mesh)."""
     import torch.distributed as dist
-    if mesh_kind(mesh, pod_axis) != "pod":
+    kind = mesh_kind(mesh, pod_axis)
+    if kind not in ("pod", "pod_model"):
         raise ValueError(
             f"a mesh with axes {axis_names(mesh)} places no agents: each "
             f"rank of a (data, model) mesh holds every agent")
-    n_pod, n_agent = mesh_axes(mesh, pod_axis)
-    ranks = n_pod * n_agent
+    ranks = mesh.size()
+    dims = " x ".join(str(mesh.size(d))
+                      for d in range(len(axis_names(mesh))))
     if not dist.is_initialized() or dist.get_world_size() != ranks:
         raise ValueError(
-            f"the {n_pod} x {n_agent} mesh must span the whole process "
-            f"group (world size "
+            f"the {dims} mesh must span the whole process group (world size "
             f"{dist.get_world_size() if dist.is_initialized() else 0})")
     if mesh.mesh.flatten().tolist() != list(range(ranks)):
         raise ValueError(
             f"the mesh's ranks {mesh.mesh.tolist()} are not in row-major "
             f"order (init_device_mesh's layout, which pod-major agent "
             f"blocks assume)")
+    if kind == "pod_model":
+        pods = mesh.size(0)
+        if n_agents % pods:
+            raise ValueError(
+                f"{n_agents} agents do not split evenly over the mesh's "
+                f"{pods}-device {pod_axis!r} axis")
+        return AgentShard(n_agents=n_agents,
+                          index=mesh.get_local_rank(pod_axis), ranks=pods,
+                          group=mesh.get_group(pod_axis))
+    n_pod, n_agent = mesh_axes(mesh, pod_axis)
     if n_agents % ranks:
         raise ValueError(
             f"{n_agents} agents do not split evenly over the mesh's "
@@ -234,15 +262,23 @@ def agent_shard(mesh, n_agents: int, pod_axis: str = "pod") -> AgentShard:
     return AgentShard(n_agents=n_agents, index=index, ranks=ranks)
 
 
-def _local_rows(know: "Knowledge"):
+def _local_rows(know: "Knowledge", shard: Optional[AgentShard] = None):
     """The slice of the global ``alive`` mask that ``know``'s rows are:
-    ``None`` for a state on one device; on a mesh, whose ranks hold
-    pod-major blocks in rank order (``agent_shard``), the calling
-    rank's block."""
+    ``None`` for a state that holds every agent; on a mesh the rank's
+    block, ``shard.rows``. Without ``shard`` the block index is the
+    global rank, which is right on the pod mesh only (its blocks lie in
+    rank order over the world); a state of another placement raises."""
     if know.alive is None or know.tsum.shape[0] == know.alive.shape[0]:
         return None
+    if shard is not None:
+        return shard.rows
     import torch.distributed as dist
     block = know.tsum.shape[0]
+    if dist.get_world_size() * block != know.alive.shape[0]:
+        raise ValueError(
+            f"a state of {block} of {know.alive.shape[0]} agents over "
+            f"{dist.get_world_size()} ranks is not a pod mesh's: pass the "
+            f"rank's AgentShard (shard=exchange.shard)")
     r = dist.get_rank()
     return slice(r * block, (r + 1) * block)
 
@@ -285,22 +321,41 @@ def _reset_window_(know: Knowledge, rel) -> Knowledge:
 
 
 def init_train_state(cfg, spec, opt, seed: int = 0, exchange=None,
-                     device=None) -> TrainState:
-    """Random initialisation on ``device`` (``None``: the card): agent
-    i's parameters are the model's ``init`` drawn i-th from one
-    generator seeded by ``seed`` (the reference splits a key per agent;
-    the draws are the port's own), the optimiser's moments at zero and
-    the window empty. The relevance seed and the sketch width come from
-    the exchange protocol (``exchange``, built from ``spec`` if not
-    given)."""
+                     device=None, mesh=None) -> TrainState:
+    """Random initialisation on ``device`` (``None``: the card; ``meta``
+    gives the shapes alone): agent i's parameters are the model's
+    ``init`` drawn i-th from one generator seeded by ``seed`` (the
+    reference splits a key per agent; the draws are the port's own),
+    the optimiser's moments at zero and the window empty. The relevance
+    seed and the sketch width come from the exchange protocol
+    (``exchange``, built from ``spec`` if not given).
+
+    ``mesh`` (a ``(data, model)`` or ``(spec.pod_axis, "data",
+    "model")`` ``DeviceMesh``, or a ``common.sharding.MeshPoint`` that
+    describes one rank of it) draws the calling rank's slice only:
+    bitwise ``launch.shardings.place(init_train_state(...),
+    state_placement_specs(...), mesh, cfg)``. The draws keep their
+    order: each agent is drawn a layer at a time (``common.pytree.
+    init_stacked``), every drawn tree cut to the rank's slice at once
+    (``launch.shardings.init_cut``); an agent of another pod is drawn
+    and dropped. The moments and the window are zeros at the slice's
+    shapes. The memory it takes is the rank's state plus the largest
+    tree drawn whole for one agent (a layer, the embedding or the
+    head)."""
     from repro_torch.core.exchange import build_exchange
     from repro_torch.models import get_model
     if exchange is None:
         exchange = build_exchange(spec, kind="streaming")
     dev = resolve_device(device)
     model = get_model(cfg)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
-    params = init_stacked(spec.n_agents, lambda: model.init(cfg, gen, dev))
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
+    if mesh is None:
+        params = init_stacked(spec.n_agents,
+                              lambda: model.init(cfg, gen, dev))
+    else:
+        params = _init_params_sliced(cfg, spec, exchange, model, gen, dev,
+                                     mesh)
     alive = (torch.ones((spec.n_agents,), dtype=torch.bool, device=dev)
              if spec.elastic else None)
     know = init_knowledge(params, DTYPES[spec.knowledge_dtype],
@@ -308,6 +363,38 @@ def init_train_state(cfg, spec, opt, seed: int = 0, exchange=None,
                           sketch_dim=exchange.sketch_dim, alive=alive)
     return TrainState(params=params, opt_state=opt.tree_init(params),
                       know=know, step=0)
+
+
+def _init_params_sliced(cfg, spec, exchange, model, gen, dev, mesh):
+    """The rank's slices of every agent's parameters, drawn in the
+    one-device order (``init_train_state``)."""
+    from repro_torch.common.pytree import slicing
+    from repro_torch.launch import shardings as SH
+    if mesh_kind(mesh, spec.pod_axis) not in ("model", "pod_model"):
+        raise ValueError(
+            f"a sliced init takes a (data, model) or a ({spec.pod_axis!r}, "
+            f"'data', 'model') mesh, not axes {axis_names(mesh)}")
+    A = spec.n_agents
+    specs = SH.state_placement_specs(cfg, mesh, exchange.estimator.learns,
+                                     exchange.sketch_dim, spec.pod_axis)
+    ps = SH.placement_spec(cfg, mesh, (), tuple(specs.know.tsum), (A,))
+    rows = SH.local_slices(mesh, ps, (A,))[0]
+    keep, drop = SH.init_cut(cfg, mesh, True), SH.init_cut(cfg, mesh, False)
+    n = rows.stop - rows.start
+    params = None
+    for i in range(A):
+        held = rows.start <= i < rows.stop
+        with slicing(keep if held else drop):
+            p_i = model.init(cfg, gen, dev)
+        if not held:
+            continue
+        if params is None:
+            params = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)),
+                              p_i)
+        j = i - rows.start
+        tree_map(lambda dst, x: dst[j].copy_(x), params, p_i)
+        del p_i
+    return params
 
 
 # ---------------------------------------------------------------------
@@ -410,17 +497,25 @@ def _split_scales(x2: torch.Tensor, alive, q_block: int, leaf,
 
 
 def _gate_split(x2: torch.Tensor, cols: slice, alive, q_block: int,
-                scale: torch.Tensor, leaf) -> torch.Tensor:
+                scale: torch.Tensor, leaf, gather=None,
+                scale_all: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``_gate`` of a slice whose int8 blocks straddle ranks: the round
     trip of each element with its full block's scale (``_split_scales``),
     the arithmetic of ``ddal_wavg.ref.quantize_rows`` /
-    ``dequantize_rows``, so the values are the one-device round trip's."""
+    ``dequantize_rows``, so the values are the one-device round trip's.
+    ``gather`` (agents over ``pod`` beside the model axis) collects the
+    int8 codes over the agent blocks, and ``scale_all`` is ``scale``
+    gathered the same way: the wire format crosses ranks, not fp32."""
     c = x2[:, cols].to(torch.float32)
     if alive is not None:
         c = _dead_rows_zeroed(c, alive)
-    s = scale[:, _block_ids(cols, leaf, q_block, x2.device)]
+    blk = _block_ids(cols, leaf, q_block, x2.device)
+    s = scale[:, blk]
     safe = torch.where(s > 0, s, torch.ones_like(s))
-    return torch.clamp(torch.round(c / safe), -127, 127) * s
+    q = torch.clamp(torch.round(c / safe), -127, 127)
+    if gather is None:
+        return q * s
+    return gather(q.to(torch.int8)).to(torch.float32) * scale_all[:, blk]
 
 
 def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
@@ -431,8 +526,9 @@ def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
     ``alive`` is the mask of ``know``'s own rows, ``gather`` collects
     the gated chunk's rows over the ranks the fold reads, and ``rows``
     picks the rank's destination rows out of the fold's result. Under
-    ``model_slices`` (a ``(data, model)`` mesh) a slice whose int8 blocks
-    straddle ranks takes its scales over the model axis."""
+    ``model_slices`` (a model axis) a slice whose int8 blocks straddle
+    ranks takes its scales over the model axis, and then ``gather``
+    collects its int8 codes and scales."""
     if out is None:
         out = tree_map(lambda x: torch.empty(x.shape, dtype=torch.float32,
                                              device=x.device), know.tg)
@@ -444,11 +540,15 @@ def _eq4(know: Knowledge, fold: Callable, out=None, alive=None,
                                                               q_block):
             st, sr = (_split_scales(x, alive, q_block, leaf, shards.axis)
                       for x in (t2, r2))
+            st_all, sr_all = ((None, None) if gather is None
+                              else (gather(st), gather(sr)))
 
-            def gate(x2, cols, scale):
-                return _gate_split(x2, cols, alive, q_block, scale, leaf)
+            def gate(x2, cols, scale, scale_all):
+                return _gate_split(x2, cols, alive, q_block, scale, leaf,
+                                   gather, scale_all)
             for cols in column_chunks(t2.shape[1]):
-                g = fold(gate(t2, cols, st), gate(r2, cols, sr))
+                g = fold(gate(t2, cols, st, st_all),
+                         gate(r2, cols, sr, sr_all))
                 o2[:, cols].copy_(g if rows is None else g[rows])
             continue
         for cols in column_chunks(t2.shape[1]):
@@ -660,11 +760,13 @@ def clone_state(state: TrainState) -> TrainState:
                           opt_state=cp(state.opt_state), know=know)
 
 
-def kill_agents(state: TrainState, dead) -> TrainState:
+def kill_agents(state: TrainState, dead,
+                shard: Optional[AgentShard] = None) -> TrainState:
     """Mark ``dead`` ((A,) bool) agents gone: their partial window is
     zeroed, their parameter and optimiser rows freeze, ``rel`` holds.
     Snapshot the state first (``clone_state``) to splice an agent back
-    later."""
+    later. On a mesh the state holds the rank's rows: ``shard`` (the
+    exchange's ``AgentShard``) names them (``_local_rows``)."""
     know = state.know
     if know.alive is None:
         raise ValueError(
@@ -672,24 +774,26 @@ def kill_agents(state: TrainState, dead) -> TrainState:
             "with GroupSpec(elastic=True) so Knowledge.alive exists")
     alive = know.alive & ~torch.as_tensor(dead, dtype=torch.bool,
                                           device=know.alive.device)
-    rows = _local_rows(know)
+    rows = _local_rows(know, shard)
     own = alive if rows is None else alive[rows]
     return state._replace(
         know=mask_knowledge(know, own)._replace(alive=alive))
 
 
 def revive_agents(state: TrainState, mask,
-                  restore: Optional[TrainState] = None) -> TrainState:
+                  restore: Optional[TrainState] = None,
+                  shard: Optional[AgentShard] = None) -> TrainState:
     """Flip ``mask`` ((A,) bool) agents back alive with an empty window;
     with ``restore`` (a checkpointed ``TrainState``) their parameter and
-    optimiser rows splice back from it, every survivor's untouched."""
+    optimiser rows splice back from it, every survivor's untouched.
+    ``shard`` as in ``kill_agents``."""
     know = state.know
     if know.alive is None:
         raise ValueError(
             "revive_agents needs an elastic TrainState — build the spec "
             "with GroupSpec(elastic=True) so Knowledge.alive exists")
     m = torch.as_tensor(mask, dtype=torch.bool, device=know.alive.device)
-    rows = _local_rows(know)
+    rows = _local_rows(know, shard)
     own = m if rows is None else m[rows]
     know = mask_knowledge(know, ~own)._replace(alive=know.alive | m)
     params, opt_state = state.params, state.opt_state
@@ -720,8 +824,9 @@ class TensorParallel(NamedTuple):
 
 
 def tensor_parallel(cfg, mesh) -> TensorParallel:
-    """The ``TensorParallel`` of ``cfg`` on a ``(data, model)`` mesh
-    (every family splits over its model axis)."""
+    """The ``TensorParallel`` of ``cfg`` on a ``(data, model)`` or a
+    ``(pod, data, model)`` mesh (every family splits over its model
+    axis; ``train_rules`` puts the agents over ``pod``)."""
     from repro_torch.common.sharding import (ModelShards, axis_rules,
                                              mesh_axis, set_mesh)
     from repro_torch.launch.mesh import train_rules
@@ -814,6 +919,18 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
     (``data.sharded.make_data_batch``); ``loss`` is each agent's loss
     over the global batch. It may come with a prebuilt ``exchange`` (it
     places no agents, so the protocol does not carry it).
+
+    ``mesh`` (a ``(spec.pod_axis, "data", "model")`` ``DeviceMesh``)
+    does both: the rank holds its pod's block of agents
+    (``exchange.shard``, gathered over ``pod_axis``) and their slices
+    (``launch.shardings.place`` by ``train_state_partition_specs(cfg,
+    train_rules(mesh), pod_axis, ...)``), ``batch`` its B/d rows of each
+    of those agents (``data.make_data_batch(..., rows=shard.rows)``).
+    The gradients are summed over ``data``; the estimator gathers over
+    ``pod`` and sums over ``model``; the combine gathers the window's
+    chunks (the int8 codes and scales) over ``pod`` on the rank's
+    slices and keeps its destination rows. ``loss`` is the group's
+    (A,).
     """
     if loss_fn is None:
         from repro_torch.models import get_model
@@ -822,10 +939,16 @@ def make_group_train_step(cfg, spec, opt, relevance=None,
         def loss_fn(params, batch):        # noqa: F811
             return model.loss(cfg, params, batch)
     tensor = None
-    if mesh_kind(mesh, spec.pod_axis) == "model":
+    kind = mesh_kind(mesh, spec.pod_axis)
+    if kind in ("model", "pod_model"):
         tensor = tensor_parallel(cfg, mesh)
         if exchange is not None:
-            mesh = None             # the protocol places no agents here
+            mesh = None             # a prebuilt protocol carries its shard
+        if exchange is not None and kind == "pod_model" and (
+                exchange.shard is None):
+            raise ValueError(
+                "a (pod, data, model) mesh places the agents over pod: "
+                "build the exchange with build_exchange(..., mesh=mesh)")
     if exchange is None:
         from repro_torch.core.exchange import build_exchange
         exchange = build_exchange(spec, kind="streaming", topology=topology,

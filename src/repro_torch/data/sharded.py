@@ -8,11 +8,13 @@ builds only its own agents' rows: ``make_rows_batch`` runs
 ``make_group_batch``'s global batch. On a ``(data, model)`` mesh every
 rank holds every agent and its B/d rows of each agent's batch:
 ``make_data_batch`` cuts them from the group's batch (the reference's
-batch spec shards dim 1, after the agent axis, over ``data``).
+batch spec shards dim 1, after the agent axis, over ``data``). On a
+``(pod, data, model)`` mesh a rank builds its pod's agents only and cuts
+its data rows from them (``make_data_batch(..., rows=shard.rows)``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -33,18 +35,26 @@ def make_rows_batch(cfg, shape, spec: StreamSpec, rows: slice, step: int,
 
 
 def make_data_batch(cfg, shape, spec: StreamSpec, n_agents: int, step: int,
-                    mesh, device=None) -> Dict[str, torch.Tensor]:
+                    mesh, device=None,
+                    rows: Optional[slice] = None) -> Dict[str, torch.Tensor]:
     """The calling rank's rows of the group's (n_agents, B, ...) batch at
-    ``step`` on a ``(data, model)`` mesh: rows r·B/d .. (r + 1)·B/d − 1 of
-    every agent, r the rank's data coordinate, d the data axis's size,
-    which must divide B."""
-    d = mesh.size(mesh.mesh_dim_names.index("data"))
+    ``step`` on a mesh with a ``data`` axis: rows r·B/d .. (r + 1)·B/d −
+    1 of every agent, r the rank's data coordinate, d the data axis's
+    size, which must divide B. ``rows`` (an ``AgentShard``'s, on a
+    ``(pod, data, model)`` mesh) builds only those agents'
+    (``make_agent_batch``) before the data rows are cut; each row is
+    bitwise the same row of ``make_group_batch``."""
+    names = tuple(mesh.mesh_dim_names)
+    d = mesh.size(names.index("data"))
     r = mesh.get_local_rank("data")
     B = shape.global_batch
     if B % d:
         raise ValueError(f"a batch of {B} rows does not split over the "
                          f"{d}-rank data axis")
-    full = make_group_batch(cfg, shape, spec, n_agents, step, "cpu")
-    rows = slice(r * B // d, (r + 1) * B // d)
+    if rows is None:
+        full = make_group_batch(cfg, shape, spec, n_agents, step, "cpu")
+    else:
+        full = make_rows_batch(cfg, shape, spec, rows, step, "cpu")
+    cut = slice(r * B // d, (r + 1) * B // d)
     dev = resolve_device(device)
-    return {k: v[:, rows].contiguous().to(dev) for k, v in full.items()}
+    return {k: v[:, cut].contiguous().to(dev) for k, v in full.items()}

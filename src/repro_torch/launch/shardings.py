@@ -42,7 +42,13 @@ moments and step counts, the window's ``tg`` / ``rg`` / ``tsum`` /
 global (every rank holds the group's). ``gather_agent_state`` is the
 inverse, for checkpoints and tests. A ``(data, model)`` mesh shards no
 agent axis: there ``train_state_partition_specs`` gives each leaf's
-spec over the model axis alone.
+spec over the model axis alone; on a ``(pod, data, model)`` mesh dim 0
+lies over ``pod`` beside the model axis. ``state_placement_specs`` is
+what a state on either is placed by (``rel`` kept global), and
+``init_cut`` cuts an agent's drawn trees to a rank's slices as
+``place`` would (the sliced init, ``sharded_ddal.init_train_state(...,
+mesh=)``). Every placement function takes a ``DeviceMesh`` or a
+``common.sharding.MeshPoint``.
 """
 from __future__ import annotations
 
@@ -81,13 +87,24 @@ def _map_agent_leaves(state, fn):
             sk=None if know.sk is None else fn(know.sk)))
 
 
+def _pod_mesh_only(mesh, pod_axis: str) -> None:
+    from repro_torch.core.sharded_ddal import mesh_kind
+    if mesh_kind(mesh, pod_axis) == "pod_model":
+        raise ValueError(
+            "a (pod, data, model) mesh cuts the agents and the model "
+            "axis together: place the state with place(state, "
+            "state_placement_specs(...), mesh, cfg) and put it back with "
+            "gather(...)")
+
+
 def agent_sharded_state(state, mesh, pod_axis: str = "pod"):
     """The calling rank's part of a group's ``TrainState`` on ``mesh``:
     its block of rows of every per-agent leaf (each a tensor of its
     own), the global ``rel``, ``alive`` and step. ``mesh=None`` returns
-    ``state``."""
+    ``state``; the ``(pod, data, model)`` mesh raises (``place``)."""
     if ddal_agent_axis(mesh, pod_axis) is None:
         return state
+    _pod_mesh_only(mesh, pod_axis)
     from repro_torch.core.sharded_ddal import agent_shard
     n = state.know.tsum.shape[0]
     rows = agent_shard(mesh, n, pod_axis).rows
@@ -100,6 +117,7 @@ def gather_agent_state(state, mesh, pod_axis: str = "pod"):
     ranks call it)."""
     if ddal_agent_axis(mesh, pod_axis) is None:
         return state
+    _pod_mesh_only(mesh, pod_axis)
     from repro_torch.core.sharded_ddal import agent_shard
     n = state.know.tsum.shape[0] * mesh.size()
     shard = agent_shard(mesh, n, pod_axis)
@@ -207,6 +225,23 @@ def train_state_partition_specs(cfg, rules: dict, agent_axis: Axis,
         know=Knowledge(tg=pspec, tsum=vec, rg=pspec, rsum=vec, rel=rel,
                        sk=sk),
         step=())
+
+
+def state_placement_specs(cfg, mesh, learn_relevance: bool = False,
+                          sketch_dim: int = 0, pod_axis: str = "pod"):
+    """The specs a streaming ``TrainState`` is placed by on a ``(data,
+    model)`` or a ``(pod_axis, "data", "model")`` mesh:
+    ``train_state_partition_specs(cfg, train_rules(mesh), agent axis,
+    ...)`` — the agent dim over ``pod_axis`` on the three-axis mesh, over
+    nothing on the other — with the learned ``rel`` global (``None``:
+    every rank holds the group's (A, A), as on the pod mesh), while the
+    window sketch ``sk`` keeps its rows over the agent axis. ``alive``
+    and the step are global too."""
+    from repro_torch.launch.mesh import train_rules
+    rules = train_rules(mesh, pod_axis)
+    specs = train_state_partition_specs(cfg, rules, rules["agent"],
+                                        learn_relevance, sketch_dim)
+    return specs._replace(know=specs.know._replace(rel=None))
 
 
 def _sanitize(mesh, spec: tuple, shape) -> tuple:
@@ -441,6 +476,50 @@ def _at(tree, path):
             return None
         tree = getattr(tree, k) if hasattr(tree, "_fields") else tree[k]
     return tree
+
+
+def init_cut(cfg, mesh, keep: bool = True):
+    """The ``common.pytree.slicing`` cut of one agent's parameter draws
+    for the calling rank of ``mesh`` (a ``DeviceMesh`` or a
+    ``common.sharding.MeshPoint``): each drawn tree's leaves cut by
+    ``placement_spec`` of ``param_partition_specs(cfg, train_rules(
+    mesh))`` (whole heads included), as ``place`` cuts the full leaf. A
+    layer's cut (``lead`` stacking dims) is a view, copied into its
+    stack at once; a tree drawn whole is cut into tensors of its own,
+    so the whole is freed. ``keep=False`` (an agent of another rank)
+    keeps nothing: every leaf becomes an empty tensor."""
+    import torch
+
+    from repro_torch.launch.mesh import train_rules
+    from repro_torch.models.model import param_specs
+    specs = param_partition_specs(cfg, train_rules(mesh))
+    full = param_specs(cfg)
+
+    def one(path, x, lead):
+        if not keep:
+            return x.new_empty((0,))
+        shape = tuple(_at(full, path).shape)
+        if tuple(x.shape) != shape[len(lead):]:
+            raise ValueError(f"leaf {'/'.join(map(str, path))}: drawn "
+                             f"{tuple(x.shape)}, the model's {shape}")
+        ps = placement_spec(cfg, mesh, path, _at(specs, path), shape)
+        sl = local_slices(mesh, ps, shape)
+        if any(a is not None for a in ps[:len(lead)]):
+            raise ValueError(f"leaf {'/'.join(map(str, path))}: a "
+                             f"stacking dim is split ({ps})")
+        sl = sl[len(lead):]
+        if all(c.stop - c.start == n for c, n in zip(sl, x.shape)):
+            return x
+        return x[sl] if lead else x[sl].clone()
+
+    def walk(path, tree, lead):
+        if isinstance(tree, torch.Tensor):
+            return one(path, tree, lead)
+        return {k: walk(path + (k,), v, lead) for k, v in tree.items()}
+
+    def cut(path, tree, lead):
+        return walk(tuple(path), tree, tuple(lead))
+    return cut
 
 
 def leaf_shards(cfg, mesh, rules: Optional[dict] = None):

@@ -36,22 +36,26 @@ format, so ``--restore`` reads either kind of run's file in either
 kind. ``--mesh prod`` runs under ``torchrun`` on the reference's 16 x 16
 ``(data, model)`` production mesh (``launch.mesh.make_production_mesh``;
 a world of another size raises ``ValueError`` naming the 256 it needs):
-the state is drawn whole on every rank, then each rank keeps its slices
-by ``train_state_partition_specs`` (``launch.shardings.place``), so each
-card must hold the whole state at start, and its
-B/16 rows of each agent's batch, and the step runs the model under
-``train_rules(mesh)`` (the tensor-parallel layers of every family). This
-is the program that the
-reference's dry run lowers for that mesh (``dryrun_lib.lower_train``);
-it computes the numbers that the reference's own launcher, whose
-``--mesh prod`` installs the mesh but no rules, computes replicated.
-``--ckpt-full`` gathers the full leaves and rank 0 writes them.
-``--mesh prod-multipod`` builds the 2 x 16 x 16 ``(pod, data, model)``
-mesh (512 ranks) and then raises ``NotPortedError``: agents over
-``pod`` beside a model axis wait for Slice E part 3. The weights are drawn from
-a ``torch.Generator`` of ``--seed`` and the token streams are the
-port's own (``repro_torch.data.synthetic``), so neither is the
-reference's.
+each rank draws only its slices of the state by
+``shardings.state_placement_specs`` (``sharded_ddal.init_train_state(...,
+mesh=)``: the group's draws in their order, every drawn layer cut at
+once), takes its B/16 rows of each agent's batch, and the step runs the
+model under ``train_rules(mesh)`` (the tensor-parallel layers of every
+family). This is the program that the reference's dry run lowers for
+that mesh (``dryrun_lib.lower_train``); it computes the numbers that
+the reference's own launcher, whose ``--mesh prod`` installs the mesh
+but no rules, computes replicated. ``--mesh prod-multipod`` runs the
+same on the 2 x 16 x 16 ``(pod, data, model)`` mesh (512 ranks; a world
+of another size raises ``ValueError`` naming 512), one agent block a
+pod: a rank holds A/2 agents' slices and B/16 rows of each of their
+batches, the window's exchange gathering over ``pod``. On both
+``--restore`` reads the file a leaf and a block at a time, each rank
+keeping its slice (``checkpoint.restore_sliced``), and ``--ckpt`` /
+``--ckpt-full`` gather each leaf to rank 0's host a block at a time
+into the single-process ``.npz`` (``checkpoint.save_sliced``). The
+weights are drawn from a ``torch.Generator`` of ``--seed`` and the
+token streams are the port's own (``repro_torch.data.synthetic``), so
+neither is the reference's.
 
 ``main`` prints the reference's lines — params per agent, each step's
 losses with ``<shared>`` on share steps, tokens/s — and, on top, the
@@ -186,7 +190,8 @@ def _parser():
                         "mesh of the torchrun world (needs --pods >= 1); "
                         "'prod': the 16 x 16 (data, model) mesh of a "
                         "256-rank torchrun world (tensor parallelism); "
-                        "'prod-multipod': 2 x 16 x 16, not ported")
+                        "'prod-multipod': the 2 x 16 x 16 (pod, data, "
+                        "model) mesh of a 512-rank world (agents over pod)")
     p.add_argument("--elastic", action="store_true",
                    help="elastic group membership: a per-agent alive "
                         "mask through the exchange")
@@ -261,48 +266,61 @@ def main(argv=None) -> dict:
     # relevance state and the step's estimator cannot drift apart
     exchange = build_exchange(spec, kind="streaming", mesh=mesh)
     shard = exchange.shard
-    tensor = mesh is not None and shard is None     # a (data, model) mesh
+    # a mesh with a model axis: (data, model) or (pod, data, model)
+    tensor = mesh is not None and args.mesh != "pods"
     rank0 = mesh is None or torch.distributed.get_rank() == 0
     say = print if rank0 else _quiet
-    # the group's state from the seed (and the file), then the rank's rows
-    state = init_train_state(cfg, spec, opt, seed=args.seed,
-                             exchange=exchange, device=dev)
-    if args.restore:
-        state = restore_train(args.restore, state, strict=False)
-        say(f"restored full TrainState from {args.restore} "
-            f"(step {int(state.step)})")
     if tensor:
+        # the rank's slices drawn (and read) directly: no rank holds the
+        # group's whole state
+        from repro_torch.checkpoint import restore_sliced
         from repro_torch.launch import shardings as SH
-        from repro_torch.launch.mesh import train_rules
-        state_specs = SH.train_state_partition_specs(
-            cfg, train_rules(mesh), None,
-            learn_relevance=exchange.estimator.learns,
-            sketch_dim=exchange.sketch_dim)
-        state_shapes = SH.full_shapes(state)
-        state = SH.place(state, state_specs, mesh, cfg)
-        step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange,
-                                        mesh=mesh)
+        state_specs = SH.state_placement_specs(
+            cfg, mesh, exchange.estimator.learns, exchange.sketch_dim,
+            spec.pod_axis)
+        state_shapes = SH.full_shapes(init_train_state(
+            cfg, spec, opt, seed=args.seed, exchange=exchange,
+            device="meta"))
+        state = init_train_state(cfg, spec, opt, seed=args.seed,
+                                 exchange=exchange, device=dev, mesh=mesh)
+        if args.restore:
+            state = restore_sliced(args.restore, state, state_specs, mesh,
+                                   cfg, strict=False)
     else:
+        # the group's state from the seed (and the file), then the
+        # rank's rows
+        state = init_train_state(cfg, spec, opt, seed=args.seed,
+                                 exchange=exchange, device=dev)
+        if args.restore:
+            state = restore_train(args.restore, state, strict=False)
         if mesh is not None:
             from repro_torch.launch.shardings import (agent_sharded_state,
                                                       gather_agent_state)
             state = agent_sharded_state(state, mesh, spec.pod_axis)
-        step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange)
+    if args.restore:
+        say(f"restored full TrainState from {args.restore} "
+            f"(step {int(state.step)})")
+    step_fn = make_group_train_step(cfg, spec, opt, exchange=exchange,
+                                    mesh=mesh if tensor else None)
     leaves = [x for _, x in tree_leaves_with_paths(
         state_shapes.params if tensor else state.params)]
     n_params = sum(x[0].numel() for x in leaves)
     say(f"arch={args.arch} reduced={not args.full} "
         f"params/agent={n_params:,} agents={args.agents}")
-    if shard is not None:
+    if mesh is not None:
         import torch.distributed as dist
-        say(f"mesh {spec.pod_axis} x agent = {tuple(mesh.mesh.shape)} over "
-            f"{dist.get_backend()}: {shard.block} agents a rank")
-    if tensor:
-        import torch.distributed as dist
-        say(f"mesh data x model = {tuple(mesh.mesh.shape)} over "
-            f"{dist.get_backend()}: every agent on every rank, "
-            f"{args.batch // mesh.size(0)} rows of each agent's batch and "
-            f"its model-axis slices")
+        backend = dist.get_backend()
+        shape_m = tuple(mesh.mesh.shape)
+    if not tensor and shard is not None:
+        say(f"mesh {spec.pod_axis} x agent = {shape_m} over {backend}: "
+            f"{shard.block} agents a rank")
+    elif tensor:
+        rows = args.batch // mesh.size(mesh.mesh_dim_names.index("data"))
+        who = ("every agent on every rank" if shard is None
+               else f"{shard.block} agents a rank")
+        axes = " x ".join(mesh.mesh_dim_names)
+        say(f"mesh {axes} = {shape_m} over {backend}: {who}, {rows} rows "
+            f"of each agent's batch and its model-axis slices")
 
     def sync():
         if dev.type == "cuda":
@@ -316,7 +334,9 @@ def main(argv=None) -> dict:
     for i in range(args.steps):
         if tensor:
             batch = make_data_batch(cfg, shape, stream, args.agents,
-                                    int(state.step), mesh, dev)
+                                    int(state.step), mesh, dev,
+                                    rows=None if shard is None
+                                    else shard.rows)
         elif shard is None:
             batch = make_group_batch(cfg, shape, stream, args.agents,
                                      int(state.step), dev)
@@ -352,14 +372,23 @@ def main(argv=None) -> dict:
     say("median ms per step: " + ", ".join(
         f"{k} {v:.1f}" for k, v in medians.items())
         + ("" if peak is None else f"; peak {peak / 2**30:.3f} GiB"))
-    if args.ckpt or args.ckpt_full:
+    if tensor:
+        # each leaf gathered to rank 0's host a block at a time, written
+        # into the single-process file
+        from repro_torch.checkpoint import save_sliced, save_train_sliced
+        if args.ckpt:
+            save_sliced(args.ckpt, state.params, state_specs.params, mesh,
+                        state_shapes.params, cfg, step=args.steps)
+            say(f"saved params to {args.ckpt}")
+        if args.ckpt_full:
+            save_train_sliced(args.ckpt_full, state, state_specs, mesh,
+                              state_shapes, cfg, step=int(state.step))
+            say(f"saved full TrainState to {args.ckpt_full}")
+    elif args.ckpt or args.ckpt_full:
         # the single-process file: the group's rows gathered to every
         # rank, written by rank 0
-        if tensor:
-            full = SH.gather(state, state_specs, mesh, state_shapes, cfg)
-        else:
-            full = (state if mesh is None
-                    else gather_agent_state(state, mesh, spec.pod_axis))
+        full = (state if mesh is None
+                else gather_agent_state(state, mesh, spec.pod_axis))
         if rank0:
             if args.ckpt:
                 save(args.ckpt, full.params, step=args.steps)

@@ -35,8 +35,8 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.sharding import mesh_axis
 from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
-                                       slot_layer, stack_layers, tree_map,
-                                       unstack_layers)
+                                       sliced, slot_layer, stack_layers,
+                                       tree_map, unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (copy_to_model, cross_entropy,
                                        dense_init, embed_init, embed_rows,
@@ -106,7 +106,8 @@ def _merge_lora(shared: dict, lora: dict, cdt: torch.dtype,
 def init_hybrid(cfg, gen: Optional[torch.Generator], device=None) -> dict:
     """The parameters on ``device`` (``None``: the card); ``gen`` must
     live on that device. The nested stacks are filled one layer at a
-    time (22.7 GB of fp32 weights at zamba2-7b)."""
+    time (22.7 GB of fp32 weights at zamba2-7b). Under ``common.pytree.
+    slicing`` each drawn tree is cut to the rank's slice at once."""
     hy = cfg.hybrid
     dev = resolve_device(device)
     dt = cfg.dtype("param")
@@ -116,27 +117,31 @@ def init_hybrid(cfg, gen: Optional[torch.Generator], device=None) -> dict:
         return torch.ones((E,), dtype=dt, device=dev)
 
     params = {
-        "embed": embed_init(gen, (cfg.vocab_size, E), dt, dev),
-        "final_norm": ones(),
-        "lm_head": dense_init(gen, (E, cfg.vocab_size), dt, device=dev),
+        "embed": sliced(("embed",), embed_init(
+            gen, (cfg.vocab_size, E), dt, dev)),
+        "final_norm": sliced(("final_norm",), ones()),
+        "lm_head": sliced(("lm_head",), dense_init(
+            gen, (E, cfg.vocab_size), dt, device=dev)),
     }
-    params["shared"] = {
+    params["shared"] = sliced(("shared",), {
         "ln1": ones(),
         "attn": attn.init_self_attention(cfg, gen, dev),
         "ln2": ones(),
         "mlp": init_swiglu(gen, E, cfg.d_ff, dt, dev),
-    }
+    })
 
     def one_mamba():
         return {"ln": ones(), "mamba": init_mamba2(cfg, gen, dev)}
 
     params["mamba_blocks"] = init_stacked(
-        (hy.n_super_blocks, hy.mamba_per_block), one_mamba)
+        (hy.n_super_blocks, hy.mamba_per_block), one_mamba,
+        ("mamba_blocks",))
     shapes = _lora_shapes(cfg)
     params["lora"] = init_stacked(
-        hy.n_super_blocks, lambda: _init_lora(cfg, gen, shapes, dev))
+        hy.n_super_blocks, lambda: _init_lora(cfg, gen, shapes, dev),
+        ("lora",))
     if hy.tail_mamba:
-        params["tail"] = init_stacked(hy.tail_mamba, one_mamba)
+        params["tail"] = init_stacked(hy.tail_mamba, one_mamba, ("tail",))
     return params
 
 

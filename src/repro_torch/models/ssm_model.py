@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
-                                       slot_layer, stack_layers,
+                                       sliced, slot_layer, stack_layers,
                                        unstack_layers)
 from repro_torch.models.common import (copy_to_model, cross_entropy,
                                        dense_init, embed_init, embed_rows,
@@ -35,22 +35,25 @@ from repro_torch.models.mamba2 import (init_mamba2, make_mamba_state,
 
 def init_ssm_model(cfg, gen: torch.Generator, device=None) -> dict:
     """The stacked-layer parameters on ``device`` (``None``: the card);
-    ``gen`` must live on that device."""
+    ``gen`` must live on that device. Under ``common.pytree.slicing``
+    each drawn tree is cut to the rank's slice at once."""
     dev = resolve_device(device)
     dt = cfg.dtype("param")
     params = {
-        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dt, dev),
-        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+        "embed": sliced(("embed",), embed_init(
+            gen, (cfg.vocab_size, cfg.d_model), dt, dev)),
+        "final_norm": sliced(("final_norm",), torch.ones(
+            (cfg.d_model,), dtype=dt, device=dev)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
-                                       dt, device=dev)
+        params["lm_head"] = sliced(("lm_head",), dense_init(
+            gen, (cfg.d_model, cfg.vocab_size), dt, device=dev))
 
     def one():
         return {"ln": torch.ones((cfg.d_model,), dtype=dt, device=dev),
                 "mamba": init_mamba2(cfg, gen, dev)}
 
-    params["layers"] = init_stacked(cfg.n_layers, one)
+    params["layers"] = init_stacked(cfg.n_layers, one, ("layers",))
     return params
 
 

@@ -41,7 +41,7 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.sharding import mesh_axis
 from repro_torch.common.pytree import (init_stacked, layer, pick_rows,
-                                       slot_layer, stack_layers,
+                                       sliced, slot_layer, stack_layers,
                                        unstack_layers)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (copy_to_model, cross_entropy,
@@ -80,25 +80,32 @@ def init_transformer(cfg, gen: torch.Generator, device=None) -> dict:
     """The stacked-layer parameters on ``device`` (``None``: the card);
     ``gen`` must live on that device. Each layer is drawn and copied
     into its slot at once (12.85 GB of fp32 weights at llama3.2-3b),
-    then the leading dense layer, if any."""
+    then the leading dense layer, if any. Under ``common.pytree.
+    slicing`` each drawn tree is cut to the rank's slice at once."""
     dev = resolve_device(device)
     dt = cfg.dtype("param")
     V, E = cfg.vocab_size, cfg.d_model
     if cfg.family == "audio":
         C = cfg.n_codebooks
-        params = {"embed": embed_init(gen, (C, V, E), dt, dev),
-                  "lm_head": dense_init(gen, (C, E, V), dt, device=dev)}
+        params = {"embed": sliced(("embed",),
+                                  embed_init(gen, (C, V, E), dt, dev)),
+                  "lm_head": sliced(("lm_head",), dense_init(
+                      gen, (C, E, V), dt, device=dev))}
     else:
-        params = {"embed": embed_init(gen, (V, E), dt, dev)}
+        params = {"embed": sliced(("embed",),
+                                  embed_init(gen, (V, E), dt, dev))}
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(gen, (E, V), dt, device=dev)
-    params["final_norm"] = torch.ones((E,), dtype=dt, device=dev)
+            params["lm_head"] = sliced(("lm_head",), dense_init(
+                gen, (E, V), dt, device=dev))
+    params["final_norm"] = sliced(("final_norm",), torch.ones(
+        (E,), dtype=dt, device=dev))
     dense_ff = cfg.d_ff if cfg.moe is None else None
     params["layers"] = init_stacked(
         cfg.n_layers - cfg.first_k_dense,
-        lambda: _init_layer(cfg, gen, dev, dense_ff))
+        lambda: _init_layer(cfg, gen, dev, dense_ff), ("layers",))
     if cfg.first_k_dense:
-        params["layer0"] = _init_layer(cfg, gen, dev, cfg.dense_ff)
+        params["layer0"] = sliced(("layer0",), _init_layer(
+            cfg, gen, dev, cfg.dense_ff))
     return params
 
 

@@ -229,13 +229,20 @@ def test_out_tree_receives_the_result():
     _close(out, PD.make_pod_dispatch(pt, pl)(know))
 
 
-def test_non_pod_mesh_is_not_ported():
-    from repro_torch.configs.base import NotPortedError
+def test_multipod_mesh_takes_the_plain_dispatch():
+    """The (pod, data, model) mesh is taken: the dispatch goes to its
+    placement (agents over ``pod``), which needs the process group the
+    mesh spans (its runs: ``test_torch_multipod_mesh.py``)."""
+    from repro_torch.core.sharded_ddal import mesh_kind
 
     class ProdMesh:
         mesh_dim_names = ("pod", "data", "model")
+
+        def size(self, dim=None):
+            return 2 if dim is not None else 8
     pt, _, pl, _ = _hier(8, 4)
-    with pytest.raises(NotPortedError, match="Slice E part 3"):
+    assert mesh_kind(ProdMesh()) == "pod_model"
+    with pytest.raises(ValueError, match="span the whole process group"):
         PD.make_pod_dispatch(pt, pl, mesh=ProdMesh())
 
 

@@ -345,10 +345,11 @@ def test_placement_contract_errors(four_ranks):
                                    "into 3 pods")
 
 
-def test_production_mesh_is_not_ported():
+def test_production_meshes_need_their_world_and_multipod_is_taken():
     """The production meshes are built over a world of their size only,
-    and the trainer refuses the (pod, data, model) mesh (Slice E part
-    3); the (data, model) meshes are held in ``test_torch_tp_mesh.py``."""
+    and the trainer takes the (pod, data, model) mesh (``mesh_kind``
+    ``"pod_model"``; its runs: ``test_torch_multipod_mesh.py``); the
+    (data, model) meshes are held in ``test_torch_tp_mesh.py``."""
     from repro_torch.launch import mesh as M
 
     class ProdMesh:
@@ -359,10 +360,9 @@ def test_production_mesh_is_not_ported():
         M.make_production_mesh(device_type="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         M.make_debug_mesh(device_type="cpu")
-    with pytest.raises(NotPortedError, match="Slice E part 3"):
-        SD.make_group_train_step(None, GroupSpec(
-            n_agents=2, knowledge_mode="streaming"), optim.adamw(0.1),
-            loss_fn=lambda p, b: 0, mesh=ProdMesh())
+    assert SD.mesh_kind(ProdMesh()) == "pod_model"
+    with pytest.raises(NotPortedError, match="none of the meshes"):
+        SD.mesh_kind(ProdMesh(), pod_axis="pods")
 
 
 def _assert_trace(got_ranks, want, bitwise_sketch=True):
