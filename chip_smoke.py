@@ -194,7 +194,16 @@ Phases, each printing its lines:
    270): served (prefill
    logits within 1e-4, 8 greedy tokens equal, the continuous batcher's
    too) and scored (a non-zero ``cond`` or the vision prefix; logits
-   within 1e-4, the loss within 1e-5 relative);
+   within 1e-4, the loss within 1e-5 relative); beside them, in a child
+   process with its own default process group, ``[dryrun]``: a fake
+   256-rank world at rank (0, 0) of the 16 x 16 mesh
+   (``launch.mesh.make_traced_mesh``) traces mamba2-780m
+   ``prefill_32k`` (2 rows x 32,768 tokens: the SSD kernel in each of
+   48 layers) and llama3.2-3b ``decode_32k`` on ``meta`` tensors
+   (``launch.dryrun_lib``), then runs each step for real on the card
+   with the rank's slices (collectives faked: no bytes move); the
+   measured peak within 10 % of the traced ``total_bytes_per_device``
+   and each kernel's launches equal to the traced count;
 6. a profile of a few main-path epochs of the quickstart group, of
    the fourth run's configuration and of the DDADQN n = 2 group (the
    device's busy share, the ops that take the time and the host-clock
@@ -224,9 +233,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12            # H100 SXM fp32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12           # H100 SXM bf16 tensor cores, dense
 G_TOL = dict(rtol=2e-5, atol=2e-5)     # ḡ, as the Pallas kernel is held
 W_RTOL = 1e-6                          # Σw
 EPOCHS = 120                           # of each main-path run
@@ -562,10 +568,23 @@ def bound(n, m, p, fused):
     """Least time (ms) for the same work: each input read once, each
     output written once, over the HBM rate; and 2·n·m·P fp32 operations
     over the fp32 peak. The larger of the two, and which one it is."""
+    from repro_torch.roofline.constants import HBM_BW, PEAK_FLOPS_FP32
     meta = n * m * (4 + 4 + 1) if fused else n * m * 4
     out = n * p * 4 + (n * 4 if fused else 0)
-    bytes_ms = (n * m * p * 4 + meta + out) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * n * m * p / FP32_FLOP_PER_S * 1e3
+    bytes_ms = (n * m * p * 4 + meta + out) / HBM_BW * 1e3
+    ops_ms = 2 * n * m * p / PEAK_FLOPS_FP32 * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def sketch_bound(n, p, d):
+    """Least time (ms) of a sketch of n rows of P entries to d: the rows
+    read and the sketches written once over the HBM rate, and 2·n·P·d
+    fp32 operations over the fp32 peak (the hash work is not in it).
+    The larger of the two, and which one it is."""
+    from repro_torch.roofline.constants import HBM_BW, PEAK_FLOPS_FP32
+    bytes_ms = (4 * n * p + 4 * n * d) / HBM_BW * 1e3
+    ops_ms = 2 * n * p * d / PEAK_FLOPS_FP32 * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
 
@@ -792,10 +811,7 @@ def sketch_phase(torch):
         S = ref.sign_block(sd, offset, p_, d, "cuda")  # outside the timing
         lib_ms, lib_host = time_ms(torch, lambda: torch.matmul(G, S), iters)
         del S
-        bytes_ms = (4 * n * p_ + 4 * n * d) / HBM_BYTES_PER_S * 1e3
-        ops_ms = 2 * n * p_ * d / FP32_FLOP_PER_S * 1e3
-        b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-                      else (ops_ms, "operations"))
+        b_ms, b_by = sketch_bound(n, p_, d)
         print(f"[kernel] grad_sketch {label}: device {ms:.5f} ms "
               f"({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, {b_by}: "
               f"2·n·P·d fp32 flops at 67 TFLOP/s vs 4·n·P bytes at "
@@ -817,6 +833,7 @@ def wavg_q_phase(torch):
     of 32 pieces over the A2C's blocks at q_block 128."""
     from repro_torch.common.pytree import PlaneLayout
     from repro_torch.kernels.ddal_wavg import ops, ref
+    from repro_torch.roofline.constants import HBM_BW
 
     a2c = _a2c_layout(torch)
     ragged = PlaneLayout(None, [()], [(2 ** 20 + 37,)])
@@ -881,7 +898,7 @@ def wavg_q_phase(torch):
         del deq
         nb = blocks.n_blocks
         b_ms = ((n * m * layout.size + n * m * nb * 4 + n * layout.size * 4
-                 + n * m * 9 + n * 4) / HBM_BYTES_PER_S * 1e3)
+                 + n * m * 9 + n * 4) / HBM_BW * 1e3)
         print(f"[kernel] ddal_fused_wavg_q {label}: device {ms:.5f} ms "
               f"({b_ms / ms:.1%} of the {b_ms:.5f} ms bound, bytes: "
               f"n·m·P int8 + n·m·nb·4 scales + n·P·4 out + metadata at "
@@ -982,40 +999,6 @@ def _ssd_case(torch, seed, b, nc, l, h, p, n, g, dtype, pad=0):
             t[:, :, l - pad:] = 0
     cs = torch.cumsum(dtc * A, dim=2)
     return [xc.to(dtype), dtc, cs, Bc.to(dtype), Cc.to(dtype)]
-
-
-def ssd_bound(bn, l, h, p, n, g, esize, split_sx=True):
-    """Least time (ms), the larger of operations and bytes, and which
-    one it is. Over the l(l+1)/2 causal (i, j) pairs of a chunk: the
-    score C_i·B_j, 2n operations once per (chunk, group), since B and C
-    are shared by the heads of a group; per (chunk, head) the product
-    with x_j (2p), and the decay exp(cs_i − cs_j) and its products (3),
-    plus l·p to fold dt_j into x_j. With bf16 inputs the score is one
-    bf16 product (bf16 products are exact in fp32, the sums stay fp32)
-    and S·x two, S_hi·x + S_lo·x (S is fp32 in the reference, and one
-    bf16 S leaves the gate), at the bf16 tensor-core rate; the decay at
-    the fp32 rate. ``split_sx=False`` prices a bf16 S·x at the fp32
-    rate instead, the pricing of an S·x on the CUDA cores. With fp32
-    inputs everything runs at the fp32 rate (TF32 would round them).
-    Bytes: each input read once, the fp32 output written once, at the
-    HBM rate."""
-    pairs = l * (l + 1) // 2
-    score = bn * g * pairs * 2 * n
-    sx = bn * h * pairs * 2 * p
-    decay = bn * h * (pairs * 3 + l * p)
-    nbytes = (bn * l * h * p * esize + 2 * bn * l * g * n * esize
-              + 2 * bn * l * h * 4 + bn * l * h * p * 4)
-    if esize == 2 and split_sx:
-        ops_ms = ((score + 2 * sx) / BF16_FLOP_PER_S
-                  + decay / FP32_FLOP_PER_S) * 1e3
-    elif esize == 2:
-        ops_ms = (score / BF16_FLOP_PER_S
-                  + (sx + decay) / FP32_FLOP_PER_S) * 1e3
-    else:
-        ops_ms = (score + sx + decay) / FP32_FLOP_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
-                                                              "bytes")
 
 
 def ssd_kernel_phase(torch, built):
@@ -1145,12 +1128,12 @@ def ssd_kernel_phase(torch, built):
             torch, lambda: torch.matmul(torch.matmul(Ch, BhT) * M, Xh), 50)
         del Ch, BhT, Xh, M
         esize = xc.element_size()
-        b_ms, b_by = ssd_bound(bn, l, h, p, n, g, esize)
+        b_ms, b_by = ops.ssd_bound(bn, l, h, p, n, g, esize)
         if esize == 2:
             cold = time_cold_ms(torch, lambda: ops.ssd_intra_chunk(*args),
                                 50)
-            old_ms, old_by = ssd_bound(bn, l, h, p, n, g, esize,
-                                       split_sx=False)
+            old_ms, old_by = ops.ssd_bound(bn, l, h, p, n, g, esize,
+                                           split_sx=False)
             pricing = (f"C·Bᵀ once per (chunk, group) and S_hi·x + S_lo·x "
                        f"at 989 TFLOP/s bf16, the decay at 67 TFLOP/s "
                        f"fp32; priced with S·x at the fp32 rate, as for the "
@@ -1185,53 +1168,6 @@ def ssd_kernel_phase(torch, built):
           f"an SM holds fewer bf16 SSD blocks than ssd_geometry plans "
           f"({ops.BLOCKS_PER_SM}): {per_sm}")
     return row
-
-
-def flash_bound(B, S, H, K, D, window, esize):
-    """Least time (ms), the larger of operations and bytes, and which one
-    it is. Over the (i, j) pairs the mask keeps (Σ_i min(i + 1, window)
-    per (b, h)), each product is 2·D operations per pair. bf16 inputs:
-    q·kᵀ as one bf16 product (bf16 products are exact in fp32) and p·v as
-    two, p_hi·v + p_lo·v (p is fp32 in the reference and one bf16 p
-    leaves the one-unit gate; one TF32 product at half the rate costs the
-    same), all at the bf16 tensor-core rate. fp32 inputs: both products
-    at the fp32 rate (TF32 would round the inputs). Bytes: q, k and v
-    read once, o written once, at the HBM rate."""
-    w = S if window is None else min(window, S)
-    pairs = w * (w + 1) // 2 + (S - w) * w
-    flops = 2 * D * pairs * B * H                 # one product
-    if esize == 2:
-        ops_ms = 3 * flops / BF16_FLOP_PER_S * 1e3
-    else:
-        ops_ms = 2 * flops / FP32_FLOP_PER_S * 1e3
-    bytes_ms = (2 * B * S * H * D + 2 * B * S * K * D) * esize \
-        / HBM_BYTES_PER_S * 1e3
-    if ops_ms >= bytes_ms:
-        return ops_ms, "operations"
-    return bytes_ms, "bytes"
-
-
-def flash_mma_flops(B, S, H, D, window, dtype_is_bf16):
-    """The operations the kernel runs over the tiles it visits, as
-    ``csrc/flash_attention.cu`` walks them: per query tile the key tiles
-    from the window's first to the diagonal; bf16 (128 x 64 tiles,
-    three products) skips a tile per warp of 16 rows when it is wholly
-    masked for them, fp32 (64 x 64, two products) runs every visited
-    tile whole."""
-    import torch
-    from repro_torch.kernels.flash_attention import ops
-    bq, bk = ops.TILES[torch.bfloat16 if dtype_is_bf16 else torch.float32]
-    rows, products = (16, 3) if dtype_is_bf16 else (bq, 2)
-    units = 0                          # (rows x bk) blocks of work
-    for i0 in range(0, S, bq):
-        last = min(i0 + bq, S) - 1
-        lo = max(0, i0 - window + 1) if window else 0
-        for j0 in range(lo // bk * bk, last + 1, bk):
-            for w0 in range(i0, i0 + bq, rows):
-                skip = j0 > w0 + rows - 1 or (
-                    window and j0 + bk - 1 <= w0 - window)
-                units += not skip
-    return units * rows * bk * D * 2 * products * B * H
 
 
 def _fa_within_gate(torch, got, want):
@@ -1296,8 +1232,9 @@ def _flash_cases(torch, cases):
                 qt, kt, vt, attn_mask=mask, is_causal=mask is None,
                 enable_gqa=True), 20)
         del qt, kt, vt, mask
-        b_ms, b_by = flash_bound(B, S, H, K, D, window, q.element_size())
-        mma = flash_mma_flops(B, S, H, D, window, dtype == bf16)
+        b_ms, b_by = ops.flash_bound(B, S, H, K, D, window,
+                                     q.element_size())
+        mma = ops.flash_mma_flops(B, S, H, D, window, dtype == bf16)
         work = ("q·kᵀ + p_hi·v + p_lo·v at 989 TFLOP/s bf16" if dtype == bf16
                 else "q·kᵀ + p·v at 67 TFLOP/s fp32")
         print(f"[kernel] flash_attention {label} {str(dtype)[6:]}: device "
@@ -3487,10 +3424,7 @@ def sketch_strided_phase(torch):
             plain_ms, _ = time_ms(torch, lambda: ref.sketch_flat(
                 Gc, seed, d, offset, position_map=pmap), 1)
             P = G.shape[1]
-            bytes_ms = (4 * n * P + 4 * n * d) / HBM_BYTES_PER_S * 1e3
-            ops_ms = 2 * n * P * d / FP32_FLOP_PER_S * 1e3
-            b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-                          else (ops_ms, "operations"))
+            b_ms, b_by = sketch_bound(n, P, d)
             S = torch.empty((P, d), device="cuda")      # outside the timing
             piece = 2 ** 18
             for start in range(0, P, piece):
@@ -3959,10 +3893,7 @@ def sketch_leaf_phase(torch, p_big):
     g = torch.Generator(device="cuda").manual_seed(5)
     G = torch.randn((2, p_big), generator=g, device="cuda")
     ms, host = time_ms(torch, lambda: ops.sketch_flat(G, seed, d), 5)
-    bytes_ms = (4 * 2 * p_big + 4 * 2 * d) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2 * 2 * p_big * d / FP32_FLOP_PER_S * 1e3
-    b_ms, b_by = ((bytes_ms, "bytes") if bytes_ms >= ops_ms
-                  else (ops_ms, "operations"))
+    b_ms, b_by = sketch_bound(2, p_big, d)
     del G
     cut, piece, off = 2 ** 23, 2 ** 18, 850_000_000
     Gs = torch.randn((2, cut), generator=g, device="cuda")
@@ -5043,6 +4974,157 @@ def nosync_decode_phase(torch, cfg, params):
           f"ServeEngine.decode synchronizes with the card: {error}")
 
 
+DRYRUN_PAIRS = ((MAMBA, "prefill_32k"), (LLAMA, "decode_32k"))
+DRYRUN_GATE = 0.10        # the measured peak within 10 % of the traced one
+DRYRUN_TIMEOUT = 300      # s, the child's run
+
+
+def _dryrun_args(torch, cfg, shape, inputs, gen):
+    """The rank's inputs of a prefill or decode step (``step_inputs``'s
+    ``meta`` tensors) drawn on the card: parameters N(0, 0.02²) from
+    ``gen``, token ids below the vocabulary, positions 0 .. S − 1
+    (prefill) or S / 2 (decode), other batch leaves N(0, 1), the cache
+    empty (zeros, positions −1)."""
+    from repro_torch.common.pytree import tree_map
+
+    def param(x):
+        return torch.empty(x.shape, dtype=x.dtype, device="cuda").normal_(
+            0.0, 0.02, generator=gen)
+
+    def feed(key, x):
+        if key == "tokens":
+            return torch.randint(0, cfg.vocab_size, tuple(x.shape),
+                                 generator=gen, dtype=x.dtype,
+                                 device="cuda")
+        if key == "positions" and shape.kind == "prefill":
+            return torch.arange(x.shape[-1], dtype=x.dtype,
+                                device="cuda").expand(x.shape).contiguous()
+        if key == "positions":
+            return torch.full(tuple(x.shape), shape.seq_len // 2,
+                              dtype=x.dtype, device="cuda")
+        return torch.empty(x.shape, dtype=x.dtype, device="cuda").normal_(
+            generator=gen)
+
+    def empty(x):
+        return torch.full(tuple(x.shape),
+                          0 if x.dtype.is_floating_point else -1,
+                          dtype=x.dtype, device="cuda")
+    params, batch = tree_map(param, inputs[0]), {
+        k: feed(k, v) for k, v in inputs[1].items()}
+    return (params, batch) + tuple(tree_map(empty, c) for c in inputs[2:])
+
+
+def dryrun_child(card: str) -> int:
+    """The ``[dryrun]`` phase, in a process of its own (its own default
+    process group): a fake 256-rank world (``launch.mesh.
+    make_traced_mesh``) at rank (0, 0) of 16 x 16. For each of
+    DRYRUN_PAIRS it traces the rank's step on ``meta`` tensors
+    (``launch.dryrun_lib``), then runs the same step for real on the
+    card with the rank's slices of random parameters, its rows and its
+    cache: the collectives are the fake world's, so they move no bytes
+    and a gathered buffer holds whatever it held. It runs the step twice
+    (the first builds the kernels) and holds the second run's peak
+    (``max_memory_allocated`` less what was allocated before the inputs
+    were drawn) within DRYRUN_GATE of the traced
+    ``total_bytes_per_device``, and each kernel's launches equal to the
+    count the trace recorded. Exits non-zero on a failed gate."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import (INPUT_SHAPES, arch_for_shape,
+                                     get_arch_config)
+    from repro_torch.launch import dryrun_lib as DL
+    from repro_torch.launch.mesh import make_traced_mesh
+
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_traced_mesh()
+    ok = True
+    try:
+        for arch, name in DRYRUN_PAIRS:
+            cfg = arch_for_shape(get_arch_config(arch), name)
+            shape = INPUT_SHAPES[name]
+            t0 = time.perf_counter()
+            trace = DL.trace(cfg, shape, mesh)
+            trace_s = time.perf_counter() - t0
+            inputs, step, _ = DL.step_inputs(cfg, shape, mesh)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            args = _dryrun_args(torch, cfg, shape, inputs, gen)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            for _ in range(2):            # the first builds the kernels
+                reset_launches()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                peak = torch.cuda.max_memory_allocated() - base
+                counts = launch_counts()
+                del out
+            del args
+            want = trace.peak_bytes
+            err = (peak - want) / want
+            same = all(n == trace.kernels.get(k, 0)
+                       for k, n in counts.items())
+            ran = {k: n for k, n in counts.items() if n}
+            fine = abs(err) <= DRYRUN_GATE and same
+            ok &= fine
+            print(f"[dryrun] {arch} {name}, rank (0, 0) of 16 x 16 in a "
+                  f"fake 256-rank world (collectives faked: no bytes "
+                  f"move): traced {want / 2**30:.3f} GiB "
+                  f"({trace.argument_bytes / 2**30:.3f} GiB arguments, "
+                  f"traced in {trace_s:.1f} s), measured peak "
+                  f"{peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB "
+                  f"inputs), {err:+.2%} (gate ±{DRYRUN_GATE:.0%}); "
+                  f"launches {ran or 'none'}, traced "
+                  f"{trace.kernels or 'none'}; step {ms:.1f} ms on {card}, "
+                  f"beside the [equiv] phases -> "
+                  f"{'ok' if fine else 'FAIL'}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def start_dryrun_run(card: str):
+    """Starts :func:`dryrun_child` in a child process in the background;
+    returns (the process, its start)."""
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)] + (
+            [env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.dryrun_child("
+         "sys.argv[1]))", card],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def dryrun_phase(run):
+    """Waits for ``start_dryrun_run``'s child and passes its lines on;
+    fails if it failed or ran past DRYRUN_TIMEOUT."""
+    proc, t0 = run
+    try:
+        out, err = proc.communicate(timeout=max(
+            1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_mesh_run(proc)
+        raise SmokeFailure(f"[dryrun]: the child ran past "
+                           f"{DRYRUN_TIMEOUT} s")
+    lines = [ln for ln in out.splitlines() if ln.startswith("[dryrun]")]
+    for ln in lines:
+        print(ln)
+    check(proc.returncode == 0 and len(lines) == len(DRYRUN_PAIRS),
+          f"[dryrun]: the child exited {proc.returncode}: "
+          f"{out[-2000:]}{err[-2000:]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5063,7 +5145,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     marks = [t_start]
-    mesh_run = None
+    mesh_run = dry_run = None
 
     def lap(label):
         now = time.perf_counter()
@@ -5225,6 +5307,7 @@ def main() -> int:
         robust_equivalence_phase(torch)
         lap("equivalence")
         mesh_run = start_mesh_run()
+        dry_run = start_dryrun_run(card)
         equiv_serve_phase(torch, "mamba2-780m", prompts)
         cut = _cut_to_two_layers(torch, LLAMA)
         equiv_score_phase(torch, cut)
@@ -5249,7 +5332,9 @@ def main() -> int:
         lap("serving equivalence, musicgen-medium and qwen2-vl-72b")
         mesh_phase(torch, mesh_run)
         mesh_run = None
-        lap("mesh")
+        dryrun_phase(dry_run)
+        dry_run = None
+        lap("mesh and dryrun")
         spent = time.perf_counter() - t_start
         if spent > PROFILE_DEADLINE:
             print(f"[profile] skipped: {spent:.1f} s spent, past "
@@ -5265,6 +5350,8 @@ def main() -> int:
     finally:
         if mesh_run is not None:
             stop_mesh_run(mesh_run[0])
+        if dry_run is not None:
+            stop_mesh_run(dry_run[0])
     # "launches" is the count of the kernel's first path; every path
     # that drives it, each zeroed just before its run, is listed beside
     for name, row in table.items():

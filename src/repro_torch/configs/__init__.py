@@ -4,8 +4,15 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ArchConfig, HybridConfig,  # noqa: F401
-                                      MLAConfig, MoEConfig, SSMConfig)
+from repro_torch.configs.base import (  # noqa: F401
+    INPUT_SHAPES,
+    LONG_CONTEXT_WINDOW,
+    ArchConfig,
+    HybridConfig,
+    MLAConfig,
+    MoEConfig,
+    SSMConfig,
+)
 
 _ARCH_MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
@@ -32,3 +39,13 @@ def get_arch_config(arch_id: str) -> ArchConfig:
     mod = importlib.import_module(
         f"repro_torch.configs.{_ARCH_MODULES[arch_id]}")
     return mod.get_config()
+
+
+def arch_for_shape(cfg: ArchConfig, shape_name: str) -> ArchConfig:
+    """Apply per-shape variants (the reference's): the dense, VLM and
+    audio families get the sliding-window attention variant for
+    ``long_500k``; SSM and hybrid run natively."""
+    if shape_name == "long_500k" and cfg.family not in ("ssm", "hybrid"):
+        if cfg.sliding_window is None:
+            return cfg.with_(sliding_window=LONG_CONTEXT_WINDOW)
+    return cfg

@@ -566,3 +566,7 @@ INPUT_SHAPES = {
     "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
     "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
 }
+
+# Dense (full-attention) archs fall back to a sliding-window variant for
+# long_500k (sub-quadratic requirement), as the reference's do.
+LONG_CONTEXT_WINDOW = 8_192

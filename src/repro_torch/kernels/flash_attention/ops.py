@@ -4,7 +4,8 @@
 (``repro.kernels.flash_attention.ops``): q (B, S, H, D), k and v
 (B, S, K, D) with K dividing H, and returns (B, S, H, D) in q's dtype.
 CUDA tensors take a kernel, CPU tensors the plain version (``ref``),
-and nothing else: the tensors' device is the only switch. The kernel
+meta tensors the kernel op's shape function (below), and nothing else:
+the tensors' device is the only switch. The kernel
 launches are counted in ``flash_attention.launches``.
 
 On the card the dtype picks the kernel of ``csrc/flash_attention.cu``,
@@ -31,6 +32,18 @@ causal attention with an optional sliding window, and no gradient:
 the reference kernel has no VJP. A pass that autograd records calls
 ``flash_attention_with_vjp``: the kernel's forward, the plain
 version's vector-Jacobian product (``kernels.plain_vjp``).
+
+A card tensor launches the kernel straight through ``ctypes`` (and
+counts the launch). A meta or fake tensor (the dry run,
+``repro_torch.roofline.trace``) goes to the custom op
+``torch.ops.repro_torch.flash_attention`` instead, whose shape function
+returns an output of the kernel's shape and dtype and computes nothing,
+and which ``FlopCounterMode`` counts by :func:`flash_flops`, the
+operations the kernel does over the pairs the causal mask and the
+window keep (the op's own implementation is the same launch). The
+card's path skips the op's dispatcher, which costs host time per call.
+:func:`flash_flops`, :func:`flash_bytes` and :func:`flash_bound` also
+price the kernel's least time in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -40,9 +53,13 @@ from typing import Optional
 
 import torch
 
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
+
 from repro_torch.configs.base import NotPortedError
 from repro_torch.kernels.flash_attention import ref
 from repro_torch.kernels.plain_vjp import with_plain_vjp
+from repro_torch.roofline import constants as C
 
 HEAD_DIMS = (16, 32, 64, 112, 128)
 MAX_BH = 65535               # grid y (heads) and z (batch)
@@ -96,7 +113,8 @@ def _check(q, k, v, causal, window):
         raise ValueError("the kernel is causal only, as the reference's")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
-    if q.dtype == torch.bfloat16:
+    if (q.dtype == torch.bfloat16 and not q.is_meta
+            and not is_fake(q)):
         for name, t in zip("qkv", (q, k, v)):
             size = t.element_size()
             if (t.data_ptr() % ALIGN
@@ -113,7 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, S, H, D); k, v: (B, S, K, D) → (B, S, H, D) in q's dtype.
     ``scale`` defaults to 1/√D."""
-    if not q.is_cuda:
+    if q.device.type == "cpu":
         return ref.attention(q, k, v, causal=causal, window=window,
                              scale=scale)
     if any(t.requires_grad for t in (q, k, v)):
@@ -121,21 +139,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention has no backward on the card, as the reference "
             "kernel has no VJP; call it under torch.no_grad()")
     _check(q, k, v, causal, window)
+    if scale is None:
+        scale = 1.0 / (q.shape[3] ** 0.5)
+    window = 0 if window is None else window
+    if q.is_meta or is_fake(q):                  # the op's shape function
+        return torch.ops.repro_torch.flash_attention(q, k, v, window, scale)
+    return _launch(q, k, v, window, scale)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+            scale: float) -> torch.Tensor:
+    """One launch of the kernel on checked card tensors (``window`` 0:
+    none)."""
     B, S, H, D = q.shape
     K = k.shape[2]
-    if scale is None:
-        scale = 1.0 / (D ** 0.5)
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     lib = _lib()
     status = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        K, D, 0 if window is None else window, scale, *strides,
-        _DTYPES[q.dtype], q.device.index,
+        K, D, window, scale, *strides, _DTYPES[q.dtype], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, status, "launch")
     flash_attention.launches += 1
     return out
+
+
+_op = torch.library.custom_op("repro_torch::flash_attention", _launch,
+                              mutates_args=())
+
+
+@_op.register_fake
+def _(q, k, v, window, scale):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
+def _(q, k, v, window, scale, out_val=None):
+    B, S, H, D = q.shape
+    return flash_flops(B, S, H, D, window or None,
+                       q.dtype == torch.bfloat16)
 
 
 flash_attention.launches = 0
@@ -150,6 +193,63 @@ def flash_attention_with_vjp(q: torch.Tensor, k: torch.Tensor,
     inputs."""
     return with_plain_vjp(flash_attention, ref.attention, (q, k, v),
                           causal=True, window=window, scale=scale)
+
+
+def flash_pairs(S: int, window: Optional[int]) -> int:
+    """The (i, j) pairs the causal mask and the window keep in one
+    (batch, head): Σ_i min(i + 1, window)."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_flops(B: int, S: int, H: int, D: int, window: Optional[int],
+                bf16: bool) -> int:
+    """Operations of one call over the pairs the mask keeps
+    (:func:`flash_pairs`), 2·D per pair and product: q·kᵀ and p·v, and
+    with bf16 inputs p·v as two products, p_hi·v + p_lo·v (p is fp32 in
+    the reference and one bf16 p leaves the one-unit gate)."""
+    return (3 if bf16 else 2) * 2 * D * flash_pairs(S, window) * B * H
+
+
+def flash_bytes(B: int, S: int, H: int, K: int, D: int, esize: int) -> int:
+    """q, k and v read once, o written once."""
+    return (2 * B * S * H * D + 2 * B * S * K * D) * esize
+
+
+def flash_bound(B, S, H, K, D, window, esize):
+    """Least time (ms) of one call on the card, the larger of operations
+    and bytes, and which one it is: :func:`flash_flops` at the bf16
+    tensor-core rate (bf16 inputs; bf16 products are exact in fp32) or
+    the fp32 rate (fp32 inputs: TF32 would round them), and
+    :func:`flash_bytes` at the HBM rate (``roofline.constants``)."""
+    bf16 = esize == 2
+    rate = C.PEAK_FLOPS_BF16 if bf16 else C.PEAK_FLOPS_FP32
+    ops_ms = flash_flops(B, S, H, D, window, bf16) / rate * 1e3
+    bytes_ms = flash_bytes(B, S, H, K, D, esize) / C.HBM_BW * 1e3
+    if ops_ms >= bytes_ms:
+        return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def flash_mma_flops(B, S, H, D, window, dtype_is_bf16):
+    """The operations the kernel runs over the tiles it visits, as
+    ``csrc/flash_attention.cu`` walks them: per query tile the key tiles
+    from the window's first to the diagonal; bf16 (128 x 64 tiles,
+    three products) skips a tile per warp of 16 rows when it is wholly
+    masked for them, fp32 (64 x 64, two products) runs every visited
+    tile whole."""
+    bq, bk = TILES[torch.bfloat16 if dtype_is_bf16 else torch.float32]
+    rows, products = (16, 3) if dtype_is_bf16 else (bq, 2)
+    units = 0                          # (rows x bk) blocks of work
+    for i0 in range(0, S, bq):
+        last = min(i0 + bq, S) - 1
+        lo = max(0, i0 - window + 1) if window else 0
+        for j0 in range(lo // bk * bk, last + 1, bk):
+            for w0 in range(i0, i0 + bq, rows):
+                skip = j0 > w0 + rows - 1 or (
+                    window and j0 + bk - 1 <= w0 - window)
+                units += not skip
+    return units * rows * bk * D * 2 * products * B * H
 
 
 def _raise_on(lib, status, what):

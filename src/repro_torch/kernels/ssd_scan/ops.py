@@ -4,8 +4,9 @@
 (``repro.kernels.ssd_scan.ops``): chunked (b, nc, l, h, ·) tensors in
 the layout ``repro_torch.models.ssd.ssd_chunked`` makes them, and
 returns y_diag (b, nc, l, h, p) fp32. CUDA tensors take the kernel,
-CPU tensors the plain version (``ref``), and nothing else: the
-tensors' device is the only switch. The kernel has no backward (the
+CPU tensors the plain version (``ref``), meta tensors the kernel op's
+shape function (below), and nothing else: the tensors' device is the
+only switch. The kernel has no backward (the
 reference's Pallas kernel defines no VJP), so a CUDA call that
 autograd would record (grad mode on, an input that requires grad)
 raises ``NotPortedError`` rather than drop that input's gradient; such a
@@ -35,6 +36,16 @@ are fp32. On the card the dtype picks the kernel of
 The launch geometry (``ssd_geometry``) is computed here, where the
 CPU tests can hold it, and the kernel refuses one that does not cover
 every (chunk, row tile, head) once.
+
+Card tensors launch the kernel straight through ``ctypes`` (and count
+the launch). Meta or fake tensors (the dry run,
+``repro_torch.roofline.trace``) go to the custom op
+``torch.ops.repro_torch.ssd_intra_chunk`` instead, whose shape function
+returns a y_diag of the kernel's shape and dtype and computes nothing,
+and which ``FlopCounterMode`` counts by :func:`ssd_flops` (the op's own
+implementation is the same launch). :func:`ssd_flops`,
+:func:`ssd_bytes` and :func:`ssd_bound` also price the kernel's least
+time in ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -43,10 +54,13 @@ import functools
 from typing import NamedTuple, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.configs.base import NotPortedError
 from repro_torch.kernels.plain_vjp import with_plain_vjp
 from repro_torch.kernels.ssd_scan import ref
+from repro_torch.roofline import constants as C
 
 MAX_P = 64                   # the kernel's output tile is 64 columns wide
 MAX_BN = 65535               # grid y (heads) and z (chunks)
@@ -144,7 +158,8 @@ def _check(xc, dtc, cs, Bc, Cc):
             f"kernel takes 1 <= p <= {MAX_P}, n >= 1, l >= 1, "
             f"1 <= b·nc <= {MAX_BN}, h <= 65535; got (b·nc, l, h, p, n) "
             f"= {(b * nc, l, h, p, n)}")
-    if xc.dtype == torch.bfloat16:
+    if (xc.dtype == torch.bfloat16 and not xc.is_meta
+            and not is_fake(xc)):
         for name, t in (("x", xc), ("B", Bc), ("C", Cc)):
             if t.data_ptr() % ALIGN:
                 raise ValueError(
@@ -157,7 +172,7 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
                     Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
     """xc: (b, nc, l, h, p); dtc, cs: (b, nc, l, h) fp32; Bc, Cc:
     (b, nc, l, g, n), g dividing h → y_diag (b, nc, l, h, p) fp32."""
-    if not xc.is_cuda:
+    if xc.device.type == "cpu":
         return ref.ssd_intra_chunk(xc, dtc, cs, Bc, Cc)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xc, dtc, cs, Bc, Cc)):
@@ -165,6 +180,14 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
             "ssd_intra_chunk has no backward on the card, as the reference "
             "kernel has no VJP; call it under torch.no_grad()")
     _check(xc, dtc, cs, Bc, Cc)
+    if xc.is_meta or is_fake(xc):                # the op's shape function
+        return torch.ops.repro_torch.ssd_intra_chunk(xc, dtc, cs, Bc, Cc)
+    return _launch(xc, dtc, cs, Bc, Cc)
+
+
+def _launch(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
+            Bc: torch.Tensor, Cc: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on checked card tensors."""
     b, nc, l, h, p = xc.shape
     g, n = Bc.shape[3], Bc.shape[4]
     geo = ssd_geometry(b * nc, l, h, g, xc.dtype)
@@ -181,6 +204,24 @@ def ssd_intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, cs: torch.Tensor,
     return out
 
 
+_op = torch.library.custom_op("repro_torch::ssd_intra_chunk", _launch,
+                              mutates_args=())
+
+
+@_op.register_fake
+def _(xc, dtc, cs, Bc, Cc):
+    b, nc, l, h, p = xc.shape
+    ssd_geometry(b * nc, l, h, Bc.shape[3], xc.dtype)   # raises as a launch
+    return xc.new_empty((b, nc, l, h, p), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_intra_chunk, get_raw=True)
+def _(xc, dtc, cs, Bc, Cc, out_val=None):
+    b, nc, l, h, p = xc.shape
+    return ssd_flops(b * nc, l, h, p, Bc.shape[4], Bc.shape[3],
+                     xc.element_size())
+
+
 ssd_intra_chunk.launches = 0
 
 
@@ -193,6 +234,54 @@ def ssd_intra_chunk_with_vjp(xc: torch.Tensor, dtc: torch.Tensor,
     the reference trains with) at the same inputs."""
     return with_plain_vjp(ssd_intra_chunk, ref.ssd_intra_chunk,
                           (xc, dtc, cs, Bc, Cc))
+
+
+def _ssd_terms(bn, l, h, p, n, g):
+    """(score, S·x, decay) operations of one call over the l(l+1)/2
+    causal (i, j) pairs of a chunk: the score C_i·B_j, 2n operations
+    once per (chunk, group), since B and C are shared by the heads of a
+    group; per (chunk, head) the product with x_j (2p), and the decay
+    exp(cs_i − cs_j) and its products (3), plus l·p to fold dt_j into
+    x_j."""
+    pairs = l * (l + 1) // 2
+    return (bn * g * pairs * 2 * n, bn * h * pairs * 2 * p,
+            bn * h * (pairs * 3 + l * p))
+
+
+def ssd_flops(bn, l, h, p, n, g, esize) -> int:
+    """Operations of one call (:func:`_ssd_terms`); with bf16 inputs S·x
+    is two products, S_hi·x + S_lo·x (S is fp32 in the reference, and
+    one bf16 S leaves the gate)."""
+    score, sx, decay = _ssd_terms(bn, l, h, p, n, g)
+    return score + (2 if esize == 2 else 1) * sx + decay
+
+
+def ssd_bytes(bn, l, h, p, n, g, esize) -> int:
+    """Each input read once, the fp32 output written once."""
+    return (bn * l * h * p * esize + 2 * bn * l * g * n * esize
+            + 2 * bn * l * h * 4 + bn * l * h * p * 4)
+
+
+def ssd_bound(bn, l, h, p, n, g, esize, split_sx=True):
+    """Least time (ms) of one call on the card, the larger of operations
+    and bytes, and which one it is. With bf16 inputs the score is one
+    bf16 product (bf16 products are exact in fp32, the sums stay fp32)
+    and S·x two, at the bf16 tensor-core rate; the decay at the fp32
+    rate. ``split_sx=False`` prices a bf16 S·x at the fp32 rate instead,
+    the pricing of an S·x on the CUDA cores. With fp32 inputs everything
+    runs at the fp32 rate (TF32 would round them). Bytes
+    (:func:`ssd_bytes`) at the HBM rate (``roofline.constants``)."""
+    score, sx, decay = _ssd_terms(bn, l, h, p, n, g)
+    bf16, fp32 = C.PEAK_FLOPS_BF16, C.PEAK_FLOPS_FP32
+    if esize == 2 and split_sx:
+        ops_ms = ((score + 2 * sx) / bf16 + decay / fp32) * 1e3
+    elif esize == 2:
+        ops_ms = (score / bf16 + (sx + decay) / fp32) * 1e3
+    else:
+        ops_ms = (score + sx + decay) / fp32 * 1e3
+    bytes_ms = ssd_bytes(bn, l, h, p, n, g, esize) / C.HBM_BW * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
 
 
 def _raise_on(lib, status, what):

@@ -190,3 +190,40 @@ def serve_rules(mesh, global_batch: int) -> dict:
         "ssm_inner": "model",
         "kv_slots": "model",
     }
+
+
+def fake_world_mesh(shape, axes, coord=None):
+    """A ``(shape, axes)`` mesh in a fake world: starts the default
+    process group on PyTorch's ``fake`` backend
+    (``torch.testing._internal.distributed.fake_pg``) with the mesh's
+    world size at the rank of ``coord`` (its coordinate, row-major; the
+    origin by default) and builds the mesh with ``device_type="cuda"``.
+    No other rank exists: every collective returns at once and moves
+    nothing, so one process can run (or trace,
+    ``repro_torch.roofline.trace``) that rank's step. The caller
+    destroys the group (``torch.distributed.destroy_process_group()``)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = tuple(int(n) for n in shape)
+    coord = (0,) * len(shape) if coord is None else tuple(coord)
+    if len(coord) != len(shape) or not all(
+            0 <= c < n for c, n in zip(coord, shape)):
+        raise ValueError(f"coordinate {coord} is not on a "
+                         f"{' x '.join(map(str, shape))} mesh")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up: destroy it "
+                           "before starting a fake world")
+    rank, world = 0, 1
+    for c, n in zip(coord, shape):
+        rank, world = rank * n + c, world * n
+    dist.init_process_group("fake", rank=rank, world_size=world,
+                            store=FakeStore())
+    return init_device_mesh("cuda", shape, mesh_dim_names=tuple(axes))
+
+
+def make_traced_mesh(multi_pod: bool = False, coord=None):
+    """The production mesh of ``make_production_mesh`` (16 x 16, or
+    2 x 16 x 16 with ``multi_pod``) in a fake world of 256 or 512 ranks,
+    seen from the rank at ``coord`` (:func:`fake_world_mesh`)."""
+    return fake_world_mesh(*production_shape(multi_pod), coord)

@@ -145,15 +145,18 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
 def cache_specs(cfg: ArchConfig, shape: ShapeConfig) -> Any:
     """The decode cache of ``shape`` on ``meta``, at its global shapes
     whatever mesh is installed."""
+    from repro_torch.common.describe import describing
     from repro_torch.common.sharding import set_mesh
-    with set_mesh(None):
+    with set_mesh(None), describing():
         return get_model(cfg).make_cache(cfg, shape.global_batch,
                                          shape.seq_len, device="meta")
 
 
 def param_specs(cfg: ArchConfig) -> Any:
     """The parameter tree on ``meta`` (no allocation)."""
-    return get_model(cfg).init(cfg, None, "meta")
+    from repro_torch.common.describe import describing
+    with describing():
+        return get_model(cfg).init(cfg, None, "meta")
 
 
 # ----------------------------------------------------------------------

@@ -60,7 +60,11 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.configs.yi_34b", "repro_torch.models.moe",
              "repro_torch.configs.qwen3_moe_30b_a3b",
              "repro_torch.configs.deepseek_v2_lite_16b",
-             "repro_torch.launch.dryrun_lib"):
+             "repro_torch.launch.dryrun_lib", "repro_torch.launch.dryrun",
+             "repro_torch.roofline", "repro_torch.roofline.constants",
+             "repro_torch.roofline.report",
+             "repro_torch.roofline.collectives",
+             "repro_torch.roofline.trace"):
     assert name in names, name
 print(len(names))
 """
