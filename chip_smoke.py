@@ -204,7 +204,23 @@ Phases, each printing its lines:
    with the rank's slices (collectives faked: no bytes move); the
    measured peak within 10 % of the traced ``total_bytes_per_device``
    and each kernel's launches equal to the traced count;
-6. a profile of a few main-path epochs of the quickstart group, of
+6. the gate benches' twins (``repro_torch/benchmarks``) at their smoke
+   sizes, each through its ``main`` with its launches counted:
+   ``[bench] wavg`` (the eq. 4 share step's five gates: one launch per
+   share step, the int8 step's peak above its inputs ≤ ½ of a dequant,
+   the kernels bitwise their plain versions; the roofline record and
+   the sweep with the kernels' times beside the H100 bounds),
+   ``[bench] sketch`` (the relevance sketch's four gates at scales 4, 8,
+   16), ``[bench] fault`` (the fault transport's three gates),
+   ``[bench] topology`` (the smoke sweep and the hetero cells),
+   ``[bench] cadence`` (llama3.2-3b at its published widths, 2 layers:
+   share steps as planned, one flash launch per layer, agent and step)
+   and ``[bench] ablation`` (three cells, one of each family, at 500
+   epochs: one launch per share step, the delayed pieces heard by the
+   last share step); all in child processes started
+   beside the card-against-CPU phases of 5 (whose times nothing reads)
+   and waited for after them; a failed gate fails the run;
+7. a profile of a few main-path epochs of the quickstart group, of
    the fourth run's configuration and of the DDADQN n = 2 group (the
    device's busy share, the ops that take the time and the host-clock
    split of an epoch), and of
@@ -2901,6 +2917,19 @@ MESH_DIR = ROOT / "build" / "mesh_phase"
 MESH_TIMEOUT = 600                     # s, the launcher's run on the card
 
 
+def _child_env(with_root: bool = False) -> dict:
+    """The environment of a child process: this one's, with the
+    checkout's ``src/`` (and, for children that import this script, its
+    root) ahead of ``PYTHONPATH``."""
+    import os
+
+    env = dict(os.environ)
+    paths = [str(ROOT / "src")] + ([str(ROOT)] if with_root else [])
+    env["PYTHONPATH"] = os.pathsep.join(
+        paths + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
 def start_mesh_run():
     """Starts the launcher's ``--mesh pods`` on the card in the
     background: ``python -m torch.distributed.run --standalone
@@ -2909,16 +2938,11 @@ def start_mesh_run():
     pod of 4, 4 steps), its output in files under build/. It runs beside
     the CPU-bound card-against-CPU phases, whose times nothing reads;
     ``mesh_phase`` waits for it. Returns (the process, its start)."""
-    import os
-
     MESH_DIR.mkdir(parents=True, exist_ok=True)
     for name in ("mesh.npz", "one.npz"):
         if (MESH_DIR / name).exists():
             (MESH_DIR / name).unlink()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
+    env = _child_env()
     with open(MESH_DIR / "mesh.out", "w") as out, \
             open(MESH_DIR / "mesh.err", "w") as err:
         proc = subprocess.Popen(
@@ -5091,12 +5115,7 @@ def dryrun_child(card: str) -> int:
 def start_dryrun_run(card: str):
     """Starts :func:`dryrun_child` in a child process in the background;
     returns (the process, its start)."""
-    import os
-
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src"), str(ROOT)] + (
-            [env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    env = _child_env(with_root=True)
     proc = subprocess.Popen(
         [sys.executable, "-c",
          "import sys, chip_smoke; sys.exit(chip_smoke.dryrun_child("
@@ -5125,6 +5144,242 @@ def dryrun_phase(run):
           f"{out[-2000:]}{err[-2000:]}")
 
 
+# ---------------------------------------------------------------------
+# [bench]: the gate benches' twins (repro_torch/benchmarks) at their
+# smoke sizes on the card
+# ---------------------------------------------------------------------
+BENCH_DIR = ROOT / "build" / "bench_phase"
+# three ablation cells, one of each family (a delay above the cadence,
+# a non-default T-weighting, ring on 4 agents), at a cut budget: sharing
+# from epoch 200, share steps at 200, 300 and 400; each cell a child
+# process. By the step at 400 each agent of the two stale cells has
+# heard the other's 51 pieces of epochs 200..250 (delayed by 150), each
+# agent of the ring cell its two neighbours' 201 of 200..400
+# (BENCH_ABLATION_HEARD)
+BENCH_ABLATION_EPOCHS = 500
+BENCH_ABLATION_CELLS = ("2", "5", "7")
+BENCH_ABLATION_SHARES = 3
+BENCH_ABLATION_HEARD = {"2": 51, "5": 51, "7": 2 * 201}
+BENCH_ABLATION_TIMEOUT = 300        # s
+BENCH_CADENCE_LAYERS = 2
+BENCH_CADENCE_STEPS = 12
+
+
+def start_ablation_run():
+    """Starts ``BENCH_ABLATION_CELLS`` of ``repro_torch.benchmarks.
+    ablation_ddal`` as child processes, one per cell, writing JSON under
+    build/; they run beside ``bench_child`` and ``ablation_phase`` waits
+    for them. Returns [(process, json path)]
+    and the start."""
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    env = _child_env()
+    runs = []
+    for cell in BENCH_ABLATION_CELLS:
+        path = BENCH_DIR / f"ablation_{cell}.json"
+        if path.exists():
+            path.unlink()
+        with open(BENCH_DIR / f"ablation_{cell}.log", "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.benchmarks.ablation_ddal",
+                 "--epochs", str(BENCH_ABLATION_EPOCHS), "--cells", cell,
+                 "--json", str(path)],
+                cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+                text=True, start_new_session=True)
+        runs.append((proc, path))
+    return runs, time.perf_counter()
+
+
+def ablation_phase(run):
+    """Waits for ``start_ablation_run``'s cells: each exits 0 with a
+    finite tail return, one share-step launch (``fused_wavg``) per
+    share step and the pieces from other agents that
+    ``BENCH_ABLATION_HEARD`` says heard by the last share step. Returns
+    {kernel: {path: launches}}."""
+    runs, t0 = run
+    label = "[bench] ablation"
+    total = 0
+    for cell, (proc, path) in zip(BENCH_ABLATION_CELLS, runs):
+        try:
+            proc.wait(timeout=max(1.0, BENCH_ABLATION_TIMEOUT
+                                  - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            stop_mesh_run(proc)
+            raise SmokeFailure(f"{label}: a cell ran past "
+                               f"{BENCH_ABLATION_TIMEOUT} s")
+        log = path.with_suffix(".log")
+        check(proc.returncode == 0 and path.exists(),
+              f"{label}: a cell exited {proc.returncode}: "
+              f"{log.read_text()[-2000:] if log.exists() else ''}")
+        row = json.loads(path.read_text())["rows"][0]
+        print(f"{label}: {row['cell']}, {BENCH_ABLATION_EPOCHS} epochs "
+              f"(share from {BENCH_ABLATION_EPOCHS * 2 // 5}, cadence 100): "
+              f"tail mean {row['tail_mean']:.2f} std {row['tail_std']:.2f}, "
+              f"{row['epochs_per_s']:.2f} epochs/s, fused_wavg launches "
+              f"{row['share_launches']}, pieces from others heard by "
+              f"the last share step {row['heard_by_last_share']}")
+        check(math.isfinite(row["tail_mean"])
+              and row["share_launches"] == BENCH_ABLATION_SHARES
+              and row["heard_by_last_share"] == BENCH_ABLATION_HEARD[cell],
+              f"{label}: {row['cell']}: {row}")
+        total += row["share_launches"]
+    return {"ddal_fused_wavg": {label: total}}
+
+
+def _bench_main(label, fn):
+    """Runs a twin's ``main``; a failed gate (its non-zero exit) is a
+    SmokeFailure. Returns (its result, the launches it made)."""
+    reset_launches()
+    try:
+        out = fn()
+    except SystemExit as exc:
+        raise SmokeFailure(f"{label}: {exc}")
+    launched = launch_counts()
+    print(f"{label}: launches " + ", ".join(
+        f"{k} {v}" for k, v in launched.items() if v))
+    return out, {k: {label: v} for k, v in launched.items() if v}
+
+
+def bench_phases(torch, lap):
+    """The twins' gate benches at their smoke sizes on the card, each
+    through its ``main`` as a user runs it (JSON under build/): wavg
+    (its five gates, the roofline record, the sweep), sketch (its four
+    gates at scales 4, 8, 16), fault (its three gates), topology (the
+    smoke sweep and the hetero cells), cadence (llama3.2-3b at its
+    published widths, BENCH_CADENCE_LAYERS layers: share steps as the
+    trainer plans them and the flash kernel once per layer, agent and
+    step). Returns [{kernel: {path: launches}}]."""
+    from repro_torch.benchmarks import (bench_fault_transport,
+                                        bench_relevance_sketch,
+                                        bench_topology_scaling,
+                                        bench_train_throughput,
+                                        bench_wavg_kernel)
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    out = []
+
+    def args(name):
+        return ["--smoke", "--device", "cuda", "--json",
+                str(BENCH_DIR / f"{name}.json")]
+
+    payload, launched = _bench_main("[bench] wavg", lambda: (
+        bench_wavg_kernel.main(args("wavg"))))
+    roof = payload["roofline"]
+    print(f"[bench] wavg: gates " + ", ".join(
+        f"{k} {'ok' if g['pass'] else 'FAIL'}"
+        for k, g in payload["gates"].items())
+        + f"; one pass: {payload['gates']['one_pass']['launches_fp32']} + "
+        f"{payload['gates']['one_pass']['launches_int8']} launches, int8 "
+        f"peak {payload['gates']['one_pass']['card_quant_peak_mb']:.3f} MB "
+        f"of {payload['gates']['one_pass']['full_dequant_mb']:.0f} MB; "
+        f"{roof['shape']}: fused fp32 "
+        f"{roof['card_kernel']['fused_fp32_us']:.1f} us (bound "
+        f"{roof['h100_bound']['fused_fp32_us']:.1f}), int8 "
+        f"{roof['card_kernel']['fused_int8_us']:.1f} us (bound "
+        f"{roof['h100_bound']['fused_int8_us']:.1f})")
+    out.append(launched)
+    lap("[bench] wavg")
+
+    payload, launched = _bench_main("[bench] sketch", lambda: (
+        bench_relevance_sketch.main(args("sketch"))))
+    out.append(launched)
+    lap("[bench] sketch")
+
+    rows, launched = _bench_main("[bench] fault", lambda: (
+        bench_fault_transport.main(args("fault"))))
+    check(rows[0]["same_ops"] and rows[0]["share_launches"] == 1,
+          f"[bench] fault: {rows[0]}")
+    out.append(launched)
+    lap("[bench] fault")
+
+    rows, launched = _bench_main("[bench] topology", lambda: (
+        bench_topology_scaling.main(args("topology"))))
+    check(all(math.isfinite(r.get("epoch_ms", 0.0)) for r in rows)
+          and sum(r["topology"] == "hetero" for r in rows) == 4,
+          f"[bench] topology: {rows}")
+    out.append(launched)
+    lap("[bench] topology")
+
+    label = f"[bench] cadence, {LLAMA}, {BENCH_CADENCE_LAYERS} layers"
+    rows, launched = _bench_main(label, lambda: (
+        bench_train_throughput.main(
+            LLAMA, BENCH_CADENCE_STEPS, device="cuda", full_width=True,
+            layers=BENCH_CADENCE_LAYERS,
+            json_path=str(BENCH_DIR / "cadence.json"))))
+    want_flash = BENCH_CADENCE_LAYERS * 2 * BENCH_CADENCE_STEPS
+    for r in rows:
+        check(r["shares"] == r["planned_shares"]
+              and r["flash_launches"] == want_flash,
+              f"{label}: cadence {r['cadence']}: {r['shares']} share steps "
+              f"(planned {r['planned_shares']}), flash launches "
+              f"{r['flash_launches']} (want {want_flash})")
+    out.append(launched)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("[bench] cadence")
+    return out
+
+
+BENCH_TIMEOUT = 600        # s, the [bench] child's run
+
+
+def bench_child() -> int:
+    """Runs ``bench_phases`` in this process, a child that the smoke run
+    starts beside its CPU-bound card-against-CPU phases: its lines, a
+    ``[time]`` line per phase, and last ``[bench-launches] <json>``.
+    Exits 0 if every gate passed."""
+    import torch
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    marks = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - marks[-1]:.1f} s", flush=True)
+        marks.append(now)
+    try:
+        out = bench_phases(torch, lap)
+    except SmokeFailure as exc:
+        print(f"[bench] FAILED: {exc}", flush=True)
+        return 1
+    print("[bench-launches] " + json.dumps(out), flush=True)
+    return 0
+
+
+def start_bench_run():
+    """Starts :func:`bench_child` and the ablation cells
+    (``start_ablation_run``) in the background; returns ((the child, its
+    start), the cells' run)."""
+    env = _child_env(with_root=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys, chip_smoke; sys.exit(chip_smoke.bench_child())"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    return (proc, time.perf_counter()), start_ablation_run()
+
+
+def bench_phase(run):
+    """Waits for ``start_bench_run``'s child, passes its lines on and
+    fails if it failed or ran past BENCH_TIMEOUT; then the ablation
+    cells (``ablation_phase``). Returns [{kernel: {path: launches}}]."""
+    (proc, t0), ablation = run
+    try:
+        out, err = proc.communicate(timeout=max(
+            1.0, BENCH_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_mesh_run(proc)
+        raise SmokeFailure(f"[bench]: the child ran past {BENCH_TIMEOUT} s")
+    lines = out.splitlines()
+    for ln in lines:
+        if not ln.startswith("[bench-launches] "):
+            print(ln)
+    done = [ln for ln in lines if ln.startswith("[bench-launches] ")]
+    check(proc.returncode == 0 and len(done) == 1,
+          f"[bench]: the child exited {proc.returncode}: {err[-3000:]}")
+    launched = json.loads(done[0][len("[bench-launches] "):])
+    launched.append(ablation_phase(ablation))
+    return launched
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5145,7 +5400,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     marks = [t_start]
-    mesh_run = dry_run = None
+    mesh_run = dry_run = bench_run = None
 
     def lap(label):
         now = time.perf_counter()
@@ -5308,6 +5563,7 @@ def main() -> int:
         lap("equivalence")
         mesh_run = start_mesh_run()
         dry_run = start_dryrun_run(card)
+        bench_run = start_bench_run()
         equiv_serve_phase(torch, "mamba2-780m", prompts)
         cut = _cut_to_two_layers(torch, LLAMA)
         equiv_score_phase(torch, cut)
@@ -5335,6 +5591,11 @@ def main() -> int:
         dryrun_phase(dry_run)
         dry_run = None
         lap("mesh and dryrun")
+        for paths in bench_phase(bench_run):
+            for name, by_path in paths.items():
+                launches[name].update(by_path)
+        bench_run = None
+        lap("[bench] (a child beside the equivalence phases)")
         spent = time.perf_counter() - t_start
         if spent > PROFILE_DEADLINE:
             print(f"[profile] skipped: {spent:.1f} s spent, past "
@@ -5352,6 +5613,10 @@ def main() -> int:
             stop_mesh_run(mesh_run[0])
         if dry_run is not None:
             stop_mesh_run(dry_run[0])
+        if bench_run is not None:
+            stop_mesh_run(bench_run[0][0])
+            for proc, _ in bench_run[1][0]:
+                stop_mesh_run(proc)
     # "launches" is the count of the kernel's first path; every path
     # that drives it, each zeroed just before its run, is listed beside
     for name, row in table.items():

@@ -43,6 +43,123 @@ def _device_name(device: torch.device) -> str:
     return str(device)
 
 
+# ---------------------------------------------------------------------
+# the gate benches' shared helpers (bench_wavg_kernel, bench_relevance_
+# sketch, bench_fault_transport, bench_topology_scaling, ...)
+# ---------------------------------------------------------------------
+def device_info(device) -> dict:
+    """What a bench's JSON records of where it ran: the device, and on
+    the card its name and power limit as ``nvidia-smi`` prints them
+    (``None`` where it cannot be read)."""
+    dev = torch.device(device)
+    info = {"device": dev.type, "name": _device_name(dev), "card": None}
+    if dev.type == "cuda":
+        import subprocess
+        try:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60)
+            if smi.returncode == 0 and smi.stdout.strip():
+                info["card"] = smi.stdout.strip().splitlines()[0]
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return info
+
+
+def synchronize(device) -> None:
+    """Wait for the work queued on the card (the reference's
+    ``block_until_ready``); nothing to wait for on the host."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def wall_s(thunk, device) -> float:
+    """Host seconds of one call, the card synchronised after it."""
+    t0 = time.perf_counter()
+    thunk()
+    synchronize(device)
+    return time.perf_counter() - t0
+
+
+def best_ms(thunk, device, repeats: int = 5) -> float:
+    """Best-of-``repeats`` ms of one call after one warm-up call. On the
+    card: CUDA events around the call, queued while a spin kernel holds
+    the card for 1.5× the host's time to queue the call (at 2 GHz; the
+    card's clock is at most 1.98 GHz), so the events time the card's
+    work and not the host's launches. On the host: the host clock."""
+    thunk()
+    synchronize(device)
+    if torch.device(device).type != "cuda":
+        return min(wall_s(thunk, device) for _ in range(repeats)) * 1e3
+    t0 = time.perf_counter()
+    thunk()
+    host_s = time.perf_counter() - t0
+    synchronize(device)
+    best = float("inf")
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(host_s * 1.5 * 2e9) + 1_000_000)
+        start.record()
+        thunk()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end))
+    return best
+
+
+def epoch_ms(thunk, epochs: int, device, repeats: int = 5) -> float:
+    """Best-of-``repeats`` host ms per epoch of ``thunk`` (a run of
+    ``epochs`` epochs, the card synchronised after it), after one
+    warm-up call."""
+    thunk()
+    synchronize(device)
+    return min(wall_s(thunk, device) for _ in range(repeats)) \
+        / epochs * 1e3
+
+
+def pair_best_s(ta, tb, device, repeats: int, alternate: bool = False):
+    """Interleaved best-of-``repeats`` host seconds of two thunks (A B A
+    B …, or with ``alternate`` the order flipping every round), after
+    one warm-up call each, so that both see the same load."""
+    ta()
+    tb()
+    synchronize(device)
+    best_a = best_b = float("inf")
+    for r in range(repeats):
+        flip = alternate and r % 2 == 1
+        for which in ((1, 0) if flip else (0, 1)):
+            dt = wall_s(ta if which == 0 else tb, device)
+            if which == 0:
+                best_a = min(best_a, dt)
+            else:
+                best_b = min(best_b, dt)
+    return best_a, best_b
+
+
+def clone_state(x):
+    """A copy of a group state whose tensors share nothing with ``x``
+    (``DDAL.epoch_step`` updates the delay line in place, so a timed
+    run restarts from a copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, np.ndarray):
+        return x.copy()
+    if isinstance(x, dict):
+        return {k: clone_state(v) for k, v in x.items()}
+    if hasattr(x, "_fields"):
+        return type(x)(*(clone_state(v) for v in x))
+    return x
+
+
+def write_json(path: str, payload: dict) -> None:
+    import json
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2, default=float)
+    print(f"wrote {path}")
+
+
 @dataclasses.dataclass
 class RunResult:
     rewards: np.ndarray          # (epochs, n_agents)

@@ -354,6 +354,25 @@ class BlockLayout:
         return self._on[key]
 
 
+def tree_weighted_sum(trees_stacked, weights: torch.Tensor):
+    """Σ_j weights[j]·leaf[j] over the leading (m,) axis of every leaf
+    (the reference's ``tree_weighted_sum``, the contraction of eq. 4's
+    historical multi-op share step); ``trees_stacked`` is an (m, P)
+    tensor of flat rows or a nest of dicts of stacked leaves. The
+    pieces are added left to right from zero, each a separately
+    rounded multiply and add: the order of the port's share step
+    (``kernels/ddal_wavg/ref.py::wavg``), so the fused step and this
+    spelling of it agree to the bit."""
+    def wsum(leaf):
+        w = weights.to(leaf.dtype)
+        acc = torch.zeros(leaf.shape[1:], dtype=leaf.dtype,
+                          device=leaf.device)
+        for j in range(leaf.shape[0]):
+            acc = acc + w[j] * leaf[j]
+        return acc
+    return tree_map(wsum, trees_stacked)
+
+
 def global_norm_clip(grads: torch.Tensor, max_norm: float
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Global-norm clipping of every agent row on its own; returns

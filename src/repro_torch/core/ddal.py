@@ -211,8 +211,9 @@ class DDAL:
             empty = (self.apply_grads(astates, grads)
                      if self.local_fallback else astates)
             astates = tree_select(wsum > 0, updated, empty)
-        if alive_dev is not None:
+        if alive_dev is not None and not alive.all():
             # a dead agent is frozen: its pre-epoch state is restored
+            # (with every agent alive the select would keep every row)
             astates = tree_select(alive_dev, astates, gs.agent_states)
 
         new_gs = GroupState(agent_states=astates, stores=stores,

@@ -42,6 +42,28 @@ def cosine_rows(g: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return torch.where(eye, torch.ones_like(c), c)
 
 
+def flatten_agents(grads) -> torch.Tensor:
+    """The (n, P) fp32 concat of every agent's flattened gradients, from
+    (n, P) rows or a tree of stacked (n, *param) leaves in
+    ``jax.tree_util`` order. A test oracle only (the reference's
+    ``flatten_agents``): it copies every agent's gradients once."""
+    if isinstance(grads, torch.Tensor):
+        return grads.to(torch.float32)
+    leaves = [x for _, x in tree_leaves_with_paths(grads)]
+    n = leaves[0].shape[0]
+    return torch.cat([x.reshape(n, -1).to(torch.float32) for x in leaves],
+                     dim=1)
+
+
+def flatten_cosine(grads, eps: float = 1e-8) -> torch.Tensor:
+    """The retired exact estimator, op for op the reference's
+    ``flatten_cosine``: the (n, P) concat (``flatten_agents``), then
+    ``cosine_rows``. Kept only as the oracle of
+    ``benchmarks/bench_relevance_sketch.py``'s memory and equivalence
+    gates; no trainer calls it."""
+    return cosine_rows(flatten_agents(grads), eps)
+
+
 def grad_cosine(grads, eps: float = 1e-8, gather=None,
                 shards=None) -> torch.Tensor:
     """Exact pairwise cosine of the agents' gradients → symmetric (n, n)
@@ -72,6 +94,7 @@ def grad_cosine(grads, eps: float = 1e-8, gather=None,
                 sq = torch.zeros((gf.shape[0],), dtype=torch.float32,
                                  device=dev)
             sq = sq + torch.sum(gf * gf, dim=1)
+            gf = None           # one chunk's copy alive at a time
     if shards is not None:
         if sq is None:             # no leaf of its own on this rank
             first = next(x for _, x in tree_leaves_with_paths(grads))
@@ -86,6 +109,7 @@ def grad_cosine(grads, eps: float = 1e-8, gather=None,
         for cols in column_chunks(g.shape[1]):
             gn = chunk(g, cols) / denom
             C = C + gn @ gn.T
+            gn = None
     if shards is not None:
         shards.all_reduce(C)
     c = torch.clamp(C, -1.0, 1.0)
@@ -93,13 +117,17 @@ def grad_cosine(grads, eps: float = 1e-8, gather=None,
     return torch.where(eye, torch.ones_like(c), c)
 
 
-def sketch_cosine(grads: torch.Tensor, dim: int, seed: int,
+def sketch_cosine(grads, dim: int, seed: int,
                   eps: float = 1e-8) -> torch.Tensor:
-    """Cosines of the (n, dim) sketches of the gradient rows, projected
-    at offset 0 by the sketch kernel (its plain version on the CPU);
-    ``seed`` is the round's folded seed (``fold_seed``)."""
+    """Cosines of the (n, dim) sketches of the gradients, projected by
+    the sketch kernel (its plain version on the CPU): (n, P) rows in one
+    launch at offset 0, a tree of stacked leaves one launch per leaf
+    (``sketch_pytree``, never the (n, P) concat); ``seed`` is the
+    round's folded seed (``fold_seed``)."""
     from repro_torch.kernels.grad_sketch import ops as sketch_ops
-    return cosine_rows(sketch_ops.sketch_flat(grads, seed, dim), eps)
+    if isinstance(grads, torch.Tensor):
+        return cosine_rows(sketch_ops.sketch_flat(grads, seed, dim), eps)
+    return cosine_rows(sketch_ops.sketch_pytree(grads, seed, dim), eps)
 
 
 def fold_seed(seed: int, rnd: int) -> int:

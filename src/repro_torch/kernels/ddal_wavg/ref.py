@@ -36,7 +36,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.common.pytree import BlockLayout
+from repro_torch.common.pytree import BlockLayout, column_chunks
 from repro_torch.core.weighting import eq4_weights, sequential_sum
 
 
@@ -56,20 +56,28 @@ def fused_wavg(G: torch.Tensor, T: torch.Tensor, R: torch.Tensor,
     return wavg(G, w), sequential_sum(w)
 
 
+#: columns the int8 step dequantises at a time: its fp32 temporaries are
+#: (n, Q_CHUNK) whatever P, so it never holds a dequantised plane (the
+#: reference's streaming-dequant bound, ``bench_wavg_kernel``'s gate 3)
+Q_CHUNK = 1 << 18
+
+
 def fused_wavg_q(Q: torch.Tensor, scale: torch.Tensor, T: torch.Tensor,
                  R: torch.Tensor, valid: torch.Tensor, blocks: BlockLayout
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ḡ (n, P), Σw (n,)) over int8 pieces Q (n, m, P) with scales
-    (n, m, nb) laid out by ``blocks``."""
+    (n, m, nb) laid out by ``blocks``, ``Q_CHUNK`` columns at a time
+    (each element's ops are the same whatever the chunk)."""
     cols = blocks.on(Q.device)[0]
     w = eq4_weights(T, R, valid)
-    acc = torch.zeros(Q.shape[:-2] + Q.shape[-1:], dtype=torch.float32,
+    out = torch.zeros(Q.shape[:-2] + Q.shape[-1:], dtype=torch.float32,
                       device=Q.device)
-    for j in range(Q.shape[-2]):
-        x = Q[..., j, :].to(torch.float32) * scale[..., j, :].index_select(
-            -1, cols)
-        acc = acc + w[..., j, None] * x
-    return acc, sequential_sum(w)
+    for sl in column_chunks(Q.shape[-1], Q_CHUNK):
+        for j in range(Q.shape[-2]):
+            x = Q[..., j, sl].to(torch.float32) * scale[
+                ..., j, :].index_select(-1, cols[sl])
+            out[..., sl].add_(w[..., j, None] * x)
+    return out, sequential_sum(w)
 
 
 def quantize_flat(G: torch.Tensor, blocks: BlockLayout

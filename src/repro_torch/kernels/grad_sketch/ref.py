@@ -23,6 +23,7 @@ MIX_CONSTANTS = (0x9E3779B1, 0x85EBCA77, 0xC2B2AE3D)
 _P1, _P2, _P3 = MIX_CONSTANTS
 MASK32 = 0xFFFFFFFF
 TILE = 4096                  # positions per materialised sign block
+HASH_ROWS = 256              # positions hashed at a time on the host
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -82,22 +83,31 @@ def sketch_flat(G: torch.Tensor, seed: int, dim: int, offset: int = 0,
     """G (n, P) → G · S (n, d) fp32 with S[p, j] = sign_block(seed,
     offset + p, ...), or, with ``position_map`` = (stride, c0, width) (a
     strided shard of a leaf), the signs of positions ``shard_positions``.
-    S is materialised ``tile`` positions at a time, and each tile's
-    product is added to the sum in order. Each row's product is taken
+    S is materialised ``tile`` positions at a time (on the host hashed
+    ``HASH_ROWS`` positions at a time, so the int64 hash's temporaries
+    stay a few MiB; on the card a tile at once, in a sixteenth of the
+    launches), and each tile's product is added to the sum in order. Each row's product is taken
     alone (a vector-matrix product): a matrix product's order of adds
     may change with the number of rows, and a row's sketch must not
     depend on which rows share the call (a rank of a device mesh
     projects its own agents' rows)."""
     n, p = G.shape
     acc = torch.zeros((n, dim), dtype=torch.float32, device=G.device)
+    rows = tile if G.is_cuda else HASH_ROWS
     for start in range(0, p, tile):
         width = min(tile, p - start)
-        if position_map is None:
-            S = sign_block(seed, offset + start, width, dim, G.device)
-        else:
-            pos = shard_positions(start, width, offset, *position_map,
-                                  device=G.device)
-            S = 1.0 - 2.0 * _hash_bits(seed, pos, dim).to(torch.float32)
+        S = torch.empty((width, dim), dtype=torch.float32, device=G.device)
+        for h in range(0, width, rows):
+            w = min(rows, width - h)
+            if position_map is None:
+                S[h:h + w] = sign_block(seed, offset + start + h, w, dim,
+                                        G.device)
+            else:
+                pos = shard_positions(start + h, w, offset, *position_map,
+                                      device=G.device)
+                S[h:h + w] = 1.0 - 2.0 * _hash_bits(seed, pos, dim).to(
+                    torch.float32)
         part = G[:, start:start + width].to(torch.float32)
         acc = acc + torch.stack([row @ S for row in part])
+        S = None                     # one tile's signs alive at a time
     return acc

@@ -64,7 +64,14 @@ for name in ("repro_torch.kernels.ssd_scan.ops", "repro_torch.models.ssm_model",
              "repro_torch.roofline", "repro_torch.roofline.constants",
              "repro_torch.roofline.report",
              "repro_torch.roofline.collectives",
-             "repro_torch.roofline.trace"):
+             "repro_torch.roofline.trace",
+             "repro_torch.benchmarks.bench_wavg_kernel",
+             "repro_torch.benchmarks.bench_relevance_sketch",
+             "repro_torch.benchmarks.bench_fault_transport",
+             "repro_torch.benchmarks.bench_topology_scaling",
+             "repro_torch.benchmarks.ablation_ddal",
+             "repro_torch.benchmarks.bench_train_throughput",
+             "repro_torch.benchmarks.run"):
     assert name in names, name
 print(len(names))
 """
